@@ -1,0 +1,61 @@
+"""RAFT-style residual feature encoder (port of
+:mod:`pvo_tpu.vo.net.extractor`).
+
+7x7 stride-2 stem, three 2-block residual stages (32/64/128 channels,
+strides 1/2/2) to 1/8 resolution, 1x1 output conv. Module names follow
+the reference state dict (``conv1``, ``layer1.0.conv1``,
+``layer2.0.downsample.0`` ...), so a reference checkpoint loads with
+``load_state_dict``.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .layers import make_norm, nchw, nhwc
+
+DIM = 32
+
+
+class ResidualBlock(nn.Module):
+    def __init__(self, in_planes, planes, norm_fn="instance", stride=1):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_planes, planes, 3, stride, padding=1)
+        self.conv2 = nn.Conv2d(planes, planes, 3, 1, padding=1)
+        self.norm1 = make_norm(norm_fn)
+        self.norm2 = make_norm(norm_fn)
+        if stride != 1 or in_planes != planes:
+            self.downsample = nn.Sequential(
+                nn.Conv2d(in_planes, planes, 1, stride), make_norm(norm_fn))
+        else:
+            self.downsample = None
+
+    def forward(self, x):
+        y = torch.relu(self.norm1(self.conv1(x)))
+        y = torch.relu(self.norm2(self.conv2(y)))
+        if self.downsample is not None:
+            x = self.downsample(x)
+        return torch.relu(x + y)
+
+
+class BasicEncoder(nn.Module):
+    def __init__(self, output_dim=128, norm_fn="instance"):
+        super().__init__()
+        self.conv1 = nn.Conv2d(3, DIM, 7, 2, padding=3)
+        self.norm1 = make_norm(norm_fn)
+        layers, cin = [], DIM
+        for dim, stride in [(DIM, 1), (2 * DIM, 2), (4 * DIM, 2)]:
+            layers.append(nn.Sequential(
+                ResidualBlock(cin, dim, norm_fn, stride),
+                ResidualBlock(dim, dim, norm_fn, 1)))
+            cin = dim
+        self.layer1, self.layer2, self.layer3 = layers
+        self.conv2 = nn.Conv2d(4 * DIM, output_dim, 1)
+
+    def forward(self, x):
+        """x: (..., H, W, 3) normalized images -> (..., H/8, W/8, out)."""
+        lead = x.shape[:-3]
+        y = torch.relu(self.norm1(self.conv1(nchw(x))))
+        y = self.layer3(self.layer2(self.layer1(y)))
+        return nhwc(self.conv2(y), lead)

@@ -1,0 +1,67 @@
+"""Shared layers: instance norm, the gradient-clip marker, conv init.
+
+Port of :mod:`pvo_tpu.vo.net.layers`. The modules of this package keep
+the JAX package's channels-last (NHWC) layout at their public
+``forward``; inside they run PyTorch's NCHW convolutions on permuted
+views (the strides of a permuted NHWC tensor are PyTorch's
+channels-last memory format, so no copy is made).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+
+def nchw(x):
+    """(..., H, W, C) view -> (N, C, H, W) view."""
+    return x.reshape((-1,) + tuple(x.shape[-3:])).permute(0, 3, 1, 2)
+
+
+def nhwc(x, lead=None):
+    """(N, C, H, W) -> (*lead, H, W, C) (``lead`` defaults to (N,))."""
+    y = x.permute(0, 2, 3, 1)
+    return y if lead is None else y.reshape(tuple(lead) + y.shape[1:])
+
+
+class InstanceNorm(nn.Module):
+    """InstanceNorm2d without affine parameters (torch default): each
+    (sample, channel) normalized over H, W with biased variance."""
+
+    def __init__(self, eps=1e-5):
+        super().__init__()
+        self.eps = eps
+
+    def forward(self, x):
+        mean = x.mean(dim=(-2, -1), keepdim=True)
+        var = torch.square(x - mean).mean(dim=(-2, -1), keepdim=True)
+        return (x - mean) * torch.rsqrt(var + self.eps)
+
+
+def make_norm(norm_fn: str) -> nn.Module:
+    if norm_fn == "instance":
+        return InstanceNorm()
+    if norm_fn == "none":
+        return nn.Identity()
+    raise NotImplementedError(f"norm_fn={norm_fn!r}")
+
+
+class GradientClip(nn.Module):
+    """Identity in the forward pass (the reference's GradientClip marks
+    where gradients are clipped in training; that backward is not ported
+    yet)."""
+
+    def forward(self, x):
+        return x
+
+
+def init_conv_weights(module: nn.Module, generator: torch.Generator):
+    """Kaiming-normal (fan_out, relu) conv weights and zero biases, drawn
+    from ``generator`` (the JAX package's random init scheme)."""
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):
+            nn.init.kaiming_normal_(m.weight, mode="fan_out",
+                                    nonlinearity="relu",
+                                    generator=generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)

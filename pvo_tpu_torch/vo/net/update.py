@@ -1,0 +1,125 @@
+"""Dynamic update operator and graph aggregation (port of
+:mod:`pvo_tpu.vo.net.update`).
+
+A ConvGRU updates a per-edge hidden state from correlation + motion
+features; four heads predict camera-flow delta, dynamic-flow delta,
+confidence logits and a dynamic-mask logit delta. GraphAgg mean-pools
+hidden states over edges sharing a source frame (scatter-mean with f32
+accumulation via ``index_add_``) and produces per-frame BA damping.
+Edges are a flat leading dim (E, H, W, C); module names follow the
+reference state dict (``update.corr_encoder.0``, ``update.agg.eta.0``).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .gru import ConvGRU
+from .layers import GradientClip
+
+CORR_PLANES = 4 * (2 * 3 + 1) ** 2  # 4 levels x 7x7 window = 196
+MASK_NUM = 2
+
+
+def _head(out):
+    return nn.Sequential(nn.Conv2d(128, 128, 3, padding=1), nn.ReLU(),
+                         nn.Conv2d(128, out, 3, padding=1), GradientClip())
+
+
+class GraphAgg(nn.Module):
+    """Per-frame aggregation of edge hidden states.
+
+    ``seg_ids``: (E,) ids mapping each edge to its source-frame slot in
+    [0, num_frames); id == num_frames drops the edge. :meth:`pre` (per-
+    edge conv) and :meth:`post` (per-frame convs + heads) are split so a
+    caller can accumulate the scatter-sum over edge chunks."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv1 = nn.Conv2d(128, 128, 3, padding=1)
+        self.conv2 = nn.Conv2d(128, 128, 3, padding=1)
+        self.eta = nn.Sequential(nn.Conv2d(128, 1, 3, padding=1),
+                                 GradientClip(), nn.Softplus())
+        self.upmask_disp = nn.Sequential(nn.Conv2d(128, 8 * 8 * 9, 1))
+
+    def pre(self, net):
+        """(E,128,H,W) NCHW -> per-edge activations before the mean."""
+        return torch.relu(self.conv1(net))
+
+    def post(self, mean, upmask=True):
+        """Per-frame tail on the scatter-mean (NCHW). Returns (eta,
+        upmask) with upmask None when not requested."""
+        y = torch.relu(self.conv2(mean))
+        eta = 0.01 * self.eta(y)
+        return eta, (self.upmask_disp(y) if upmask else None)
+
+    @staticmethod
+    def scatter_mean(x, seg_ids, num_frames):
+        """f32 scatter-mean of (E, ...) rows into (num_frames, ...)."""
+        E = x.shape[0]
+        summed = torch.zeros((num_frames + 1,) + x.shape[1:],
+                             dtype=torch.float32, device=x.device)
+        summed.index_add_(0, seg_ids, x.float())
+        counts = torch.zeros(num_frames + 1, dtype=torch.float32,
+                             device=x.device)
+        counts.index_add_(0, seg_ids, torch.ones(E, device=x.device))
+        shape = (num_frames,) + (1,) * (x.dim() - 1)
+        return summed[:num_frames] / counts[:num_frames].clamp(
+            min=1.0).reshape(shape)
+
+    def forward(self, net, seg_ids, num_frames):
+        """net (E,H,W,128) NHWC -> (eta (F,H,W,1), upmask (F,H,W,576))."""
+        x = self.pre(net.permute(0, 3, 1, 2))
+        mean = self.scatter_mean(x, seg_ids, num_frames).to(x.dtype)
+        eta, upmask = self.post(mean)
+        return eta.permute(0, 2, 3, 1), upmask.permute(0, 2, 3, 1)
+
+
+class DynamicUpdateModule(nn.Module):
+    """The PVO update operator (4 heads + dynamic mask)."""
+
+    HEADS = (("delta", "delta"), ("delta_dy", "delta_dy"),
+             ("weight_logits", "weight"), ("delta_mask", "delta_mask"))
+
+    def __init__(self):
+        super().__init__()
+        self.corr_encoder = nn.Sequential(
+            nn.Conv2d(CORR_PLANES, 128, 1), nn.ReLU(),
+            nn.Conv2d(128, 128, 3, padding=1), nn.ReLU())
+        self.flow_encoder = nn.Sequential(
+            nn.Conv2d(8, 128, 7, padding=3), nn.ReLU(),
+            nn.Conv2d(128, 64, 3, padding=1), nn.ReLU())
+        self.gru = ConvGRU(128, 128 + 128 + 64)
+        self.delta = _head(2)
+        self.delta_dy = _head(2)
+        self.weight = _head(2)
+        self.delta_mask = _head(MASK_NUM)
+        self.agg = GraphAgg()
+
+    def forward_nchw(self, net, inp, corr, motion, ctx_pre=None,
+                     gru_nc=None):
+        c = self.corr_encoder(corr)
+        f = self.flow_encoder(motion)
+        if ctx_pre is not None:
+            net = self.gru.forward_nchw(net, torch.cat([c, f], dim=1),
+                                        pre=ctx_pre, w_nc=gru_nc)
+        else:
+            net = self.gru.forward_nchw(net, torch.cat([inp, c, f], dim=1))
+        out = {"net": net}
+        for key, name in self.HEADS:
+            out[key] = getattr(self, name)(net)
+        return out
+
+    def forward(self, net, inp, corr, motion, ctx_pre=None, gru_nc=None):
+        """All inputs (E, H, W, C) NHWC: hidden 128, context 128,
+        corr 196, motion 8. With ``ctx_pre`` (NHWC gate contributions of
+        the context features, see factor_graph.gru_ctx_pre) ``inp`` is
+        ignored and ``gru_nc`` holds the ctx-sliced gate kernels.
+        Returns dict: net, delta, delta_dy, weight_logits, delta_mask."""
+        p = (lambda t: None if t is None else t.permute(0, 3, 1, 2))
+        pre = None if ctx_pre is None else tuple(p(t) for t in ctx_pre)
+        out = self.forward_nchw(p(net), p(inp), p(corr), p(motion),
+                                ctx_pre=pre, gru_nc=gru_nc)
+        return {k: v.permute(0, 2, 3, 1) for k, v in out.items()}

@@ -26,8 +26,12 @@ K3 ``corr_lookup`` replaces ``pallas_corr_lookup`` (:565, body
   length-C dot products against pooled f2 rows that neighbouring
   pixels share through L1. Design: 4 pixels x 64 taps per block, f1 in
   shared memory, one dot product per thread, the blend from a shared
-  8x8 patch. No stored volume and no x/y tiling; the f2 levels are
-  pooled in f32 by the wrapper.
+  8x8 patch. No stored volume and no x/y tiling.
+
+K1 and K3 take the pooled f2 pyramid from the wrapper
+(:func:`pool_pyramid`): each level's 2x2 mean is taken in f32 and
+rounded to the feature dtype, and the next level is pooled from the
+rounded one, as ``pallas_corr.build_padded_pyramid`` pools bf16 maps.
 """
 
 from __future__ import annotations
@@ -71,17 +75,22 @@ def _nvcc():
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build():
-    """Compile ``corr.cu`` into ``csrc/build/`` unless a library built
-    from the same source and flags is already there; returns its path."""
-    digest = hashlib.sha256(SOURCE.read_bytes() +
-                            " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    path = BUILD_DIR / f"libpvo_corr-{digest}.so"
+def build(source=SOURCE):
+    """Compile the CUDA source ``source`` (default ``corr.cu``) into
+    ``csrc/build/`` unless a library built from the same source, the
+    headers beside it and the same flags is already there; returns its
+    path."""
+    source = Path(source)
+    text = b"".join(f.read_bytes() for f in
+                    [source, *sorted(source.parent.glob("*.cuh"))])
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()
+                            ).hexdigest()[:16]
+    path = BUILD_DIR / f"libpvo_{source.stem}-{digest}.so"
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
                          capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
@@ -106,7 +115,7 @@ def _library():
     return _lib
 
 
-def _check_rc(rc, name):
+def check_rc(rc, name):
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
 
@@ -120,7 +129,7 @@ def level_shapes(H, W, num_levels=4):
     return shapes
 
 
-def _level_array(shapes):
+def level_array(shapes):
     if not 1 <= len(shapes) <= 4:
         raise ValueError(f"the kernels take 1 to 4 levels, not "
                          f"{len(shapes)}")
@@ -129,19 +138,14 @@ def _level_array(shapes):
 
 
 def pool_pyramid(f2, num_levels=4):
-    """(E, H, W, C) -> stacked f32 pooled levels (E, sum H_l W_l, C)."""
-    E, H, W, C = f2.shape
-    f = f2.float()
-    levels = []
-    for _ in range(num_levels):
-        h, w = f.shape[1], f.shape[2]
-        levels.append(f.reshape(E, h * w, C))
-        f = f[:, :2 * (h // 2), :2 * (w // 2)].reshape(
-            E, h // 2, 2, w // 2, 2, C).mean(dim=(2, 4))
-    return torch.cat(levels, dim=1).contiguous()
+    """(E, H, W, C) -> the levels of :func:`corr.pool_features`, stacked
+    f32 (E, sum H_l W_l, C)."""
+    E, C = f2.shape[0], f2.shape[-1]
+    return torch.cat([f.reshape(E, -1, C) for f in
+                      corr_ops.pool_features(f2, num_levels)], dim=1)
 
 
-def _check(name, t, shape, dtypes, device):
+def check_tensor(name, t, shape, dtypes, device):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype not in dtypes:
@@ -153,7 +157,7 @@ def _check(name, t, shape, dtypes, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-_FEATS = (torch.float32, torch.bfloat16)
+FEATS = (torch.float32, torch.bfloat16)
 
 
 # ---------------------------------------------------------------- K1
@@ -175,10 +179,10 @@ def build_volumes(f1, f2, num_levels=4):
     if f1.device.type == "cpu":
         return build_volumes_plain(f1, f2, num_levels)
     E, H, W, C = f1.shape
-    _check("f1", f1, (E, H, W, C), _FEATS, f1.device)
-    _check("f2", f2, (E, H, W, C), _FEATS, f1.device)
+    check_tensor("f1", f1, (E, H, W, C), FEATS, f1.device)
+    check_tensor("f2", f2, (E, H, W, C), FEATS, f1.device)
     shapes = level_shapes(H, W, num_levels)
-    _level_array(shapes)
+    level_array(shapes)
     N2 = sum(h * w for h, w in shapes)
     with torch.cuda.device(f1.device):
         pyr = pool_pyramid(f2, num_levels)
@@ -188,7 +192,7 @@ def build_volumes(f1, f2, num_levels=4):
             f1.data_ptr(), int(f1.dtype == torch.bfloat16), pyr.data_ptr(),
             vol.data_ptr(), E, H * W, N2, C, SCALE,
             torch.cuda.current_stream().cuda_stream)
-    _check_rc(rc, "build_volumes")
+    check_rc(rc, "build_volumes")
     LAUNCHES["build_volumes"] += 1
     return vol
 
@@ -216,16 +220,17 @@ def corr_extract(vol, coords, num_levels=4):
     E, H, W, _ = coords.shape
     shapes = level_shapes(H, W, num_levels)
     N2 = sum(h * w for h, w in shapes)
-    _check("vol", vol, (E, H * W, N2), (torch.bfloat16,), vol.device)
-    _check("coords", coords, (E, H, W, 2), (torch.float32,), vol.device)
+    check_tensor("vol", vol, (E, H * W, N2), (torch.bfloat16,), vol.device)
+    check_tensor("coords", coords, (E, H, W, 2), (torch.float32,),
+                 vol.device)
     out = torch.empty((E, H, W, num_levels * TAPS), dtype=torch.float32,
                       device=vol.device)
     with torch.cuda.device(vol.device):
         rc = _library().pvo_corr_extract(
             vol.data_ptr(), coords.data_ptr(), out.data_ptr(), E * H * W,
-            N2, num_levels, _level_array(shapes),
+            N2, num_levels, level_array(shapes),
             torch.cuda.current_stream().cuda_stream)
-    _check_rc(rc, "corr_extract")
+    check_rc(rc, "corr_extract")
     LAUNCHES["corr_extract"] += 1
     return out
 
@@ -233,8 +238,7 @@ def corr_extract(vol, coords, num_levels=4):
 # ---------------------------------------------------------------- K3
 
 def corr_lookup_plain(f1, f2, coords, num_levels=4):
-    return corr_ops.corr_and_lookup(f1.float(), f2.float(), coords,
-                                    num_levels, RADIUS)
+    return corr_ops.corr_and_lookup(f1, f2, coords, num_levels, RADIUS)
 
 
 def corr_lookup(f1, f2, coords, num_levels=4):
@@ -245,9 +249,10 @@ def corr_lookup(f1, f2, coords, num_levels=4):
     if f1.device.type == "cpu":
         return corr_lookup_plain(f1, f2, coords, num_levels)
     E, H, W, C = f1.shape
-    _check("f1", f1, (E, H, W, C), _FEATS, f1.device)
-    _check("f2", f2, (E, H, W, C), _FEATS, f1.device)
-    _check("coords", coords, (E, H, W, 2), (torch.float32,), f1.device)
+    check_tensor("f1", f1, (E, H, W, C), FEATS, f1.device)
+    check_tensor("f2", f2, (E, H, W, C), FEATS, f1.device)
+    check_tensor("coords", coords, (E, H, W, 2), (torch.float32,),
+                 f1.device)
     shapes = level_shapes(H, W, num_levels)
     N2 = sum(h * w for h, w in shapes)
     out = torch.empty((E, H, W, num_levels * TAPS), dtype=torch.float32,
@@ -257,8 +262,8 @@ def corr_lookup(f1, f2, coords, num_levels=4):
         rc = _library().pvo_corr_lookup(
             f1.data_ptr(), int(f1.dtype == torch.bfloat16), pyr.data_ptr(),
             coords.data_ptr(), out.data_ptr(), H * W, E * H * W, N2, C,
-            SCALE, num_levels, _level_array(shapes),
+            SCALE, num_levels, level_array(shapes),
             torch.cuda.current_stream().cuda_stream)
-    _check_rc(rc, "corr_lookup")
+    check_rc(rc, "corr_lookup")
     LAUNCHES["corr_lookup"] += 1
     return out

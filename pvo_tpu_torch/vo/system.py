@@ -1,7 +1,8 @@
 """The VO system facade: track / terminate (port of
 :mod:`pvo_tpu.vo.system`, classic host-topology path).
 
-Wires MotionFilter -> Frontend -> Backend around a shared DepthVideo.
+Wires MotionFilter -> Frontend -> Backend -> TrajectoryFiller around a
+shared DepthVideo.
 Per ``track`` call (frame t): commit frame t-1's admission, run frame
 t's motion filter (which writes slot ``counter`` when admitted), then
 the frontend's per-keyframe update; the order is the JAX package's.
@@ -14,8 +15,7 @@ matmuls and cuDNN convolutions when the system is built.
 
 Not ported yet: the device-resident planner (``cfg.pipeline`` is
 ignored: the port always runs the classic host loop), the YUV upload
-packing (``cfg.yuv420_upload`` is ignored), the trajectory filler
-(``terminate`` returns keyframe poses only), and depth/flow upsampling.
+packing (``cfg.yuv420_upload`` is ignored), and depth/flow upsampling.
 """
 
 from __future__ import annotations
@@ -23,7 +23,6 @@ from __future__ import annotations
 import copy
 from typing import Optional
 
-import numpy as np
 import torch
 
 from pvo_tpu.utils.config import VOConfig
@@ -33,6 +32,7 @@ from pvo_tpu_torch.vo.factor_graph import FactorGraph
 from pvo_tpu_torch.vo.frontend import Frontend
 from pvo_tpu_torch.vo.motion_filter import MotionFilter
 from pvo_tpu_torch.vo.net.droidnet import DroidNet
+from pvo_tpu_torch.vo.trajectory_filler import TrajectoryFiller
 from pvo_tpu_torch.vo.video import DepthVideo
 
 
@@ -41,18 +41,20 @@ class VOSystem:
 
     def __init__(self, cfg: Optional[VOConfig] = None,
                  net: Optional[DroidNet] = None,
-                 weights_path: Optional[str] = None, device=None, seed=0,
-                 net_dtype=torch.bfloat16):
+                 weights_path: Optional[str] = None, device="cuda",
+                 seed=0, net_dtype=torch.bfloat16):
         """``net``: weights to use; else loaded from ``weights_path``;
-        else random from ``seed``. ``device`` defaults to the first GPU
-        when there is one. ``net_dtype``: storage dtype of the frontend's
-        per-edge hidden state (parity tests pin f32)."""
+        else random from ``seed``. ``device``: the card by default; the
+        CPU runs only when asked for (``device="cpu"``). ``net_dtype``:
+        storage dtype of the frontend's per-edge hidden state (parity
+        tests pin f32)."""
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("VOSystem: no CUDA device; pass "
+                               "device='cpu' to run on the CPU")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.cfg = cfg or VOConfig()
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
 
         if net is None and weights_path is not None:
             from pvo_tpu_torch.utils.convert import load_droidnet_torch
@@ -83,6 +85,7 @@ class VOSystem:
             beta=cfg.beta, net_dtype=net_dtype)
         self.frontend = Frontend(graph, self.video, cfg)
         self.backend = Backend(self.video, cfg, update)
+        self.traj_filler = TrajectoryFiller(self.video, self.net, update)
         self._pending_adm = None
 
     @torch.no_grad()
@@ -99,13 +102,11 @@ class VOSystem:
     @torch.no_grad()
     def terminate(self, image_stream=None, need_inv=True,
                   backend_steps=(7, 12)):
-        """Run the last frontend update and the global BA passes; returns
-        the (counter, 7) keyframe poses [t, q] (c2w, or w2c when
-        ``need_inv`` is False)."""
-        if image_stream is not None:
-            raise NotImplementedError(
-                "the trajectory filler is not ported yet: call "
-                "terminate() without an image stream for keyframe poses")
+        """Run the last frontend update and the global BA passes. Returns
+        [t, q] poses (c2w, or w2c when ``need_inv`` is False): (T, 7) for
+        every frame of ``image_stream`` (the stream :meth:`track` saw,
+        again, see :class:`TrajectoryFiller`), else the (counter, 7)
+        keyframe poses."""
         if self._pending_adm is not None:
             self.filterx.resolve_track(self._pending_adm)
             self._pending_adm = None
@@ -113,7 +114,10 @@ class VOSystem:
         self.frontend.flush()
         for steps in backend_steps:
             self.backend(steps)
-        traj = self.video.poses[:self.video.counter]
+        if image_stream is None:
+            traj = self.video.poses[:self.video.counter]
+        else:
+            traj = self.traj_filler(image_stream)
         if need_inv:
             traj = se3.inv(traj)
         return traj.cpu().numpy()

@@ -5,10 +5,12 @@
     tests/test_decision_trace.py), exact match.
 (b) Numeric run: JAX VOSystem vs port VOSystem on the same weights and
     stream (64x96, 8 frames, segment filter on) and terminate, with the
-    backend's edges whole or in 8-edge chunks; counters
+    backend's edges whole or in 8-edge chunks, and with the trajectory
+    filler (terminate(image_stream)); counters
     and edge sets exact, poses within 1e-3 abs, disparities within 1e-2
     relative (plus 1e-4 abs next to the 0.001 disparity floor).
-(c) The port runs 3 frames on the CPU without importing JAX.
+(c) The port runs 3 frames on the CPU without importing JAX, and never
+    picks the CPU by itself.
 
 On (b)'s weights: with unscaled random weights the tracker is chaotic.
 Measured on this CPU at this configuration: perturbing the port's own
@@ -240,12 +242,17 @@ def edge_set(g):
     return sorted(zip(g.ii.tolist(), g.jj.tolist()))
 
 
-@pytest.mark.parametrize("backend_chunk", [None, 8],
-                         ids=["backend-whole", "backend-chunked"])
-def test_port_system_matches_jax(monkeypatch, backend_chunk):
+@pytest.mark.parametrize("backend_chunk, fill", [(None, False), (8, False),
+                                                 (None, True)],
+                         ids=["backend-whole", "backend-chunked",
+                              "backend-whole-filler"])
+def test_port_system_matches_jax(monkeypatch, backend_chunk, fill):
     """``backend-chunked`` streams terminate's global updates over 8-edge
     chunks on both sides (``_update_core_chunked``, the path of graphs
-    beyond 256 edges)."""
+    beyond 256 edges). ``filler`` passes the stream to terminate, which
+    then returns every frame's pose from the trajectory filler (8 frames
+    staged as one batch padded to 16, 32 edges, 6 motion-only
+    updates)."""
     monkeypatch.setattr(jsys, "NET_STORE_DTYPE", jnp.float32)
     cfg = VOConfig(image_size=(H, W), warmup=5, filter_thresh=-1.0,
                    keyframe_thresh=0.0, segm_filter=True, pipeline=False,
@@ -256,7 +263,8 @@ def test_port_system_matches_jax(monkeypatch, backend_chunk):
     pt = VOSystem(cfg, net=droidnet_from_jax(params), device="cpu",
                   net_dtype=torch.float32)
 
-    for t, img, intr, segm in synth_stream(8):
+    frames = list(synth_stream(8))
+    for t, img, intr, segm in frames:
         jx.track(t, img, intr, segments=segm)
         pt.track(t, img, intr, segments=segm)
         assert pt.video.counter == jx.video.counter
@@ -275,9 +283,12 @@ def test_port_system_matches_jax(monkeypatch, backend_chunk):
     monkeypatch.setattr(FactorGraph, "_update_core_chunked",
                         lambda g, **kw: chunked.append(kw["chunk"]) or
                         core(g, **kw))
-    traj_j = jx.terminate(backend_steps=(2,))
-    traj_p = pt.terminate(backend_steps=(2,))
+    stream = (lambda: iter(frames)) if fill else (lambda: None)
+    traj_j = jx.terminate(stream(), backend_steps=(2,))
+    traj_p = pt.terminate(stream(), backend_steps=(2,))
     assert chunked == ([backend_chunk] * 2 if backend_chunk else [])
+    # the filler ran: its graph exists and was cleared after the batch
+    assert (pt.traj_filler._graph is not None) == fill
     assert pt.video.counter == jx.video.counter == 8
     assert traj_p.shape == traj_j.shape == (8, 7)
     np.testing.assert_allclose(traj_p, traj_j, rtol=0, atol=1e-3)
@@ -314,6 +325,13 @@ bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
 assert not bad, bad
 print("NO_JAX_OK")
 """
+
+
+def test_port_never_picks_the_cpu_by_itself():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        VOSystem(VOConfig(image_size=(64, 96)))
 
 
 def test_port_runs_without_jax():

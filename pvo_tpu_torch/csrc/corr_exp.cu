@@ -14,7 +14,9 @@
 //   f1      (E, HW, C)      float or bf16
 //   pyr     (E, N2, C)      float; level l holds H_l*W_l rows from row
 //                           off_l (cuda_corr.pool_pyramid)
-//   vol     (E, HW, N2)     bf16 (K1, pvo_build_volumes)
+//   vol     (E, HW, N2p)    bf16 (K1, pvo_build_volumes); the row stride
+//                           N2p is passed to pvo_corr_extract_packed as
+//                           its N2
 //   coords  (E, HW, 2)      float, level-0 [x, y]
 //   out     (E, HW, L*64)   bf16 packed taps. Tap (dy, dx) of level l,
 //                           at (floor(y_l) - 3 + dy, floor(x_l) - 3 + dx),

@@ -18,10 +18,13 @@ path:
   keyframe is kept, next-keyframe seeding and the window distance
   matrix, returned to the caller as one host packet.
 
-On the card the updates use the CUDA kernels: K1 builds the volumes of
-the edges once per call and K2 reads them every iteration; the chunked
-backend update and the motion filter use K3. On the CPU every call site
-uses the plain lookups of :mod:`pvo_tpu_torch.vo.net.corr`.
+On the card the updates use the CUDA kernels: for narrow streams
+(:func:`cuda_corr.volume_cache_ok`, the JAX accelerator path's test) K1
+builds the volumes of the edges once per call and K2 reads them every
+iteration; wider streams take K3 on every iteration, as the JAX path
+does; the chunked backend update and the motion filter use K3. On the
+CPU every call site uses the plain lookups of
+:mod:`pvo_tpu_torch.vo.net.corr`.
 """
 
 from __future__ import annotations
@@ -412,12 +415,19 @@ class FactorGraph:
         cdt = next(self.update_op.parameters()).dtype
         core = dict(ii=ii, jj=jj, valid=valid, w0=w0, K=K)
         if chunk is None:
-            # loop invariants of this call: the correlation volumes (K1)
-            # on the card, the context gate terms and the edge segments
-            if dev.type == "cuda":
+            # loop invariants of this call: on the card the correlation
+            # volumes (K1) of narrow streams, else the gathered features
+            # that K3 correlates on every step; the context gate terms and
+            # the edge segments
+            if dev.type == "cuda" and cuda_corr.volume_cache_ok(self.h,
+                                                                self.w):
                 vols = cuda_corr.build_volumes(v.fmaps[ii], v.fmaps[jj])
                 core["corr_fn"] = lambda c1: cuda_corr.corr_extract(vols,
                                                                     c1)
+            elif dev.type == "cuda":
+                f_i, f_j = v.fmaps[ii], v.fmaps[jj]
+                core["corr_fn"] = lambda c1: cuda_corr.corr_lookup(f_i, f_j,
+                                                                   c1)
             else:
                 core["corr_fn"] = lambda c1: corr_ops.chunked_corr_lookup(
                     v.fmaps, ii, jj, c1, chunk=CORR_CHUNK)

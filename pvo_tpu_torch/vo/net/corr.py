@@ -31,18 +31,19 @@ def corr_volume(fmap1, fmap2):
     return torch.bmm(f1, f2.transpose(1, 2)).reshape(E, H * W, H2, W2)
 
 
-def pool_features(fmap, num_levels=4):
-    """(E, H, W, C) -> ``num_levels`` f32 levels (E, H_l, W_l, C): level
-    l+1 is the 2x2 mean (floor) of level l taken in f32 and rounded to
-    fmap's dtype, so bf16 features pool as the JAX package's Pallas
-    kernels pool them."""
-    levels = [fmap.float()]
+def pool_features(fmap, num_levels=4, dtype=torch.float32):
+    """(E, H, W, C) -> ``num_levels`` levels (E, H_l, W_l, C) in
+    ``dtype``: level l+1 is the 2x2 mean (floor) of level l taken in f32
+    and rounded to fmap's dtype, so bf16 features pool as the JAX
+    package's Pallas kernels pool them (and a bf16 ``dtype`` holds bf16
+    features' levels exactly)."""
+    levels = [fmap.to(dtype)]
     f = fmap
     for _ in range(num_levels - 1):
         E, H, W, C = f.shape
         f = f[:, :2 * (H // 2), :2 * (W // 2)].float().reshape(
             E, H // 2, 2, W // 2, 2, C).mean(dim=(2, 4)).to(fmap.dtype)
-        levels.append(f.float())
+        levels.append(f.to(dtype))
     return levels
 
 

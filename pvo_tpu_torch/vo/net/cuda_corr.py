@@ -9,12 +9,30 @@ and loaded with ctypes. ``LAUNCHES`` counts kernel launches per kernel.
 
 K1 ``build_volumes`` replaces ``pallas_build_volumes``
   (pvo_tpu/vo/net/pallas_corr.py:381, body ``_build_kernel`` :349).
-  Bound: arithmetic. E=48 edges at 30x101 is a (3030 x 128) x
-  (128 x 3991) product per edge, 149 GFLOP, against a 1.16 GB bf16
-  store. Design: a shared-memory-tiled f32 product (128x128 tile, 8x8
-  register tile per thread, f32 accumulation, bf16 store); the pooled
-  f2 pyramid is one stacked operand, so all four levels are one
-  product. Tensor-core MMA is left for later work.
+  E=48 edges at 30x101 is a (3030 x 128) x (128 x 3991) product per
+  edge, 149 GFLOP, against a 1.17 GB bf16 store. Bound: the store (0.35
+  ms at 3.35 TB/s; the products take 0.15 ms at the bf16 tensor-core
+  peak). Design, for bf16 features: a block keeps one edge's 128 f1 rows
+  in shared memory and walks 16 tiles of 128 pyramid rows, loaded by
+  cp.async into a 2-stage ring so the next tile's load overlaps this
+  one's products and epilogue; wgmma.m64n128k16 with bf16 operands and
+  f32 accumulators, as ``_build_kernel``'s bf16 ``dot_general`` with
+  f32 accumulation; the epilogue rounds to bf16 through shared memory
+  and stores 16-byte row vectors. The volume's row stride is padded to
+  N2p (a multiple of 64: 128 bytes, a cache line) with zero pad
+  columns, as ``_build_kernel`` zeroes its pad rows, so that every row
+  starts on a line and no store covers part of a sector. The bf16
+  operand is a bf16 pyramid: f1 / 16 is exact in bf16 and every pooled
+  level is a bf16 value (:func:`pool_pyramid`), so the products are
+  those of the plain version and only the order of the f32 sums
+  differs (:func:`within_one_ulp`). Besides the store, every pyramid
+  tile is read from L2 once per 128-row f1 tile (24 times per edge at
+  30x101, 1.2 GB at E=48), which costs about as much as the store
+  (PERF.md); sharing each tile between more f1 rows is the next step.
+  f32 features take a SIMT f32 tile product (128x128, 8x8 per thread)
+  on an f32 pyramid into the same layout. Only a direct caller passes
+  them (the tests, the checks of ``chip_smoke.py``): the video stores
+  bf16 features in every configuration, as the JAX package's does.
 K2 ``corr_extract`` replaces ``pallas_corr_extract`` (:461, body
   ``_extract_kernel`` :265). Bound: memory. It reads 4 x 8x8 bf16 taps
   and writes 196 f32 per pixel. Design: one warp per pixel, a lane per
@@ -32,6 +50,10 @@ K1 and K3 take the pooled f2 pyramid from the wrapper
 (:func:`pool_pyramid`): each level's 2x2 mean is taken in f32 and
 rounded to the feature dtype, and the next level is pooled from the
 rounded one, as ``pallas_corr.build_padded_pyramid`` pools bf16 maps.
+
+K1's cached volume is for narrow streams only, as on the JAX package's
+accelerator path (:func:`volume_cache_ok`); wider ones take K3 on every
+update step.
 """
 
 from __future__ import annotations
@@ -44,12 +66,22 @@ import subprocess
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 from . import corr as corr_ops
 
 RADIUS = 3
 TAPS = (2 * RADIUS + 1) ** 2
 SCALE = 1.0 / 16.0
+# volume row stride alignment, in bf16 values: 128 bytes, so that every
+# row starts on a cache line (K1 stores 16-byte vectors: at least 8)
+VOL_ALIGN = 64
+# widest level side of the cached volume: pallas_corr.corr_level_shapes
+# gives a level one x (y) tile iff W_l (H_l) <= LANE - PATCH = 128 - 8
+CACHE_MAX_SIDE = 120
+# magnitude below which K1's check against its plain version takes one
+# bf16 ulp at this value (:func:`within_one_ulp`)
+ULP_FLOOR = 2.0 ** -6
 
 KERNELS = ("build_volumes", "corr_extract", "corr_lookup")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
@@ -104,7 +136,7 @@ def _library():
         lib = ctypes.CDLL(str(build()))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         ip = ctypes.POINTER(ctypes.c_int)
-        lib.pvo_build_volumes.argtypes = [p, i, p, p, i, i, i, i, f, p]
+        lib.pvo_build_volumes.argtypes = [p, p, p, i, i, i, i, i, i, f, p]
         lib.pvo_corr_extract.argtypes = [p, p, p, i, i, i, ip, p]
         lib.pvo_corr_lookup.argtypes = [p, i, p, p, p, i, i, i, i, f, i,
                                         ip, p]
@@ -137,12 +169,27 @@ def level_array(shapes):
     return (ctypes.c_int * len(flat))(*flat)
 
 
-def pool_pyramid(f2, num_levels=4):
+def volume_cache_ok(h, w, num_levels=4):
+    """Whether the update builds K1's volume once per call (True) or
+    takes K3 on every step: every level at most CACHE_MAX_SIDE on both
+    sides, the ``n_t == 1 and m_t == 1`` test of the JAX accelerator
+    path (pvo_tpu/vo/factor_graph.py, ``corr_level_shapes``)."""
+    return all(hl <= CACHE_MAX_SIDE and wl <= CACHE_MAX_SIDE
+               for hl, wl in level_shapes(h, w, num_levels))
+
+
+def padded_n2(n2):
+    """K1's volume row stride for ``n2`` pyramid columns."""
+    return -(-n2 // VOL_ALIGN) * VOL_ALIGN
+
+
+def pool_pyramid(f2, num_levels=4, dtype=torch.float32):
     """(E, H, W, C) -> the levels of :func:`corr.pool_features`, stacked
-    f32 (E, sum H_l W_l, C)."""
+    (E, sum H_l W_l, C) in ``dtype`` (bf16 features give bf16 values, so
+    a bf16 pyramid holds them exactly)."""
     E, C = f2.shape[0], f2.shape[-1]
     return torch.cat([f.reshape(E, -1, C) for f in
-                      corr_ops.pool_features(f2, num_levels)], dim=1)
+                      corr_ops.pool_features(f2, num_levels, dtype)], dim=1)
 
 
 def check_tensor(name, t, shape, dtypes, device):
@@ -165,36 +212,88 @@ FEATS = (torch.float32, torch.bfloat16)
 def build_volumes_plain(f1, f2, num_levels=4):
     E, H, W, C = f1.shape
     pyr = pool_pyramid(f2, num_levels)
+    pad = padded_n2(pyr.shape[1]) - pyr.shape[1]
     vol = torch.bmm(f1.reshape(E, H * W, C).float() * SCALE,
-                    pyr.transpose(1, 2))
+                    F.pad(pyr, (0, 0, 0, pad)).transpose(1, 2))
     return vol.to(torch.bfloat16)
 
 
 def build_volumes(f1, f2, num_levels=4):
     """All-pairs correlation volumes of edges (f1[e], f2[e]).
 
-    f1, f2: (E, H, W, C) f32 or bf16. Returns (E, H*W, sum_l H_l W_l)
+    f1, f2: (E, H, W, C), both f32 or both bf16. Returns (E, H*W, N2p)
     bf16: level l (f2 pooled l times) at column offset
-    sum_{k<l} H_k W_k, values f1 . f2_l / 16 accumulated in f32."""
+    sum_{k<l} H_k W_k, values f1 . f2_l / 16 accumulated in f32, and
+    columns from N2 = sum_l H_l W_l to N2p = :func:`padded_n2` (N2) zero.
+    bf16 features take the tensor-core kernel, which needs C a multiple
+    of 16 and at most 256."""
     if f1.device.type == "cpu":
         return build_volumes_plain(f1, f2, num_levels)
+    check_tensor("f2", f2, f1.shape, (f1.dtype,), f1.device)
+    with torch.cuda.device(f1.device):
+        pyr = pool_pyramid(f2, num_levels, f1.dtype)
+    return build_volumes_pooled(f1, pyr, num_levels)
+
+
+def build_volumes_pooled(f1, pyr, num_levels=4):
+    """K1 on an already pooled pyramid ``pyr`` = :func:`pool_pyramid`
+    (f2, num_levels, f1.dtype): :func:`build_volumes` without its
+    pooling."""
     E, H, W, C = f1.shape
-    check_tensor("f1", f1, (E, H, W, C), FEATS, f1.device)
-    check_tensor("f2", f2, (E, H, W, C), FEATS, f1.device)
     shapes = level_shapes(H, W, num_levels)
     level_array(shapes)
     N2 = sum(h * w for h, w in shapes)
+    check_tensor("f1", f1, (E, H, W, C), FEATS, f1.device)
+    check_tensor("pyr", pyr, (E, N2, C), (f1.dtype,), f1.device)
+    bf16 = f1.dtype == torch.bfloat16
+    if bf16 and (C % 16 or C > 256):
+        raise ValueError(f"bf16 features need C a multiple of 16 and at "
+                         f"most 256, not {C}")
+    N2p = padded_n2(N2)
+    vol = torch.empty((E, H * W, N2p), dtype=torch.bfloat16,
+                      device=f1.device)
     with torch.cuda.device(f1.device):
-        pyr = pool_pyramid(f2, num_levels)
-        vol = torch.empty((E, H * W, N2), dtype=torch.bfloat16,
-                          device=f1.device)
         rc = _library().pvo_build_volumes(
-            f1.data_ptr(), int(f1.dtype == torch.bfloat16), pyr.data_ptr(),
-            vol.data_ptr(), E, H * W, N2, C, SCALE,
+            f1.data_ptr(), pyr.data_ptr(), vol.data_ptr(), int(bf16), E,
+            H * W, N2, N2p, C, SCALE,
             torch.cuda.current_stream().cuda_stream)
     check_rc(rc, "build_volumes")
     LAUNCHES["build_volumes"] += 1
     return vol
+
+
+def within_one_ulp(a, b):
+    """Elementwise: |a - b| is at most one bf16 ulp of max(|a|, |b|,
+    ULP_FLOOR). K1 and its plain version form the same products and sum
+    them in another f32 order, so an entry differs by one bf16 rounding
+    step at most; where the sum cancels to below ULP_FLOOR, the f32
+    order difference (about C * 2^-24 * sum |f1 f2| / 16, 4e-5 for
+    unit-variance features at C=128) may exceed the tiny value's own
+    ulp, and one ulp at ULP_FLOOR (2^-13) bounds it."""
+    a, b = a.float(), b.float()
+    m = torch.maximum(torch.maximum(a.abs(), b.abs()),
+                      torch.full_like(a, ULP_FLOOR))
+    # m in [2^(e-1), 2^e) has a bf16 ulp (8 significant bits) of 2^(e-8)
+    return (a - b).abs() <= torch.ldexp(torch.ones_like(m),
+                                        torch.frexp(m).exponent - 8)
+
+
+def volume_agreement(vol, ref, n2, chunk=8):
+    """A K1 volume against its plain version ``ref`` (both (E, HW, N2p)
+    bf16, ``n2`` real columns), ``chunk`` edges at a time (to bound the
+    f32 copies: the volume at E=48 is 1.17 GB): (max |d|,
+    share of entries bit-equal, whether every entry is
+    :func:`within_one_ulp`, max |pad column|)."""
+    err = pad = 0.0
+    equal, ulp_ok = 0, True
+    for e in range(0, vol.shape[0], chunk):
+        a, b = vol[e:e + chunk], ref[e:e + chunk]
+        err = max(err, (a.float() - b.float()).abs().max().item())
+        equal += int((a == b).sum())
+        ulp_ok = ulp_ok and bool(within_one_ulp(a, b).all())
+        if a.shape[-1] > n2:
+            pad = max(pad, a[..., n2:].float().abs().max().item())
+    return err, equal / vol.numel(), ulp_ok, pad
 
 
 # ---------------------------------------------------------------- K2
@@ -213,14 +312,16 @@ def corr_extract_plain(vol, coords, num_levels=4):
 def corr_extract(vol, coords, num_levels=4):
     """Windowed lookup from :func:`build_volumes` volumes.
 
-    vol: (E, H*W, N2) bf16; coords: (E, H, W, 2) f32 level-0 [x, y].
-    Returns (E, H, W, num_levels*49) f32, dx-major taps."""
+    vol: (E, H*W, N2p) bf16 (the plain version also reads an unpadded
+    (E, H*W, N2)); coords: (E, H, W, 2) f32 level-0 [x, y]. Returns
+    (E, H, W, num_levels*49) f32, dx-major taps."""
     if vol.device.type == "cpu":
         return corr_extract_plain(vol, coords, num_levels)
     E, H, W, _ = coords.shape
     shapes = level_shapes(H, W, num_levels)
-    N2 = sum(h * w for h, w in shapes)
-    check_tensor("vol", vol, (E, H * W, N2), (torch.bfloat16,), vol.device)
+    N2p = padded_n2(sum(h * w for h, w in shapes))
+    check_tensor("vol", vol, (E, H * W, N2p), (torch.bfloat16,),
+                 vol.device)
     check_tensor("coords", coords, (E, H, W, 2), (torch.float32,),
                  vol.device)
     out = torch.empty((E, H, W, num_levels * TAPS), dtype=torch.float32,
@@ -228,7 +329,7 @@ def corr_extract(vol, coords, num_levels=4):
     with torch.cuda.device(vol.device):
         rc = _library().pvo_corr_extract(
             vol.data_ptr(), coords.data_ptr(), out.data_ptr(), E * H * W,
-            N2, num_levels, level_array(shapes),
+            N2p, num_levels, level_array(shapes),
             torch.cuda.current_stream().cuda_stream)
     check_rc(rc, "corr_extract")
     LAUNCHES["corr_extract"] += 1

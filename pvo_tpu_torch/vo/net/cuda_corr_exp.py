@@ -33,8 +33,8 @@ P1 ``corr_lookup_packed`` replaces X1, ``scripts/corr_exp.py`` ``run``
 P2 ``corr_extract_packed`` replaces X2-X5: ``corr_exp2.py`` ``extract_v``
   (:93, :116), ``corr_exp3.py`` ``run_mode`` (:98, :118),
   ``corr_exp4.py`` ``extract_v2`` (:90, :112) and ``corr_exp5.py``
-  ``extract_v3`` (:112, :125). It reads K1's volume (E, H*W, N2) as it
-  is. X2's rounding variants are ``weights`` and ``round_mid``
+  ``extract_v3`` (:112, :125). It reads K1's volume (E, H*W, N2p) as
+  it is. X2's rounding variants are ``weights`` and ``round_mid``
   (:data:`X2_VARIANTS`); X3's modes are ``mode``; X4 and X5 are the
   ``full`` f32 extraction (they differ from X2 only in TPU store and
   pipelining mechanics). Bound: memory. At E=32, 30x101 it writes 50 MB
@@ -54,7 +54,7 @@ import torch.nn.functional as F
 from . import corr as corr_ops
 from . import cuda_corr
 from .cuda_corr import (FEATS, RADIUS, SCALE, check_rc, check_tensor,
-                        level_array, level_shapes)
+                        level_array, level_shapes, padded_n2)
 
 KERNELS = ("corr_lookup_packed", "corr_extract_packed")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
@@ -250,8 +250,9 @@ def corr_extract_packed(vol, coords, num_levels=4, mode="full",
     """Packed windowed lookup from :func:`cuda_corr.build_volumes`
     volumes (X2-X5).
 
-    vol: (E, H*W, N2) bf16; coords: (E, H, W, 2) f32 level-0 [x, y].
-    Returns (E, H, W, num_levels*64) bf16, level-major. ``weights`` and
+    vol: (E, H*W, N2p) bf16 (the plain version also reads an unpadded
+    (E, H*W, N2)); coords: (E, H, W, 2) f32 level-0 [x, y]. Returns
+    (E, H, W, num_levels*64) bf16, level-major. ``weights`` and
     ``round_mid`` select X2's rounding (:data:`X2_VARIANTS`); ``mode``
     X3's diagnostic outputs, whose unwritten channels are 0:
     ``nostore`` keeps the dy = 0 row of each level; ``novab`` writes
@@ -272,8 +273,8 @@ def corr_extract_packed(vol, coords, num_levels=4, mode="full",
     E, H, W, _ = coords.shape
     shapes = level_shapes(H, W, num_levels)
     levels = level_array(shapes)
-    N2 = sum(h * w for h, w in shapes)
-    check_tensor("vol", vol, (E, H * W, N2), (torch.bfloat16,),
+    N2p = padded_n2(sum(h * w for h, w in shapes))
+    check_tensor("vol", vol, (E, H * W, N2p), (torch.bfloat16,),
                  vol.device)
     check_tensor("coords", coords, (E, H, W, 2), (torch.float32,),
                  vol.device)
@@ -282,7 +283,7 @@ def corr_extract_packed(vol, coords, num_levels=4, mode="full",
     with torch.cuda.device(vol.device):
         rc = _library().pvo_corr_extract_packed(
             vol.data_ptr(), coords.data_ptr(), out.data_ptr(), E * H * W,
-            N2, num_levels, levels, MODES.index(mode),
+            N2p, num_levels, levels, MODES.index(mode),
             WEIGHTS.index(weights), int(round_mid),
             torch.cuda.current_stream().cuda_stream)
     check_rc(rc, "corr_extract_packed")

@@ -15,10 +15,12 @@ import torch
 
 from pvo_tpu.vo.net import corr as jcorr
 from pvo_tpu.vo.net.pallas_corr import (build_corr_volumes,
+                                        corr_level_shapes,
                                         pallas_corr_extract,
                                         pallas_corr_lookup)
 from pvo_tpu_torch.vo.net import corr as tcorr
 from pvo_tpu_torch.vo.net import cuda_corr
+from pvo_tpu_torch.vo.net import cuda_corr_exp
 
 C = 16
 
@@ -179,6 +181,10 @@ def test_build_volumes_plain_bf16_bit_equal_to_jax():
     (t1, t2), (j1, j2), _ = make_bf16(E, H, W, 6)
     vol_t = cuda_corr.build_volumes(t1, t2)
     assert vol_t.dtype == torch.bfloat16
+    # K1's layout: row stride N2p = N2 rounded up to 64, pad columns 0
+    N2 = sum(h * w for h, w in cuda_corr.level_shapes(H, W))
+    assert (N2, vol_t.shape) == (1275, (E, H * W, 1280))
+    assert not vol_t[..., N2:].float().any()
     vols_j, _ = build_corr_volumes(j1, j2, num_levels=4)
     vj = np.asarray(vols_j.astype(jnp.float32))
     vt = vol_t.float().numpy()
@@ -189,3 +195,82 @@ def test_build_volumes_plain_bf16_bit_equal_to_jax():
         assert np.mean(a == b) >= 0.999, (h_l, w_l, np.mean(a == b))
         off_row += h_l
         off_col += h_l * w_l
+
+
+# ---- the cached volume is for narrow streams only, as on the JAX
+# accelerator path (pvo_tpu/vo/factor_graph.py, corr_level_shapes)
+
+@pytest.mark.parametrize("hw", [(30, 101), (47, 156), (128, 40), (120, 120),
+                                (121, 120), (120, 121), (8, 12)])
+def test_volume_cache_ok_matches_jax_level_tiles(hw):
+    want = all(n_t == 1 and m_t == 1
+               for (_, _, n_t, m_t) in corr_level_shapes(*hw))
+    assert cuda_corr.volume_cache_ok(*hw) == want
+
+
+@pytest.mark.parametrize("n2, n2p", [(3991, 4032), (1275, 1280),
+                                     (1024, 1024), (1, 64)])
+def test_padded_n2(n2, n2p):
+    assert cuda_corr.padded_n2(n2) == n2p
+
+
+def test_extract_plain_same_on_padded_and_unpadded_volume():
+    """K2's and P2's plain versions read the volume by level offsets, so
+    K1's pad columns change nothing."""
+    E, H, W = 2, 12, 40
+    (t1, t2), _, coords = make_bf16(E, H, W, 8)
+    coords = torch.from_numpy(coords)
+    vol = cuda_corr.build_volumes(t1, t2)
+    N2 = sum(h * w for h, w in cuda_corr.level_shapes(H, W))
+    assert vol.shape[-1] == cuda_corr.padded_n2(N2) > N2
+    bare = vol[..., :N2].contiguous()
+    assert torch.equal(cuda_corr.corr_extract(vol, coords),
+                       cuda_corr.corr_extract(bare, coords))
+    for kw in ({}, {"weights": "bf16", "round_mid": True},
+               {"mode": "novab"}, {"mode": "dma"}):
+        assert torch.equal(
+            cuda_corr_exp.corr_extract_packed(vol, coords, **kw),
+            cuda_corr_exp.corr_extract_packed(bare, coords, **kw)), kw
+
+
+def test_bf16_pyramid_operand_equals_f32_pyramid():
+    """K1's bf16 operand holds the f32 pyramid's values exactly."""
+    (_, t2), _, _ = make_bf16(2, 30, 101, 9)
+    p32 = cuda_corr.pool_pyramid(t2)
+    p16 = cuda_corr.pool_pyramid(t2, dtype=torch.bfloat16)
+    assert p32.dtype == torch.float32 and p16.dtype == torch.bfloat16
+    assert p16.shape == p32.shape == (2, 3991, 128)
+    assert torch.equal(p16.float(), p32)
+
+
+def test_within_one_ulp():
+    a = torch.tensor([1.0, 1.0, -2.0, -2.0, 0.0, 1e-6, 0.01, 0.01, 3.0],
+                     dtype=torch.bfloat16)
+    b = torch.tensor([1.0078125, 1.015625, -2.015625, -1.9921875, -0.0,
+                      1e-4, 0.01, 0.0, 3.0625], dtype=torch.bfloat16)
+    # below ULP_FLOOR = 2^-6 one ulp is 2^-13; 0.01 has an ulp of 2^-14
+    assert cuda_corr.within_one_ulp(a, b).tolist() == [
+        True, False, True, True, True, True, True, False, False]
+
+
+def test_volume_agreement_holds_reordered_sums_and_catches_two_ulps():
+    """What the card's K1 check accepts: the plain products summed in
+    another f32 order pass; one entry a few bf16 ulps off, or a nonzero
+    pad column, fails."""
+    (t1, t2), _, _ = make_bf16(3, 17, 45, 10)
+    ref = cuda_corr.build_volumes_plain(t1, t2)
+    pyr = cuda_corr.pool_pyramid(t2, dtype=torch.bfloat16)
+    N2 = pyr.shape[1]
+    vol = torch.zeros_like(ref)
+    vol[..., :N2] = torch.bmm(
+        t1.reshape(3, -1, 128).float().flip(-1) * cuda_corr.SCALE,
+        pyr.float().flip(-1).transpose(1, 2)).bfloat16()
+    err, equal, ulp_ok, pad = cuda_corr.volume_agreement(vol, ref, N2,
+                                                         chunk=2)
+    assert err <= 2e-2 and equal >= 0.999 and ulp_ok and pad == 0.0
+    off = vol.clone()
+    off[1, 5, 7] = ref[1, 5, 7].float() * (1 + 2 ** -6)
+    assert not cuda_corr.volume_agreement(off, ref, N2)[2]
+    off = vol.clone()
+    off[2, 0, N2] = 1.0
+    assert cuda_corr.volume_agreement(off, ref, N2)[3] == 1.0

@@ -8,7 +8,10 @@ JAX so that it runs on a machine with only PyTorch:
         tests/test_torch_port_cuda.py -q
 
 Tolerances are those of tests/test_pallas_corr.py: 1e-4 where the path
-is f32 end to end, 2e-2 where the volume is rounded to bf16; for the
+is f32 end to end, 2e-2 where the volume is rounded to bf16. K1 forms
+the plain version's products and sums them in another f32 order, so it
+must also give >= 99.9% of entries bit-equal, every entry within one
+bf16 ulp (cuda_corr.within_one_ulp) and pad columns exactly 0. For the
 packed bf16 outputs of P1 and P2, |d| <= 2e-2 + 8e-3 |ref| with at
 least 99.9% of the outputs bit-equal. The tolerance alone cannot tell
 one rounding variant from another: they differ by one bf16 ulp in
@@ -22,6 +25,8 @@ import torch
 
 from pvo_tpu_torch.vo.net import cuda_corr
 from pvo_tpu_torch.vo.net import cuda_corr_exp
+from pvo_tpu_torch.vo.net.droidnet import DroidNet
+from pvo_tpu_torch.vo.system import VOConfig, VOSystem
 
 pytestmark = pytest.mark.cuda
 
@@ -48,20 +53,57 @@ def _inputs(E, H, W, dtype, dev, seed, lo=-2.0, bias_rows=None):
     return (f1.to(dev, dtype), f2.to(dev, dtype), coords.to(dev))
 
 
+def _k1_close(vol, ref, H, W):
+    n2 = sum(h * w for h, w in cuda_corr.level_shapes(H, W))
+    assert vol.shape == ref.shape == (vol.shape[0], H * W,
+                                      cuda_corr.padded_n2(n2))
+    err, equal, ulp_ok, pad = cuda_corr.volume_agreement(vol, ref, n2)
+    assert err <= 2e-2 and equal >= 0.999 and ulp_ok and pad == 0.0, (
+        err, equal, ulp_ok, pad)
+
+
 @pytest.mark.parametrize("E", [1, 24, 48])
 def test_build_and_extract_match_plain(dev, E):
     f1, f2, coords = _inputs(E, 30, 101, torch.bfloat16, dev, seed=E)
     vol = cuda_corr.build_volumes(f1, f2)
     ref_vol = cuda_corr.build_volumes_plain(f1, f2)
     torch.cuda.synchronize()
-    assert vol.shape == ref_vol.shape == (E, 3030, 3991)
-    assert (vol.float() - ref_vol.float()).abs().max().item() <= 2e-2
+    assert vol.shape == ref_vol.shape == (E, 3030, 4032)
+    _k1_close(vol, ref_vol, 30, 101)
 
     out = cuda_corr.corr_extract(ref_vol, coords)
     ref = cuda_corr.corr_extract_plain(ref_vol, coords)
     torch.cuda.synchronize()
     assert out.shape == (E, 30, 101, 196)
     assert (out - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("geom, dtype", [
+    ((3, 17, 45), torch.bfloat16),   # ragged rows and column tiles
+    ((2, 8, 12), torch.bfloat16),    # one tile, mostly padding
+    ((2, 30, 101), torch.float32),   # the f32-feature (SIMT) variant
+    ((2, 17, 45), torch.float32)])
+def test_build_volumes_ragged_and_f32_match_plain(dev, geom, dtype):
+    E, H, W = geom
+    f1, f2, _ = _inputs(E, H, W, dtype, dev, seed=H + W)
+    vol = cuda_corr.build_volumes(f1, f2)
+    ref = cuda_corr.build_volumes_plain(f1, f2)
+    torch.cuda.synchronize()
+    _k1_close(vol, ref, H, W)
+
+
+def test_build_volumes_pooled_is_the_kernel_alone(dev):
+    f1, f2, _ = _inputs(2, 30, 101, torch.bfloat16, dev, seed=12)
+    pyr = cuda_corr.pool_pyramid(f2, dtype=torch.bfloat16)
+    cuda_corr.reset_launches()
+    assert torch.equal(cuda_corr.build_volumes_pooled(f1, pyr),
+                       cuda_corr.build_volumes(f1, f2))
+    assert cuda_corr.LAUNCHES["build_volumes"] == 2
+    with pytest.raises(TypeError):   # a bf16 kernel takes a bf16 pyramid
+        cuda_corr.build_volumes_pooled(f1, pyr.float())
+    with pytest.raises(ValueError):  # wgmma's k16 steps: C % 16 == 0
+        cuda_corr.build_volumes(f1[..., :24].contiguous(),
+                                f2[..., :24].contiguous())
 
 
 @pytest.mark.parametrize("geom", [(1, 30, 101), (24, 30, 101), (1, 47, 156),
@@ -95,6 +137,8 @@ def test_launch_counts_and_checks(dev):
                                   "corr_lookup": 1}
     with pytest.raises(TypeError):
         cuda_corr.corr_extract(vol.float(), coords)
+    with pytest.raises(ValueError):  # K1's layout only: row stride N2p
+        cuda_corr.corr_extract(vol[..., :3991].contiguous(), coords)
     with pytest.raises(ValueError):
         cuda_corr.corr_lookup(f1, f2[:, :, :50], coords)
 
@@ -177,3 +221,37 @@ def test_packed_launch_counts_and_checks(dev):
         cuda_corr_exp.corr_extract_packed(vol.float(), coords)
     with pytest.raises(ValueError):
         cuda_corr_exp.corr_lookup_packed(f1, f2[:, :, :50], coords)
+
+
+@pytest.mark.parametrize("image, cached", [
+    ((240, 808), True),     # 30x101 features: every level <= 120 a side
+    ((376, 1248), False),   # vkitti2 at full size, 47x156: W > 120
+    ((1024, 320), False)])  # 128x40: H > 120
+def test_update_caches_volume_only_for_narrow_streams(dev, image, cached):
+    """As the JAX accelerator path (pvo_tpu/vo/factor_graph.py): K1 once
+    per update call and K2 per step where every level fits one tile,
+    else K3 per step and no volume."""
+    H, W = image
+    assert cuda_corr.volume_cache_ok(H // 8, W // 8) == cached
+    net = DroidNet.from_seed(0)
+    with torch.no_grad():   # tame the random heads (chip_smoke.tame_net)
+        for head in ("delta", "delta_dy", "delta_mask"):
+            for p in getattr(net.update, head)[2].parameters():
+                p.mul_(0.01)
+    cfg = VOConfig(image_size=image, buffer=64, warmup=5, filter_thresh=-1.0,
+                   keyframe_thresh=0.0, max_edges=48, frontend_window=8)
+    sysm = VOSystem(cfg, net=net, device="cuda")
+    rng = np.random.RandomState(0)
+    base = rng.randint(0, 255, (H + 16, W + 16, 3), np.uint8)
+    intr = np.array([W / 1.7, W / 1.7, W / 2.0, H / 2.0], np.float32)
+    for t in range(7):
+        sysm.track(t, base[t:t + H, 2 * t:2 * t + W], intr)
+    graph = sysm.frontend.graph
+    assert graph.n_edges > 0
+    cuda_corr.reset_launches()
+    with torch.no_grad():
+        graph.update(steps=2)
+    torch.cuda.synchronize()
+    assert cuda_corr.LAUNCHES == (
+        {"build_volumes": 1, "corr_extract": 2, "corr_lookup": 0} if cached
+        else {"build_volumes": 0, "corr_extract": 0, "corr_lookup": 2})

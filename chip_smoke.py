@@ -1,25 +1,36 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            the whole run
+    python3 chip_smoke.py main       only the named phases (kernels,
+                                     packed, reference, main, harness),
+                                     without the result lines
 
 Phases, one line each (any failure exits non-zero):
   1. device   - requires CUDA; prints the card's name and power limit;
   2. build    - compiles pvo_tpu_torch/csrc/corr.cu and corr_exp.cu
                 (nvcc, sm_90a), both at once;
   3. kernels  - each CUDA kernel against its plain PyTorch version on the
-                same inputs: 30x101, C=128, E in {1, 24, 48} (K3 also
-                wide 47x156, tall 128x40 and the backend's E=256 chunk);
-                K3 <= 1e-4, K1 and K2 <= 2e-2 (bf16 volume). K1 and K3
-                on bf16 features use the bf16-rounded pyramid. K1 (bf16
-                tensor-core kernel, also at a ragged E=3 17x45, and its
-                f32-feature variant at E=2) must also give >= 99.9% of
-                entries bit-equal, every entry within one bf16 ulp and
-                pad columns exactly 0; its kernel-only time (pyramid
-                pooled beforehand) and store rate are logged. P1 (X1)
-                and P2 (X2-X5) in every variant at their harness shapes
-                and in border-straddling bands, |d| <= 2e-2 + 8e-3 |ref|
-                (bf16 outputs) with >= 99.9% of outputs bit-equal, and
-                every two variants' outputs differing in >= 1%;
+                same inputs, C=128. K1 and K2 at 30x101, E in {1, 24, 48}:
+                <= 2e-2 (bf16 volume); K1 (bf16 tensor-core kernel, also
+                at a ragged E=3 17x45, and its f32-feature variant at
+                E=2) must also give >= 99.9% of entries bit-equal, every
+                entry within one bf16 ulp and pad columns exactly 0; K2
+                must also reproduce, bit for bit, the output of the
+                kernel it replaced on a saved case. K3 <= 1e-4 at 30x101
+                with E in {1, 48, 256}, wide 47x156 and tall 128x40, for
+                bf16 features (tensor-core kernel) and f32 ones (SIMT
+                kernel), through both entries (gathered features, and
+                frames + pyramid + edge indices), on smooth, scattered,
+                mixed, NaN/huge and border-band coordinates; the mixed
+                case must take both routes of the tensor-core kernel
+                and the smooth one only the tensor cores. For K1-K3 the
+                time stands beside its bound (kbench.kernel_bound) and,
+                for K1, beside torch.bmm on the same operands (a
+                yardstick the port never calls). P1 (X1) and P2 (X2-X5)
+                in every variant at their harness shapes and in
+                border-straddling bands, |d| <= 2e-2 + 8e-3 |ref| (bf16
+                outputs) with >= 99.9% of outputs bit-equal, and every
+                two variants' outputs differing in >= 1%;
   4. reference- the port's loop with the kernels against the same loop
                 with their plain versions, on the card: 64x96, 8 frames
                 + terminate(image_stream), same weights (mask logits
@@ -32,6 +43,10 @@ Phases, one line each (any failure exits non-zero):
                 caches K1's volume (narrow stream); fps and ms/frame
                 over the steady state after initialization (t=13..39);
                 terminate_s (last update + backend) apart from filler_s;
+                the backend's wall time apart from the rest of
+                terminate_s, K3's time inside it (wrapper and kernel
+                alone, CUDA events) and the share of K3's (block, level)
+                pairs that ran on the tensor cores;
   6. harness  - the corr experiment harnesses
                 (python -m pvo_tpu_torch.scripts.corr_exp*), each
                 program once (corr_exp5 runs corr_exp4's) with its
@@ -51,17 +66,20 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from pvo_tpu_torch.scripts.kbench import device_time_ms, gpu_line
+from pvo_tpu_torch.scripts import kbench
+from pvo_tpu_torch.scripts.kbench import (device_time_ms, gpu_line,
+                                          kernel_bound)
+from pvo_tpu_torch.utils.config import VOConfig
+from pvo_tpu_torch.vo.factor_graph import FactorGraph
 from pvo_tpu_torch.vo.net import cuda_corr
 from pvo_tpu_torch.vo.net import cuda_corr_exp
 from pvo_tpu_torch.vo.net.droidnet import DroidNet
-from pvo_tpu_torch.vo.system import VOConfig, VOSystem
+from pvo_tpu_torch.vo.system import VOSystem
 
 C = 128
 TOL = {"build_volumes": 2e-2, "corr_extract": 2e-2, "corr_lookup": 1e-4}
 # K1 forms the plain version's products in another f32 summation order
 K1_EQUAL = 0.999
-HBM_TB_S = 3.35  # H100 SXM HBM3, NVIDIA's data sheet
 # packed bf16 outputs: |d| <= 2e-2 + 8e-3 |ref|, one bf16 ulp above K1/K2,
 # and at least PACKED_EQUAL of them bit-equal: the tolerance alone
 # cannot tell one rounding variant from another, which differ by one
@@ -75,9 +93,15 @@ REPLACES = {
     "corr_lookup": "pvo_tpu/vo/net/pallas_corr.py:611",
 }
 # the main path's shape for each kernel's headline time: the frontend's
-# steady state (48 edges) for K1/K2, the motion-filter probe for K3
+# steady state (48 edges) for K1/K2, the backend's chunk for K3 (bf16
+# features, smooth coordinates, the indexed entry)
 HEADLINE = {"build_volumes": (48, 30, 101), "corr_extract": (48, 30, 101),
-            "corr_lookup": (1, 30, 101)}
+            "corr_lookup": (256, 30, 101)}
+# K3's checks: (E, H, W) and the coordinates of kbench.lookup_coords
+K3_SHAPES = ((1, 30, 101), (48, 30, 101), (256, 30, 101), (2, 47, 156),
+             (2, 128, 40))
+# the harness shapes of P1 (X1) and P2 (X2-X5), for their bounds
+HARNESS_E = {"corr_lookup_packed": 64, "corr_extract_packed": 32}
 # the corr experiment harnesses: TPU kernel -> (harness module, kernel,
 # pallas_call site); the JSON line reports each harness's first case
 HARNESS = {
@@ -124,22 +148,32 @@ def kernel_inputs(E, H, W, dtype, seed, band=None):
 
 def check_kernels():
     """Phase 3, K1-K3: returns {kernel: {"err": worst error, "ms",
-    "plain_ms"}}."""
-    res = {k: {"err": 0.0} for k in cuda_corr.KERNELS}
+    "plain_ms", "bound_ms", "bound_by", "library_ms"}}, the times at the
+    kernel's HEADLINE shape."""
+    res = {k: {"err": 0.0, "library_ms": None} for k in cuda_corr.KERNELS}
 
-    def record(name, shape, err, fn, plain_fn, plain_reps=10):
+    def record(name, shape, err, fn, plain_fn, plain_reps=10, headline=None,
+               library_fn=None, **note):
         ms = device_time_ms(fn)
         plain_ms = device_time_ms(plain_fn, reps=plain_reps)
-        log("kernel", name=name, shape="x".join(map(str, shape)),
-            max_abs_err=f"{err:.3g}", tol=TOL[name], ms=f"{ms:.4f}",
-            plain_ms=f"{plain_ms:.4f}")
+        bound = kernel_bound(name, *shape, C, features=note.get("features",
+                                                                "bf16"))
+        times = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound["ms"],
+                 "bound_by": bound["bound_by"]}
+        if library_fn is not None:
+            times["library_ms"] = device_time_ms(library_fn)
+        log("kernel", name=name, shape="x".join(map(str, shape)), **note,
+            max_abs_err=f"{err:.3g}", tol=TOL[name],
+            share_of_bound=f"{bound['ms'] / ms:.4f}",
+            **{k: v if isinstance(v, str) else f"{v:.4f}"
+               for k, v in times.items()})
         if not err <= TOL[name]:
             raise AssertionError(f"{name} at {shape}: error {err} > "
                                  f"{TOL[name]}")
         r = res[name]
         r["err"] = max(r["err"], err)
-        if shape == HEADLINE[name]:
-            r["ms"], r["plain_ms"] = ms, plain_ms
+        if shape == HEADLINE[name] if headline is None else headline:
+            r.update(times)
 
     # bf16 features pool to a bf16-rounded pyramid, level by level
     f1, f2, _ = kernel_inputs(2, 30, 101, torch.bfloat16, seed=0)
@@ -157,22 +191,37 @@ def check_kernels():
             check_volume(shape, dtype, cuda_corr.build_volumes(f1, f2),
                          cuda_corr.build_volumes_plain(f1, f2)))
 
+    # K2 must give the bits of the one-warp, 2-byte-load kernel it replaced
+    vol, coords = (t.cuda() for t in kbench.saved_extract_case())
+    same = kbench.fingerprint(cuda_corr.corr_extract(vol, coords)) == \
+        kbench.SAVED_EXTRACT_SHA256
+    log("kernel", name="corr_extract", shape="x".join(map(str, coords.shape)),
+        equal_to_replaced_kernel=same)
+    if not same:
+        raise AssertionError("corr_extract: output differs from the "
+                             "replaced kernel's on the saved case")
+
     for E in (1, 24, 48):
         shape = (E, 30, 101)
         f1, f2, coords = kernel_inputs(*shape, torch.bfloat16, seed=E)
         vol = cuda_corr.build_volumes(f1, f2)
         ref = cuda_corr.build_volumes_plain(f1, f2)
+        # the yardstick: one library product of the same bf16 operands
+        pyr = cuda_corr.pool_pyramid(f2, dtype=torch.bfloat16)
+        a = (f1.reshape(E, -1, C).float() * cuda_corr.SCALE).bfloat16()
+        b = torch.nn.functional.pad(
+            pyr, (0, 0, 0, vol.shape[-1] - pyr.shape[1])).transpose(1, 2)
         record("build_volumes", shape,
                check_volume(shape, torch.bfloat16, vol, ref),
                lambda: cuda_corr.build_volumes(f1, f2),
-               lambda: cuda_corr.build_volumes_plain(f1, f2))
-        pyr = cuda_corr.pool_pyramid(f2, dtype=torch.bfloat16)
+               lambda: cuda_corr.build_volumes_plain(f1, f2),
+               library_fn=lambda: torch.bmm(a, b))
         ms = device_time_ms(lambda: cuda_corr.build_volumes_pooled(f1, pyr))
+        bound = kernel_bound("build_volumes", *shape, C)["ms"]
         log("kernel", name="build_volumes", shape="x".join(map(str, shape)),
-            kernel_only_ms=f"{ms:.4f}", store_gb=f"{vol.nbytes / 1e9:.4f}",
-            store_tb_s=f"{vol.nbytes / ms / 1e9:.4f}",
-            store_roofline=f"{vol.nbytes / ms / 1e9 / HBM_TB_S:.4f}")
-        del pyr
+            kernel_only_ms=f"{ms:.4f}", bound_ms=f"{bound:.4f}",
+            share_of_bound=f"{bound / ms:.4f}")
+        del pyr, a, b
         out = cuda_corr.corr_extract(ref, coords)
         err = (out - cuda_corr.corr_extract_plain(ref, coords)).abs().max()
         record("corr_extract", shape, err.item(),
@@ -181,6 +230,13 @@ def check_kernels():
         del vol, ref, out
         torch.cuda.empty_cache()
 
+    for shape in K3_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            check_lookup(shape, dtype, record)
+
+    # K3 through the gathered entry (pooling included) on uniform random
+    # coordinates with border bands, for f32 features too: the shapes of
+    # the kernel table in PERF.md, on kernel_inputs' seeds
     for shape, band, dtype in (
             ((1, 30, 101), None, torch.float32),
             ((24, 30, 101), None, torch.bfloat16),
@@ -190,15 +246,89 @@ def check_kernels():
             ((1, 128, 40), ("y", 122.0, 131.0), torch.float32)):
         f1, f2, coords = kernel_inputs(*shape, dtype, seed=sum(shape),
                                        band=band)
-        out = cuda_corr.corr_lookup(f1, f2, coords)
-        err = (out - cuda_corr.corr_lookup_plain(f1, f2, coords)).abs().max()
-        record("corr_lookup", shape, err.item(),
+        err = kbench.lookup_err(cuda_corr.corr_lookup(f1, f2, coords),
+                                cuda_corr.corr_lookup_plain(f1, f2, coords))
+        record("corr_lookup", shape, err,
                lambda: cuda_corr.corr_lookup(f1, f2, coords),
                lambda: cuda_corr.corr_lookup_plain(f1, f2, coords),
-               plain_reps=3)
-        del out
+               plain_reps=3, headline=False, coords="uniform",
+               features="bf16" if dtype == torch.bfloat16 else "f32",
+               entry="gathered")
         torch.cuda.empty_cache()
     return res
+
+
+def check_lookup(shape, dtype, record):
+    """K3 at one shape and feature dtype, on every kind of coordinates,
+    through both entries. The frames are the edges' own f1, f2 stacked;
+    the indexed entry reads them through shuffled edges."""
+    E, H, W = shape
+    tensor = dtype == torch.bfloat16
+    feats = "bf16" if tensor else "f32"
+    f1, f2, _ = kernel_inputs(E, H, W, dtype, seed=sum(shape))
+    frames = torch.cat([f1, f2])
+    pyr = cuda_corr.lookup_pyramid(frames)
+    rng = np.random.RandomState(E)
+    ii = torch.as_tensor(rng.permutation(E), device="cuda")
+    jj = torch.as_tensor(E + rng.permutation(E), device="cuda")
+    for kind in kbench.LOOKUP_COORDS:
+        coords = torch.from_numpy(
+            kbench.lookup_coords(kind, E, H, W, seed=E + H)).cuda()
+        cuda_corr.reset_routes()
+        out = cuda_corr.corr_lookup(f1, f2, coords)
+        routes = cuda_corr.routes()
+        err = kbench.lookup_err(out,
+                                cuda_corr.corr_lookup_plain(f1, f2, coords))
+        # the indexed entry: against its plain version, or (E=256, where
+        # that costs 16 GB of volumes again) against the kernel on the
+        # gathered features, which the line above has checked
+        idx = cuda_corr.corr_lookup_indexed(frames, pyr, ii, jj, coords)
+        if E <= 48:
+            idx_ref = cuda_corr.corr_lookup_indexed_plain(frames, pyr, ii,
+                                                          jj, coords)
+        else:
+            idx_ref = cuda_corr.corr_lookup(frames[ii], frames[jj], coords)
+        # numpy's max keeps a NaN (a NaN on one side only)
+        err = float(np.max([err, kbench.lookup_err(idx, idx_ref)]))
+        del out, idx, idx_ref
+        if tensor and kind == "smooth" and routes[1]:
+            raise AssertionError(f"corr_lookup at {shape}: {routes[1]} "
+                                 "(block, level) pairs off the tensor cores "
+                                 "on smooth coordinates")
+        if tensor and kind == "mixed" and not (routes[0] and routes[1]):
+            raise AssertionError(f"corr_lookup at {shape}: the mixed case "
+                                 f"took routes {routes}, not both")
+        if not tensor and routes != (0, 0):
+            raise AssertionError("the SIMT kernel counted routes")
+        if kind == "smooth":
+            # timed through the indexed entry (the backend's) for bf16
+            # features, the gathered one (the probe's) for f32 ones
+            fn = (lambda: cuda_corr.corr_lookup_indexed(frames, pyr, ii, jj,
+                                                        coords)) \
+                if tensor else (lambda: cuda_corr.corr_lookup(f1, f2, coords))
+            record("corr_lookup", shape, err, fn,
+                   lambda: cuda_corr.corr_lookup_plain(f1, f2, coords),
+                   plain_reps=3, headline=tensor and shape == HEADLINE[
+                       "corr_lookup"], features=feats, coords=kind,
+                   entry="indexed" if tensor else "gathered",
+                   tensor_core_pairs=routes[0], per_pixel_pairs=routes[1])
+        else:
+            log("kernel", name="corr_lookup",
+                shape="x".join(map(str, shape)), features=feats, coords=kind,
+                max_abs_err=f"{err:.3g}", tol=TOL["corr_lookup"],
+                tensor_core_pairs=routes[0], per_pixel_pairs=routes[1])
+            if not err <= TOL["corr_lookup"]:
+                raise AssertionError(f"corr_lookup {feats} at {shape} on "
+                                     f"{kind} coordinates: error {err}")
+        torch.cuda.empty_cache()
+    if tensor and E in (48, 256):
+        # the gathered entry pools its edges' f2 on every call
+        coords = torch.from_numpy(
+            kbench.lookup_coords("smooth", E, H, W, seed=E + H)).cuda()
+        ms = device_time_ms(lambda: cuda_corr.corr_lookup(f1, f2, coords))
+        log("kernel", name="corr_lookup", shape="x".join(map(str, shape)),
+            features=feats, coords="smooth", entry="gathered",
+            ms=f"{ms:.4f}")
 
 
 def check_volume(shape, dtype, vol, ref):
@@ -332,6 +462,39 @@ def tame_net(seed=0, scale=0.01, mask_bias=0.0):
     return net
 
 
+class EventTimer:
+    """CUDA-event pairs around every call of the functions it wraps."""
+
+    def __init__(self):
+        self.calls = []
+
+    def wrap(self, fn, key=lambda *a, **kw: None):
+        def timed(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            self.calls.append((key(*a, **kw), start, end))
+            return out
+        return timed
+
+    def ms(self):
+        """[(key, device ms)] of the calls so far, in call order."""
+        torch.cuda.synchronize()
+        return [(k, s.elapsed_time(e)) for k, s, e in self.calls]
+
+
+@contextlib.contextmanager
+def patched(obj, name, value):
+    saved = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, saved)
+
+
 @contextlib.contextmanager
 def plain_kernels():
     """Swap each kernel wrapper for its plain PyTorch version."""
@@ -399,6 +562,27 @@ def run_main_path():
         return poses
 
     sysm.traj_filler = timed_filler
+
+    # the backend apart from the rest of terminate: its wall time, the
+    # edges of each global update, and K3 inside it through the wrapper
+    # and as the kernel alone (CUDA events around the library call)
+    backend, backend_s, graphs = sysm.backend, [], []
+    k3_wrapper, k3_kernel = EventTimer(), EventTimer()
+
+    def timed_backend(steps):
+        torch.cuda.synchronize()
+        b0 = time.perf_counter()
+        backend(steps)
+        torch.cuda.synchronize()
+        backend_s.append(time.perf_counter() - b0)
+
+    def counted_update(graph, *a, steps=8, **kw):
+        graphs.append((graph.n_edges, steps))
+        return update_lowmem(graph, *a, steps=steps, **kw)
+
+    sysm.backend = timed_backend
+    update_lowmem = FactorGraph.update_lowmem
+    lib = cuda_corr._library()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_corr.reset_launches()
@@ -409,9 +593,21 @@ def run_main_path():
         sysm.track(t, img, intr, segments=segm)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - f0)
-    t0 = time.perf_counter()
-    traj = sysm.terminate(iter(frames), backend_steps=(7, 12))
-    torch.cuda.synchronize()
+    tracked = dict(cuda_corr.LAUNCHES)
+    cuda_corr.reset_routes()
+    with contextlib.ExitStack() as stack:
+        for entry in ("corr_lookup", "corr_lookup_indexed"):
+            stack.enter_context(patched(
+                cuda_corr, entry, k3_wrapper.wrap(
+                    getattr(cuda_corr, entry),
+                    key=lambda *a: a[-1].shape[0])))
+        stack.enter_context(patched(lib, "pvo_corr_lookup",
+                                    k3_kernel.wrap(lib.pvo_corr_lookup)))
+        stack.enter_context(patched(FactorGraph, "update_lowmem",
+                                    counted_update))
+        t0 = time.perf_counter()
+        traj = sysm.terminate(iter(frames), backend_steps=(7, 12))
+        torch.cuda.synchronize()
     # terminate_s: the last frontend update and the backend, as measured
     # before terminate filled every frame; filler_s: the filler
     term_s = time.perf_counter() - t0 - filler_s[0]
@@ -429,6 +625,34 @@ def run_main_path():
         filler_s=f"{filler_s[0]:.3f}",
         peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
         **{f"launches_{k}": v for k, v in launches.items()})
+    # K3 inside terminate: chunks of the backend's global updates
+    wrapper = k3_wrapper.ms()
+    kernel = [ms for _, ms in k3_kernel.ms()]
+    if len(wrapper) != len(kernel):
+        raise AssertionError("K3 wrapper and kernel calls do not pair up")
+    sizes = sorted({E for E, _ in wrapper})
+    per_size = {E: (sum(1 for e, _ in wrapper if e == E),
+                    np.mean([w for e, w in wrapper if e == E]),
+                    np.mean([k for (e, _), k in zip(wrapper, kernel)
+                             if e == E])) for E in sizes}
+    updates = sum(steps for _, steps in graphs)
+    log("backend", backend_s=f"{sum(backend_s):.3f}",
+        rest_of_terminate_s=f"{term_s - sum(backend_s):.3f}",
+        calls=len(backend_s), global_updates=updates,
+        edges_per_call="/".join(str(n) for n, _ in graphs),
+        **{f"{k}_launches_in_terminate": launches[k] - tracked[k]
+           for k in launches},
+        k3_chunks_per_update=f"{len(wrapper) / max(updates, 1):.2f}",
+        k3_wrapper_ms_total=f"{sum(w for _, w in wrapper):.3f}",
+        k3_kernel_ms_total=f"{sum(kernel):.3f}",
+        **{f"k3_E{E}": f"{n}x(wrapper {w:.4f} ms, kernel {k:.4f} ms)"
+           for E, (n, w, k) in per_size.items()})
+    tc, simt = cuda_corr.routes()
+    log("backend", k3_block_levels_tensor_core=tc,
+        k3_block_levels_per_pixel=simt,
+        tensor_core_share=f"{tc / max(tc + simt, 1):.4f}")
+    if tc == 0:
+        raise AssertionError("terminate never took K3's tensor-core route")
     if traj.shape != (n_frames, 7) or not np.isfinite(traj).all():
         raise AssertionError(f"bad trajectory {traj.shape}")
     missing = [k for k, v in launches.items() if v == 0]
@@ -466,6 +690,11 @@ def run_harnesses():
     return res
 
 
+PHASES = {"kernels": check_kernels, "packed": check_packed,
+          "reference": check_reference, "main": run_main_path,
+          "harness": run_harnesses}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -483,6 +712,14 @@ def main():
     log("build", sources=",".join(src.name for src in sources),
         seconds=f"{time.perf_counter() - t0:.2f}")
 
+    only = sys.argv[1:]
+    if only:
+        # a partial run, for work on one phase: no result lines
+        for name in only:
+            PHASES[name]()
+        print(card)
+        return 0
+
     res = check_kernels()
     packed = check_packed()
     check_reference()
@@ -493,14 +730,18 @@ def main():
         "name": k, "route": "cuda", "source": "pvo_tpu_torch/csrc/corr.cu",
         "replaces": REPLACES[k], "launches": launches[k],
         "max_abs_err": res[k]["err"], "ms": res[k]["ms"],
-        "plain_ms": res[k]["plain_ms"]} for k in cuda_corr.KERNELS]
+        "plain_ms": res[k]["plain_ms"], "bound_ms": res[k]["bound_ms"],
+        "bound_by": res[k]["bound_by"],
+        "library_ms": res[k]["library_ms"]} for k in cuda_corr.KERNELS]
     for x, (_, kernel, site) in HARNESS.items():
         n, ms, plain_ms, err = harness[x]
+        bound = kernel_bound(kernel, HARNESS_E[kernel], 30, 101, C)
         kernels.append({
             "name": kernel, "route": "cuda",
             "source": "pvo_tpu_torch/csrc/corr_exp.cu", "replaces": site,
             "launches": n, "max_abs_err": max(err, packed[x]), "ms": ms,
-            "plain_ms": plain_ms})
+            "plain_ms": plain_ms, "bound_ms": bound["ms"],
+            "bound_by": bound["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,9 @@ On the card the updates use the CUDA kernels: for narrow streams
 (:func:`cuda_corr.volume_cache_ok`, the JAX accelerator path's test) K1
 builds the volumes of the edges once per call and K2 reads them every
 iteration; wider streams take K3 on every iteration, as the JAX path
-does; the chunked backend update and the motion filter use K3. On the
+does; the chunked backend update and the motion filter use K3. K3 reads
+the video's features by the edges' frame indices, against a pyramid
+pooled once per update call (:meth:`FactorGraph._lookup_frames`). On the
 CPU every call site uses the plain lookups of
 :mod:`pvo_tpu_torch.vo.net.corr`.
 """
@@ -425,14 +427,16 @@ class FactorGraph:
                 core["corr_fn"] = lambda c1: cuda_corr.corr_extract(vols,
                                                                     c1)
             elif dev.type == "cuda":
-                f_i, f_j = v.fmaps[ii], v.fmaps[jj]
-                core["corr_fn"] = lambda c1: cuda_corr.corr_lookup(f_i, f_j,
-                                                                   c1)
+                frames = self._lookup_frames()
+                core["corr_fn"] = lambda c1: cuda_corr.corr_lookup_indexed(
+                    *frames, c1)
             else:
                 core["corr_fn"] = lambda c1: corr_ops.chunked_corr_lookup(
                     v.fmaps, ii, jj, c1, chunk=CORR_CHUNK)
             core["ctx_pre"] = gru_ctx_pre(self.gru_ctx, v.inps[ii].to(cdt))
             core["segms_e"] = v.segms[ii]
+        elif dev.type == "cuda":
+            core["frames"] = self._lookup_frames()
 
         def one_step():
             if chunk is None:
@@ -476,6 +480,19 @@ class FactorGraph:
                                           dmat_window, self.beta)
             return np.concatenate([d, dmat.reshape(-1).cpu().numpy()])
         return d
+
+    def _lookup_frames(self):
+        """K3's operands for this call's edges: the features of the
+        frames the edges touch (a slice of the video), their pyramid,
+        pooled here once, and the edges' frame indices into the slice."""
+        v = self.video
+        lo = int(min(self.ii.min(), self.jj.min()))
+        hi = int(max(self.ii.max(), self.jj.max())) + 1
+        fmaps = v.fmaps[lo:hi]
+        to_dev = lambda a: torch.as_tensor(a - lo, dtype=torch.int32,
+                                           device=v.device)
+        return (fmaps, cuda_corr.lookup_pyramid(fmaps), to_dev(self.ii),
+                to_dev(self.jj))
 
     def _heads(self, out, coords0, coords1, raw, segms_e, valid):
         """Post-GRU state: dynamic mask (+ segment vote), new target,
@@ -529,10 +546,12 @@ class FactorGraph:
         has_edge = torch.bincount(m, minlength=K)[:K] > 0
         return eta[:, 0].float(), has_edge
 
-    def _update_core_chunked(self, ii, jj, valid, w0, K, chunk):
+    def _update_core_chunked(self, ii, jj, valid, w0, K, chunk,
+                             frames=None):
         """Streaming variant for the global-BA backend: edges in chunks of
         ``chunk``, peak activation memory one chunk's; GraphAgg's
-        scatter-sum accumulates across chunks via its pre/post split."""
+        scatter-sum accumulates across chunks via its pre/post split.
+        ``frames``: :meth:`_lookup_frames` (on the card)."""
         v = self.video
         upd = self.update_op
         cdt = next(upd.parameters()).dtype
@@ -545,9 +564,10 @@ class FactorGraph:
             coords0, coords1, motn = self._coords_motion(
                 ii_c, jj_c, self.target[sl], self.delta_dy[sl],
                 self.raw_mask[sl])
-            if v.device.type == "cuda":
-                corr = cuda_corr.corr_lookup(v.fmaps[ii_c], v.fmaps[jj_c],
-                                             coords1)
+            if frames is not None:
+                fmaps, pyr, ii_f, jj_f = frames
+                corr = cuda_corr.corr_lookup_indexed(fmaps, pyr, ii_f[sl],
+                                                     jj_f[sl], coords1)
             else:
                 corr = corr_ops.chunked_corr_lookup(
                     v.fmaps, ii_c, jj_c, coords1, chunk=CORR_CHUNK)

@@ -34,20 +34,49 @@ K1 ``build_volumes`` replaces ``pallas_build_volumes``
   them (the tests, the checks of ``chip_smoke.py``): the video stores
   bf16 features in every configuration, as the JAX package's does.
 K2 ``corr_extract`` replaces ``pallas_corr_extract`` (:461, body
-  ``_extract_kernel`` :265). Bound: memory. It reads 4 x 8x8 bf16 taps
-  and writes 196 f32 per pixel. Design: one warp per pixel, a lane per
-  (level, patch row); the lower patch row comes from the next lane by a
-  shuffle, and the 7x7 window is written in the reference dx-major
-  order. No one-hot selectors, no padding, no packed layout.
+  ``_extract_kernel`` :265). Bound: memory (E=48 at 30x101: 190 MB, 0.057
+  ms at 3.35 TB/s): a pixel reads 4 x 8x8 bf16 taps and writes 196 f32,
+  and nothing is reused, so the design is about whole memory
+  transactions. One warp per pixel, a lane per (level, patch row), 8
+  pixels per block. A lane's 8 taps are 16 contiguous bytes at any
+  2-byte offset of the pixel's volume row: it loads the two aligned
+  16-byte vectors that cover them and picks its taps out of its own
+  slot of shared memory; the lower patch row comes from the next lane
+  by a shuffle. The windows are staged in shared memory in the
+  reference dx-major order and the block stores its 8 pixels' 8 x 784
+  contiguous bytes as 16-byte vectors, a warp on consecutive addresses.
+  The blend's arithmetic is that of the one-warp, 2-byte-load kernel it
+  replaced, bit for bit (``kbench.SAVED_EXTRACT_SHA256``). No one-hot
+  selectors, no padding, no packed layout.
 K3 ``corr_lookup`` replaces ``pallas_corr_lookup`` (:565, body
-  ``_kernel`` :164). Bound: on-chip reads. Each pixel takes 4 x 64
-  length-C dot products against pooled f2 rows that neighbouring
-  pixels share through L1. Design: 4 pixels x 64 taps per block, f1 in
-  shared memory, one dot product per thread, the blend from a shared
-  8x8 patch. No stored volume and no x/y tiling.
+  ``_kernel`` :164). Bound: memory, mostly the f32 output (a backend
+  chunk of E=256 at 30x101 moves 1.01 GB, 0.30 ms, against 51 GFLOP,
+  0.05 ms at the bf16 tensor-core peak), so products are cheap and
+  re-reading pooled rows is not. Design for bf16 features (the video's):
+  a block owns 8 x 16 neighbouring pixels of one edge, f1 rows in shared
+  memory in K1's wgmma layout; per level it takes the bounding box of
+  its pixels' 8x8 patches (15 x 23 positions at level 0 where the
+  coordinates are smooth, as reprojected ones are), streams the box's
+  pooled bf16 rows through a 2-stage cp.async ring, 64 at a time, and
+  forms tile x box^T with wgmma.m64n64k16 (bf16 in, f32 accumulators, as
+  ``_kernel``'s bf16 ``dot_general``): a pooled row is read once per 128
+  pixels, not once per tap, at about 6 times the products the taps
+  need. The f32 products pass through shared memory, where two threads
+  per pixel pick their taps, blend, and stage the level's windows for
+  coalesced stores. A level whose box exceeds 1536 positions (scattered
+  or non-finite coordinates) takes per-pixel dot products against the
+  bf16 pyramid inside the same kernel; :func:`routes` counts the (block,
+  level) pairs on each route. f32 features, or C not a multiple of 16,
+  take the SIMT kernel (4 pixels x 64 taps per block, one dot product
+  per thread on an f32 pyramid; indexed edges' frames are gathered for
+  it): only direct callers and the motion filter's f32 probe pass
+  them. The pyramid is pooled by the caller's
+  entry: :func:`corr_lookup` pools the edges' f2, and
+  :func:`corr_lookup_indexed` takes the frames' features and their
+  pyramid (:func:`lookup_pyramid`, pooled once per update call) with
+  the edges' frame indices, so nothing is gathered or pooled per step.
 
-K1 and K3 take the pooled f2 pyramid from the wrapper
-(:func:`pool_pyramid`): each level's 2x2 mean is taken in f32 and
+K1 and K3 take a pooled f2 pyramid (:func:`pool_pyramid`): each level's 2x2 mean is taken in f32 and
 rounded to the feature dtype, and the next level is pooled from the
 rounded one, as ``pallas_corr.build_padded_pyramid`` pools bf16 maps.
 
@@ -138,8 +167,8 @@ def _library():
         ip = ctypes.POINTER(ctypes.c_int)
         lib.pvo_build_volumes.argtypes = [p, p, p, i, i, i, i, i, i, f, p]
         lib.pvo_corr_extract.argtypes = [p, p, p, i, i, i, ip, p]
-        lib.pvo_corr_lookup.argtypes = [p, i, p, p, p, i, i, i, i, f, i,
-                                        ip, p]
+        lib.pvo_corr_lookup.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
+                                        i, f, i, ip, p]
         for fn in (lib.pvo_build_volumes, lib.pvo_corr_extract,
                    lib.pvo_corr_lookup):
             fn.restype = ctypes.c_int
@@ -338,33 +367,124 @@ def corr_extract(vol, coords, num_levels=4):
 
 # ---------------------------------------------------------------- K3
 
+# per device: two 64-bit counters of (block, level) pairs, [tensor-core
+# route, per-pixel route], that the tensor-core kernel adds to
+_routes = {}
+
+
+def _route_counter(device):
+    if device not in _routes:
+        _routes[device] = torch.zeros(2, dtype=torch.int64, device=device)
+    return _routes[device]
+
+
+def routes():
+    """(block, level) pairs that K3's tensor-core kernel has run on the
+    tensor cores and on its per-pixel route since :func:`reset_routes`,
+    summed over the cards; reading them waits for the card."""
+    tot = sum(c.cpu() for c in _routes.values()) if _routes else [0, 0]
+    return int(tot[0]), int(tot[1])
+
+
+def reset_routes():
+    for c in _routes.values():
+        c.zero_()
+
+
+def lookup_dtype(feats):
+    """The pyramid dtype K3 takes for features ``feats`` (..., C): bf16
+    (the tensor-core kernel) for bf16 features with C a multiple of 16
+    up to 256, else f32 (the SIMT kernel)."""
+    C = feats.shape[-1]
+    tensor = feats.dtype == torch.bfloat16 and C % 16 == 0 and C <= 256
+    return torch.bfloat16 if tensor else torch.float32
+
+
+def lookup_pyramid(fmaps, num_levels=4):
+    """The pooled pyramid (F, sum H_l W_l, C) of frames ``fmaps``
+    (F, H, W, C) that :func:`corr_lookup_indexed` takes."""
+    return pool_pyramid(fmaps, num_levels, lookup_dtype(fmaps))
+
+
 def corr_lookup_plain(f1, f2, coords, num_levels=4):
     return corr_ops.corr_and_lookup(f1, f2, coords, num_levels, RADIUS)
+
+
+def corr_lookup_indexed_plain(fmaps, pyr, ii, jj, coords, num_levels=4):
+    """:func:`corr_lookup_plain` (fmaps[ii], fmaps[jj], coords), from
+    the frames' pooled pyramid ``pyr``: the same values exactly."""
+    E, H, W, _ = coords.shape
+    ii, jj = ii.long(), jj.long()
+    f1 = fmaps[ii]
+    c = coords.reshape(E, H * W, 2).float()
+    outs, off = [], 0
+    for lvl, (h, w) in enumerate(level_shapes(H, W, num_levels)):
+        f2 = pyr[jj, off:off + h * w].reshape(E, h, w, -1)
+        outs.append(corr_ops._lookup_level(corr_ops.corr_volume(f1, f2),
+                                           c / (2 ** lvl), RADIUS))
+        off += h * w
+    return torch.cat(outs, dim=-1).reshape(E, H, W, -1)
+
+
+def _launch_lookup(f1, pyr, ii, jj, coords, num_levels):
+    """K3 on frames ``f1`` (F, H, W, C) and their pyramid ``pyr``
+    (F, N2, C); edge e reads frames ii[e] and jj[e] (int32 tensors), or
+    frame e of both where they are None."""
+    E = coords.shape[0]
+    F_, H, W, C = f1.shape
+    dev = f1.device
+    shapes = level_shapes(H, W, num_levels)
+    N2 = sum(h * w for h, w in shapes)
+    check_tensor("f1", f1, (F_, H, W, C), FEATS, dev)
+    check_tensor("pyr", pyr, (F_, N2, C), (lookup_dtype(f1),), dev)
+    check_tensor("coords", coords, (E, H, W, 2), (torch.float32,), dev)
+    for name, idx in (("ii", ii), ("jj", jj)):
+        if idx is not None:
+            check_tensor(name, idx, (E,), (torch.int32,), dev)
+    if pyr.dtype == torch.bfloat16:
+        kind = 2
+    else:
+        # the SIMT kernel reads edge e's own rows: gather indexed frames
+        kind = int(f1.dtype == torch.bfloat16)
+        if ii is not None:
+            f1, ii = f1[ii.long()], None
+        if jj is not None:
+            pyr, jj = pyr[jj.long()], None
+    out = torch.empty((E, H, W, num_levels * TAPS), dtype=torch.float32,
+                      device=dev)
+    with torch.cuda.device(dev):
+        rc = _library().pvo_corr_lookup(
+            f1.data_ptr(), pyr.data_ptr(),
+            None if ii is None else ii.data_ptr(),
+            None if jj is None else jj.data_ptr(), coords.data_ptr(),
+            out.data_ptr(), _route_counter(dev).data_ptr(), kind, E, H, W,
+            N2, C, SCALE, num_levels, level_array(shapes),
+            torch.cuda.current_stream().cuda_stream)
+    check_rc(rc, "corr_lookup")
+    LAUNCHES["corr_lookup"] += 1
+    return out
 
 
 def corr_lookup(f1, f2, coords, num_levels=4):
     """Fused correlation + windowed lookup without a stored volume.
 
-    f1, f2: (E, H, W, C) f32 or bf16; coords: (E, H, W, 2) f32.
-    Returns (E, H, W, num_levels*49) f32, dx-major taps."""
+    f1, f2: (E, H, W, C), both f32 or both bf16; coords: (E, H, W, 2)
+    f32. Returns (E, H, W, num_levels*49) f32, dx-major taps."""
     if f1.device.type == "cpu":
         return corr_lookup_plain(f1, f2, coords, num_levels)
-    E, H, W, C = f1.shape
-    check_tensor("f1", f1, (E, H, W, C), FEATS, f1.device)
-    check_tensor("f2", f2, (E, H, W, C), FEATS, f1.device)
-    check_tensor("coords", coords, (E, H, W, 2), (torch.float32,),
-                 f1.device)
-    shapes = level_shapes(H, W, num_levels)
-    N2 = sum(h * w for h, w in shapes)
-    out = torch.empty((E, H, W, num_levels * TAPS), dtype=torch.float32,
-                      device=f1.device)
-    with torch.cuda.device(f1.device):
-        pyr = pool_pyramid(f2, num_levels)
-        rc = _library().pvo_corr_lookup(
-            f1.data_ptr(), int(f1.dtype == torch.bfloat16), pyr.data_ptr(),
-            coords.data_ptr(), out.data_ptr(), H * W, E * H * W, N2, C,
-            SCALE, num_levels, level_array(shapes),
-            torch.cuda.current_stream().cuda_stream)
-    check_rc(rc, "corr_lookup")
-    LAUNCHES["corr_lookup"] += 1
-    return out
+    check_tensor("f2", f2, f1.shape, (f1.dtype,), f1.device)
+    return _launch_lookup(f1, lookup_pyramid(f2, num_levels), None, None,
+                          coords, num_levels)
+
+
+def corr_lookup_indexed(fmaps, pyr, ii, jj, coords, num_levels=4):
+    """:func:`corr_lookup` (fmaps[ii], fmaps[jj], coords) without the
+    gathers and without pooling: fmaps (F, H, W, C) are the frames'
+    features, ``pyr`` = :func:`lookup_pyramid` (fmaps) their pyramid,
+    pooled once for many calls, and ii, jj (E,) integer tensors the
+    edges' frames (in range: the kernel does not check them)."""
+    if fmaps.device.type == "cpu":
+        return corr_lookup_indexed_plain(fmaps, pyr, ii, jj, coords,
+                                         num_levels)
+    return _launch_lookup(fmaps, pyr, ii.int().contiguous(),
+                          jj.int().contiguous(), coords, num_levels)

@@ -25,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from pvo_tpu.utils.config import VOConfig
+from pvo_tpu_torch.utils.config import VOConfig
 from pvo_tpu_torch.lie import se3
 from pvo_tpu_torch.vo.backend import Backend
 from pvo_tpu_torch.vo.factor_graph import FactorGraph

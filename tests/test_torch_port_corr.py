@@ -274,3 +274,74 @@ def test_volume_agreement_holds_reordered_sums_and_catches_two_ulps():
     off = vol.clone()
     off[2, 0, N2] = 1.0
     assert cuda_corr.volume_agreement(off, ref, N2)[3] == 1.0
+
+
+# ---- K3's indexed entry: the frames' features and their pyramid, pooled
+# once, with the edges' frame indices, instead of gathered features
+
+from pvo_tpu_torch.scripts import kbench
+
+
+def make_frames(F, H, W, C, dtype, seed):
+    """Frames' features from numpy, and 7 edges between them."""
+    rng = np.random.RandomState(seed)
+    fm = rng.randn(F, H, W, C).astype(np.float32)
+    ii = np.array([0, 1, 2, 3, 4, 1, 0], np.int64) % F
+    jj = np.array([1, 2, 3, 4, 0, 3, 2], np.int64) % F
+    return torch.from_numpy(fm).to(dtype), fm, ii, jj
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["smooth", "scattered", "wild"])
+def test_lookup_indexed_plain_equals_gathered_plain(dtype, kind):
+    F, H, W = 5, 12, 20
+    fm, _, ii, jj = make_frames(F, H, W, 32, dtype, 21)
+    coords = torch.from_numpy(kbench.lookup_coords(kind, 7, H, W, seed=2))
+    pyr = cuda_corr.lookup_pyramid(fm)
+    assert pyr.dtype == dtype and pyr.shape == (F, 240 + 60 + 15 + 2, 32)
+    T = torch.from_numpy
+    out = cuda_corr.corr_lookup_indexed(fm, pyr, T(ii), T(jj), coords)
+    ref = cuda_corr.corr_lookup(fm[T(ii)], fm[T(jj)], coords)
+    assert out.shape == (7, H, W, 196)
+    assert torch.equal(out.isnan(), ref.isnan())
+    assert torch.equal(out.nan_to_num(), ref.nan_to_num())
+    assert bool(out.isnan().any()) == (kind == "wild")
+    # int32 indices (what the kernel takes) give the same
+    assert torch.equal(
+        cuda_corr.corr_lookup_indexed(fm, pyr, T(ii).int(), T(jj).int(),
+                                      coords).nan_to_num(),
+        ref.nan_to_num())
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["smooth", "scattered"])
+def test_lookup_indexed_plain_matches_pallas_fused(dtype, kind):
+    F, H, W, Cf = 5, 16, 24, 128
+    tdt, jdt = ((torch.float32, jnp.float32) if dtype == "f32"
+                else (torch.bfloat16, jnp.bfloat16))
+    fm, fm_np, ii, jj = make_frames(F, H, W, Cf, tdt, 22)
+    coords = kbench.lookup_coords(kind, 7, H, W, seed=5)
+    T = torch.from_numpy
+    out_t = cuda_corr.corr_lookup_indexed(
+        fm, cuda_corr.lookup_pyramid(fm), T(ii), T(jj), T(coords))
+    fj = jnp.asarray(fm_np, jdt)
+    out_j = pallas_corr_lookup(fj[ii], fj[jj], jnp.asarray(coords),
+                               num_levels=4, blk=64, interpret=True)
+    close(out_t, out_j, 1e-4)
+    # and the XLA lookup of corr.py on the same (rounded) features
+    fx = jnp.asarray(fm.float().numpy())
+    if dtype == "f32":
+        close(out_t, jcorr.corr_and_lookup(fx[ii], fx[jj],
+                                           jnp.asarray(coords)), 1e-4)
+
+
+def test_lookup_dtype_follows_features():
+    bf, f32 = torch.bfloat16, torch.float32
+    z = lambda C, dt: torch.zeros((1, 2, 2, C), dtype=dt)
+    assert cuda_corr.lookup_dtype(z(128, bf)) == bf
+    assert cuda_corr.lookup_dtype(z(16, bf)) == bf
+    assert cuda_corr.lookup_dtype(z(24, bf)) == f32    # C % 16 != 0
+    assert cuda_corr.lookup_dtype(z(272, bf)) == f32   # C > 256
+    assert cuda_corr.lookup_dtype(z(128, f32)) == f32
+    assert cuda_corr.routes() == (0, 0)   # no card, no kernel ran

@@ -23,10 +23,12 @@ import numpy as np
 import pytest
 import torch
 
+from pvo_tpu_torch.scripts import kbench
+from pvo_tpu_torch.utils.config import VOConfig
 from pvo_tpu_torch.vo.net import cuda_corr
 from pvo_tpu_torch.vo.net import cuda_corr_exp
 from pvo_tpu_torch.vo.net.droidnet import DroidNet
-from pvo_tpu_torch.vo.system import VOConfig, VOSystem
+from pvo_tpu_torch.vo.system import VOSystem
 
 pytestmark = pytest.mark.cuda
 
@@ -124,6 +126,128 @@ def test_lookup_bf16_features(dev):
     out = cuda_corr.corr_lookup(f1, f2, coords)
     ref = cuda_corr.corr_lookup_plain(f1, f2, coords)
     torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= 1e-4
+
+
+K3_SHAPES = [(1, 30, 101), (48, 30, 101), (256, 30, 101), (2, 47, 156),
+             (2, 128, 40)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("kind", kbench.LOOKUP_COORDS)
+@pytest.mark.parametrize("geom", K3_SHAPES,
+                         ids=lambda g: "x".join(map(str, g)))
+def test_lookup_cases_match_plain_through_both_entries(dev, geom, kind,
+                                                       dtype):
+    """K3 within 1e-4 of plain (NaN where plain is NaN) on every kind of
+    coordinates: bf16 features take the tensor-core kernel, f32 ones the
+    SIMT kernel; the indexed entry reads shuffled frames."""
+    E, H, W = geom
+    f1, f2, _ = _inputs(E, H, W, dtype, dev, seed=E + H)
+    coords = torch.from_numpy(
+        kbench.lookup_coords(kind, E, H, W, seed=W)).to(dev)
+    cuda_corr.reset_routes()
+    out = cuda_corr.corr_lookup(f1, f2, coords)
+    ref = cuda_corr.corr_lookup_plain(f1, f2, coords)
+    tc, simt = cuda_corr.routes()
+    assert out.shape == (E, H, W, 196)
+    assert kbench.lookup_err(out, ref) <= 1e-4
+    if dtype == torch.float32:
+        assert (tc, simt) == (0, 0)
+    else:
+        assert tc > 0
+        if kind in ("smooth", "wild"):
+            assert simt == 0
+        if kind == "mixed":   # neighbouring tiles on different routes
+            assert simt > 0
+
+    frames = torch.cat([f1, f2])
+    pyr = cuda_corr.lookup_pyramid(frames)
+    rng = np.random.RandomState(7)
+    ii = torch.as_tensor(rng.permutation(E), device=dev)
+    jj = torch.as_tensor(E + rng.permutation(E), device=dev)
+    idx = cuda_corr.corr_lookup_indexed(frames, pyr, ii, jj, coords)
+    del out, ref
+    # at E=256 the plain version's volumes are 16 GB: hold the indexed
+    # entry against the gathered one, which is checked above
+    idx_ref = (cuda_corr.corr_lookup_indexed_plain(frames, pyr, ii, jj,
+                                                   coords)
+               if E <= 48 else
+               cuda_corr.corr_lookup(frames[ii], frames[jj], coords))
+    torch.cuda.synchronize()
+    assert kbench.lookup_err(idx, idx_ref) <= 1e-4
+
+
+@pytest.mark.parametrize("width, levels", [(16, 4), (64, 2), (256, 4),
+                                           (128, 1)])
+def test_lookup_tensor_core_other_widths_and_levels(dev, width, levels):
+    """The tensor-core kernel takes any C that is a multiple of 16 up to
+    256 and 1 to 4 levels."""
+    E, H, W = 3, 30, 101
+    rng = np.random.RandomState(width)
+    f1, f2 = (torch.tensor(rng.randn(E, H, W, width), dtype=torch.float32)
+              .to(dev, torch.bfloat16) for _ in range(2))
+    assert cuda_corr.lookup_dtype(f1) == torch.bfloat16
+    for kind in ("smooth", "mixed"):
+        coords = torch.from_numpy(
+            kbench.lookup_coords(kind, E, H, W, seed=levels)).to(dev)
+        cuda_corr.reset_routes()
+        out = cuda_corr.corr_lookup(f1, f2, coords, levels)
+        ref = cuda_corr.corr_lookup_plain(f1, f2, coords, levels)
+        assert out.shape == (E, H, W, levels * 49)
+        assert kbench.lookup_err(out, ref) <= 1e-4
+        assert cuda_corr.routes()[0] > 0
+
+
+def test_lookup_indexed_checks_and_counts(dev):
+    f1, f2, coords = _inputs(3, 30, 101, torch.bfloat16, dev, seed=2)
+    frames = torch.cat([f1, f2])
+    pyr = cuda_corr.lookup_pyramid(frames)
+    assert pyr.dtype == torch.bfloat16 and pyr.shape == (6, 3991, C)
+    ii = torch.tensor([0, 1, 2], device=dev)
+    jj = torch.tensor([3, 4, 5], device=dev)
+    cuda_corr.reset_launches()
+    out = cuda_corr.corr_lookup_indexed(frames, pyr, ii, jj, coords)
+    assert cuda_corr.LAUNCHES["corr_lookup"] == 1
+    # the same kernel on the same rows: the same bits as the gathered entry
+    assert torch.equal(out, cuda_corr.corr_lookup(f1, f2, coords))
+    with pytest.raises(TypeError):   # bf16 features take a bf16 pyramid
+        cuda_corr.corr_lookup_indexed(frames, pyr.float(), ii, jj, coords)
+    with pytest.raises(ValueError):  # one index per edge
+        cuda_corr.corr_lookup_indexed(frames, pyr, ii[:2], jj, coords)
+    # C not a multiple of 16: the SIMT kernel on an f32 pyramid
+    g1, g2 = f1[..., :24].contiguous(), f2[..., :24].contiguous()
+    assert cuda_corr.lookup_pyramid(g2).dtype == torch.float32
+    cuda_corr.reset_routes()
+    err = kbench.lookup_err(cuda_corr.corr_lookup(g1, g2, coords),
+                            cuda_corr.corr_lookup_plain(g1, g2, coords))
+    assert err <= 1e-4 and cuda_corr.routes() == (0, 0)
+
+
+def test_extract_equals_the_replaced_kernel_on_the_saved_case(dev):
+    """K2's redesign changed loads and stores, not one bit of the blend:
+    the sha256 of its output on the saved case is the replaced
+    kernel's."""
+    vol, coords = (t.to(dev) for t in kbench.saved_extract_case())
+    out = cuda_corr.corr_extract(vol, coords)
+    assert kbench.fingerprint(out) == kbench.SAVED_EXTRACT_SHA256
+    ref = cuda_corr.corr_extract_plain(vol, coords)
+    assert (out - ref).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("n_pix_edges, levels", [(1, 3), (3, 2), (2, 1)])
+def test_extract_ragged_blocks_and_fewer_levels(dev, n_pix_edges, levels):
+    """Pixel counts that leave K2's last block partly empty (5 x 7
+    features) and level counts whose output rows are no multiple of 16
+    bytes."""
+    E, H, W = n_pix_edges, 5, 7
+    f1, f2, coords = _inputs(E, H, W, torch.bfloat16, dev, seed=levels)
+    vol = cuda_corr.build_volumes_plain(f1, f2, levels)
+    out = cuda_corr.corr_extract(vol, coords, levels)
+    ref = cuda_corr.corr_extract_plain(vol, coords, levels)
+    torch.cuda.synchronize()
+    assert out.shape == (E, H, W, levels * 49)
     assert (out - ref).abs().max().item() <= 1e-4
 
 

@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py            the whole run
     python3 chip_smoke.py main       only the named phases (kernels,
-                                     packed, reference, main, harness),
-                                     without the result lines
+                                     packed, reference, main, harness,
+                                     export), without the result lines
 
 Phases, one line each (any failure exits non-zero):
   1. device   - requires CUDA; prints the card's name and power limit;
@@ -46,12 +46,31 @@ Phases, one line each (any failure exits non-zero):
                 the backend's wall time apart from the rest of
                 terminate_s, K3's time inside it (wrapper and kernel
                 alone, CUDA events) and the share of K3's (block, level)
-                pairs that ran on the tensor cores;
+                pairs that ran on the tensor cores; at the end,
+                get_depth() and get_flow() give finite (counter, 240,
+                808) and (counter, 240, 808, 2) arrays;
   6. harness  - the corr experiment harnesses
                 (python -m pvo_tpu_torch.scripts.corr_exp*), each
                 program once (corr_exp5 runs corr_exp4's) with its
                 kernel's launches counted: P1's and P2's times beside
-                their plain versions.
+                their plain versions;
+  7. export   - the flow/depth export (scripts.test_vo2.export_pair on
+                DroidNet.forward, f32, weights of tame_net(0,
+                mask_bias=-2)). K1-K3 at the export's shapes (E=2, f32
+                features) against plain, with time and bound. The
+                forward with the kernels against the
+                same forward with their plain versions, 2 frames, 3
+                iterations, at 64x96 (narrow: K1 once, K2 per step) and
+                64x1000 (wide: K3 per step): 1/8-res flows and upsampled
+                disparities within EXPORT_TOL. Then the path at full
+                width, 376x1248 (47x156 features), 15 iterations: one
+                warm-up pair, the launch counts set to 0, 5 timed pairs
+                (synchronized, readbacks included), the counts read:
+                vo2_export_s_per_pair, peak memory, launches of K1/K2/K3
+                per pair (must be 0/0/15), K3's time per step (wrapper
+                and kernel alone, CUDA events), and one pair under
+                torch.profiler (device ms, kernels and aten ops per
+                pair). Then the narrow route, 240x808: 1/15/0.
 Then one JSON line of kernel results, the card's name and power limit,
 and the contract line {"ok": true, "device": {...}}.
 """
@@ -66,9 +85,10 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from pvo_tpu_torch.scripts import kbench
+from pvo_tpu_torch.scripts import bench_vo2_export, kbench
 from pvo_tpu_torch.scripts.kbench import (device_time_ms, gpu_line,
                                           kernel_bound)
+from pvo_tpu_torch.scripts.test_vo2 import export_pair
 from pvo_tpu_torch.utils.config import VOConfig
 from pvo_tpu_torch.vo.factor_graph import FactorGraph
 from pvo_tpu_torch.vo.net import cuda_corr
@@ -80,6 +100,15 @@ C = 128
 TOL = {"build_volumes": 2e-2, "corr_extract": 2e-2, "corr_lookup": 1e-4}
 # K1 forms the plain version's products in another f32 summation order
 K1_EQUAL = 0.999
+# the forward with the kernels against the forward with their plain
+# versions, max |d| of the 1/8-res flow (pixels) and of the upsampled
+# disparity after 3 iterations. On the wide route K3 differs from plain
+# by f32 summation order (1e-4 on the correlation); on the narrow route
+# both sides read a bf16 volume and K1 differs from plain by one bf16 ulp
+# in under 0.01% of its entries
+EXPORT_TOL = 1e-3
+EXPORT_SIZE, EXPORT_NARROW, EXPORT_ITERS, EXPORT_PAIRS = \
+    (376, 1248), (240, 808), 15, 5
 # packed bf16 outputs: |d| <= 2e-2 + 8e-3 |ref|, one bf16 ulp above K1/K2,
 # and at least PACKED_EQUAL of them bit-equal: the tolerance alone
 # cannot tell one rounding variant from another, which differ by one
@@ -497,9 +526,11 @@ def patched(obj, name, value):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Swap each kernel wrapper for its plain PyTorch version."""
-    saved = {k: getattr(cuda_corr, k) for k in cuda_corr.KERNELS}
-    for k in cuda_corr.KERNELS:
+    """Swap each kernel wrapper (K3's indexed entry too) for its plain
+    PyTorch version."""
+    names = cuda_corr.KERNELS + ("corr_lookup_indexed",)
+    saved = {k: getattr(cuda_corr, k) for k in names}
+    for k in names:
         setattr(cuda_corr, k, getattr(cuda_corr, k + "_plain"))
     try:
         yield
@@ -655,6 +686,13 @@ def run_main_path():
         raise AssertionError("terminate never took K3's tensor-core route")
     if traj.shape != (n_frames, 7) or not np.isfinite(traj).all():
         raise AssertionError(f"bad trajectory {traj.shape}")
+    depth, flow = sysm.get_depth(), sysm.get_flow()
+    n = sysm.video.counter
+    log("main", get_depth="x".join(map(str, depth.shape)),
+        get_flow="x".join(map(str, flow.shape)))
+    if not (depth.shape == (n, H, W) and flow.shape == (n, H, W, 2)
+            and np.isfinite(depth).all() and np.isfinite(flow).all()):
+        raise AssertionError(f"bad accessors {depth.shape} {flow.shape}")
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
@@ -690,9 +728,175 @@ def run_harnesses():
     return res
 
 
+def forward_outputs(net, size, iters=3):
+    """DroidNet.forward on bench_vo2_export's window at ``size``: (1/8-res
+    flows, upsampled disparities) of the last step, and the launches."""
+    images, poses, intr8 = bench_vo2_export.bench_inputs(size)
+    dev = torch.device("cuda")
+    args = (torch.from_numpy(poses)[None].to(dev),
+            torch.from_numpy(images)[None].to(dev),
+            torch.ones((1, 2, size[0] // 8, size[1] // 8), device=dev),
+            torch.from_numpy(intr8).to(dev).expand(1, 2, 4))
+    cuda_corr.reset_launches()
+    with torch.no_grad():
+        out = net(*args, [0, 1], [1, 0], num_steps=iters, ret_flow=True,
+                  downsample=True, final_only=True)
+    torch.cuda.synchronize()
+    return out["flows"][-1], out["disps_up"][-1], dict(cuda_corr.LAUNCHES)
+
+
+def time_export_kernels():
+    """K1-K3 as the export calls them (E=2, f32 features, smooth
+    coordinates): error against plain, time, plain time and bound. K1
+    and K2 at the narrow 30x101, K3 through the indexed entry at 47x156
+    (the SIMT kernel: the wrapper gathers the edges' frames per call)."""
+    def line(name, shape, out, ref, fn, plain_fn, library_fn=None):
+        err = (out.float() - ref.float()).abs().max().item()
+        ms, plain_ms = device_time_ms(fn), device_time_ms(plain_fn, reps=3)
+        bound = kernel_bound(name, *shape, C, features="f32")
+        extra = {} if library_fn is None else {
+            "library_ms": f"{device_time_ms(library_fn):.4f}"}
+        log("export", kernel=name, shape="x".join(map(str, shape)),
+            features="f32", max_abs_err=f"{err:.3g}", tol=TOL[name],
+            ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            bound_ms=f"{bound['ms']:.4f}", bound_by=bound["bound_by"],
+            share_of_bound=f"{bound['ms'] / ms:.4f}", **extra)
+        if not err <= TOL[name]:
+            raise AssertionError(f"{name} at {shape}: error {err}")
+
+    shape = (2, 30, 101)
+    f1, f2, _ = kernel_inputs(*shape, torch.float32, seed=5)
+    coords = torch.from_numpy(kbench.lookup_coords("smooth", *shape)).cuda()
+    vol, ref = cuda_corr.build_volumes(f1, f2), \
+        cuda_corr.build_volumes_plain(f1, f2)
+    check_volume(shape, torch.float32, vol, ref)
+    pyr = cuda_corr.pool_pyramid(f2)
+    a = f1.reshape(2, -1, C) * cuda_corr.SCALE
+    b = torch.nn.functional.pad(
+        pyr, (0, 0, 0, vol.shape[-1] - pyr.shape[1])).transpose(1, 2)
+    line("build_volumes", shape, vol, ref,
+         lambda: cuda_corr.build_volumes(f1, f2),
+         lambda: cuda_corr.build_volumes_plain(f1, f2),
+         library_fn=lambda: torch.bmm(a, b))
+    line("corr_extract", shape, cuda_corr.corr_extract(vol, coords),
+         cuda_corr.corr_extract_plain(vol, coords),
+         lambda: cuda_corr.corr_extract(vol, coords),
+         lambda: cuda_corr.corr_extract_plain(vol, coords))
+
+    shape = (2, 47, 156)
+    frames, _, _ = kernel_inputs(*shape, torch.float32, seed=6)
+    coords = torch.from_numpy(kbench.lookup_coords("smooth", *shape)).cuda()
+    pyr = cuda_corr.lookup_pyramid(frames)
+    ii = torch.tensor([0, 1], device="cuda")
+    jj = torch.tensor([1, 0], device="cuda")
+    line("corr_lookup", shape,
+         cuda_corr.corr_lookup_indexed(frames, pyr, ii, jj, coords),
+         cuda_corr.corr_lookup_indexed_plain(frames, pyr, ii, jj, coords),
+         lambda: cuda_corr.corr_lookup_indexed(frames, pyr, ii, jj, coords),
+         lambda: cuda_corr.corr_lookup_indexed_plain(frames, pyr, ii, jj,
+                                                     coords))
+
+
+def run_export():
+    """Phase 7: returns {"376x1248": launches per pair, "240x808": ...}."""
+    net = tame_net(0, mask_bias=-2.0).cuda().eval()
+    time_export_kernels()
+
+    # the kernels against their plain versions, through the forward
+    for size, want in (((64, 96), (1, 3, 0)), ((64, 1000), (0, 0, 3))):
+        flow, disp, launches = forward_outputs(net, size)
+        with plain_kernels():
+            flow_ref, disp_ref, plain_launches = forward_outputs(net, size)
+        flow_err = (flow - flow_ref).abs().max().item()
+        disp_err = (disp - disp_ref).abs().max().item()
+        log("export", check="kernels_vs_plain", image="x".join(map(str, size)),
+            iters=3, flow_max_abs_err=f"{flow_err:.3g}",
+            disp_up_max_abs_err=f"{disp_err:.3g}", tol=EXPORT_TOL,
+            flow_max=f"{flow_ref.abs().max().item():.3g}",
+            disp_up_max=f"{disp_ref.abs().max().item():.3g}",
+            **{f"launches_{k}": v for k, v in launches.items()})
+        if tuple(launches.values()) != want or any(plain_launches.values()):
+            raise AssertionError(f"export at {size}: launches {launches}, "
+                                 f"under plain_kernels {plain_launches}")
+        if not (flow_err <= EXPORT_TOL and disp_err <= EXPORT_TOL):
+            raise AssertionError(f"export at {size}: the forward with the "
+                                 f"kernels disagrees with the plain one")
+
+    per_pair = {}
+    for size, pairs, want in ((EXPORT_SIZE, EXPORT_PAIRS, (0, 0, EXPORT_ITERS)),
+                              (EXPORT_NARROW, 3, (1, EXPORT_ITERS, 0))):
+        H, W = size
+        tag = f"{H}x{W}"
+        # one warm-up pair, then the counts from 0 over the timed pairs
+        bench_vo2_export.time_pairs(net, size, EXPORT_ITERS, pairs=1)
+        torch.cuda.reset_peak_memory_stats()
+        cuda_corr.reset_launches()
+        s_per_pair, (flow8, disp) = bench_vo2_export.time_pairs(
+            net, size, EXPORT_ITERS, pairs=pairs)
+        launches = dict(cuda_corr.LAUNCHES)
+        per_pair[tag] = {k: v // pairs for k, v in launches.items()}
+        log("export", image=tag, iters=EXPORT_ITERS, pairs=pairs,
+            features="f32", vo2_export_s_per_pair=f"{s_per_pair:.4f}",
+            peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+            **{f"launches_per_pair_{k}": v for k, v in per_pair[tag].items()},
+            gpu=repr(gpu_line()))
+        if tuple(launches.values()) != tuple(pairs * n for n in want):
+            raise AssertionError(f"export at {tag}: launches {launches} "
+                                 f"over {pairs} pairs, expected {want} each")
+        h, w = H // 8, W // 8
+        if not (flow8.shape == (h, w, 2) and disp.shape == (h, w)
+                and flow8.dtype == disp.dtype == np.float32
+                and np.isfinite(flow8).all() and np.isfinite(disp).all()):
+            raise AssertionError(f"export at {tag}: bad arrays "
+                                 f"{flow8.shape} {disp.shape}")
+
+    # where a pair's time goes at full width: K3 per step through the
+    # wrapper and as the kernel alone, then one pair under the profiler
+    inputs = bench_vo2_export.bench_inputs(EXPORT_SIZE)
+    k3_wrapper, k3_kernel = EventTimer(), EventTimer()
+    lib = cuda_corr._library()
+    with patched(cuda_corr, "corr_lookup_indexed",
+                 k3_wrapper.wrap(cuda_corr.corr_lookup_indexed)), \
+            patched(lib, "pvo_corr_lookup",
+                    k3_kernel.wrap(lib.pvo_corr_lookup)):
+        export_pair(net, *inputs, iters=EXPORT_ITERS)
+    wrapper = [ms for _, ms in k3_wrapper.ms()]
+    kernel = [ms for _, ms in k3_kernel.ms()]
+    bound = kernel_bound("corr_lookup", 2, EXPORT_SIZE[0] // 8,
+                         EXPORT_SIZE[1] // 8, C, features="f32")
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        export_pair(net, *inputs, iters=EXPORT_ITERS)
+        torch.cuda.synchronize()
+    # kernel rows only: an op's row repeats its kernels' device time;
+    # aten rows count nested ops too (conv2d -> convolution -> cudnn)
+    rows = prof.key_averages()
+    on_card = [r for r in rows
+               if r.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(r.self_device_time_total for r in on_card) / 1e3
+    kernels = sum(r.count for r in on_card)
+    aten_ops = sum(r.count for r in rows if r.key.startswith("aten::"))
+    log("export", image=f"{EXPORT_SIZE[0]}x{EXPORT_SIZE[1]}",
+        k3_calls=len(wrapper),
+        k3_wrapper_ms_per_step=f"{np.mean(wrapper):.4f}",
+        k3_kernel_ms_per_step=f"{np.mean(kernel):.4f}",
+        k3_bound_ms=f"{bound['ms']:.4f}", k3_bound_by=bound["bound_by"],
+        k3_wrapper_ms_per_pair=f"{sum(wrapper):.3f}",
+        profiled_device_ms_per_pair=f"{device_ms:.2f}",
+        profiled_kernels_per_pair=kernels, aten_ops_per_pair=aten_ops)
+    top = sorted(on_card, key=lambda r: -r.self_device_time_total)[:6]
+    log("export", top_kernels=repr("; ".join(
+        f"{r.key[:56]} {r.self_device_time_total / 1e3:.2f} ms x{r.count}"
+        for r in top)))
+    if len(wrapper) != EXPORT_ITERS or len(kernel) != EXPORT_ITERS:
+        raise AssertionError("K3 did not run once per iteration")
+    return per_pair
+
+
 PHASES = {"kernels": check_kernels, "packed": check_packed,
           "reference": check_reference, "main": run_main_path,
-          "harness": run_harnesses}
+          "harness": run_harnesses, "export": run_export}
 
 
 def main():
@@ -725,6 +929,7 @@ def main():
     check_reference()
     launches = run_main_path()
     harness = run_harnesses()
+    export = run_export()
 
     kernels = [{
         "name": k, "route": "cuda", "source": "pvo_tpu_torch/csrc/corr.cu",
@@ -732,7 +937,10 @@ def main():
         "max_abs_err": res[k]["err"], "ms": res[k]["ms"],
         "plain_ms": res[k]["plain_ms"], "bound_ms": res[k]["bound_ms"],
         "bound_by": res[k]["bound_by"],
-        "library_ms": res[k]["library_ms"]} for k in cuda_corr.KERNELS]
+        "library_ms": res[k]["library_ms"],
+        # the export path, per exported pair, counted from 0 as well
+        **{f"launches_export_{tag}": n[k] for tag, n in export.items()}}
+        for k in cuda_corr.KERNELS]
     for x, (_, kernel, site) in HARNESS.items():
         n, ms, plain_ms, err = harness[x]
         bound = kernel_bound(kernel, HARNESS_E[kernel], 30, 101, C)

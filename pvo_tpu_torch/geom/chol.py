@@ -1,9 +1,11 @@
 """Damped Cholesky / Schur-complement solves, forward only.
 
-Port of the forward of :func:`pvo_tpu.geom.chol.solve_psd` and
-:func:`pvo_tpu.geom.chol.schur_solve` (inference needs no backward).
-As there, a failed factorization yields a zero solution instead of an
-error.
+Port of the forward of :func:`pvo_tpu.geom.chol.solve_psd`,
+:func:`pvo_tpu.geom.chol.block_solve` and
+:func:`pvo_tpu.geom.chol.schur_solve` (inference needs no backward; the
+ops are differentiable torch ops, without the JAX module's implicit
+backward). As there, a failed factorization yields a zero solution
+instead of an error.
 """
 
 from __future__ import annotations
@@ -20,6 +22,19 @@ def solve_psd(H, b):
     ok = (info == 0)[..., None, None] & \
         torch.isfinite(x).all(dim=-1, keepdim=True).all(dim=-2, keepdim=True)
     return torch.where(ok, x, torch.zeros_like(x))
+
+
+def block_solve(H, b, ep=0.1, lm=1e-4):
+    """Solve the damped normal equations over pose blocks.
+
+    H (B,N,N,D,D) block matrix, b (B,N,D); the diagonal is damped as
+    ``H += (ep + lm*H) I``. Returns dx (B,N,D).
+    """
+    B, N, _, D, _ = H.shape
+    eye = torch.eye(N * D, dtype=H.dtype, device=H.device)
+    Hd = H.permute(0, 1, 3, 2, 4).reshape(B, N * D, N * D)
+    Hd = Hd + (ep + lm * Hd) * eye
+    return solve_psd(Hd, b.reshape(B, N * D, 1)).reshape(B, N, D)
 
 
 def schur_solve(H, E, C, v, w, ep=0.1, lm=1e-4):

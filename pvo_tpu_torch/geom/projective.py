@@ -1,6 +1,7 @@
 """Pinhole projective geometry with analytic Jacobians, PyTorch.
 
-Port of :mod:`pvo_tpu.geom.projective` (the ops the VO slice uses).
+Port of :mod:`pvo_tpu.geom.projective` (the ops the VO and export
+slices use).
 Conventions are the JAX module's: poses are w2c SE3 7-vectors, depth
 is inverse depth at 1/8 resolution, homogeneous points are
 ``[X, Y, 1, d]``, tangent layout ``[rho, phi]``; batched as
@@ -116,11 +117,14 @@ def projective_transform(poses, disps, intrinsics, ii, jj, jacobian=False):
     return x1, valid, (Ji, Jj, Jz)
 
 
-def projective_jacobian_planes(poses, disps, intrinsics, ii, jj):
+def projective_jacobian_planes(poses, disps, intrinsics, ii, jj,
+                               pose_jac=True):
     """Jacobians of :func:`projective_transform` in plane layout.
 
     Returns coords (B,N,H,W,2), valid (B,N,H,W,1),
-    Ji_pl, Jj_pl (B,N,2,6,HW) and Jz_pl (B,N,2,HW).
+    Ji_pl, Jj_pl (B,N,2,6,HW) and Jz_pl (B,N,2,HW). ``pose_jac=False``
+    skips the pose Jacobians (Ji_pl and Jj_pl are None), for depth-only
+    solves where every pose is fixed.
     """
     ii = _as_index(ii, disps.device)
     jj = _as_index(jj, disps.device)
@@ -149,18 +153,20 @@ def projective_jacobian_planes(poses, disps, intrinsics, ii, jj):
              (X0[..., 2] > MIN_DEPTH)).to(coords.dtype)[..., None]
 
     fx, fy = fx.expand_as(a), fy.expand_as(a)
-    o = torch.zeros_like(a)
     Xa = Xp * a
     Ya = Yp * a
-    aZ = a * Zu
-    Jj_pl = torch.stack([
-        fx * a * hc, o, -fx * Xa * a * hc,
-        -fx * Xa * Ya, fx * (aZ + Xa * Xa), -fx * Ya,
-        o, fy * a * hc, -fy * Ya * a * hc,
-        -fy * (aZ + Ya * Ya), fy * Xa * Ya, fy * Xa,
-    ], dim=2).reshape(B, N, 2, 6, HW)
-    Adj = se3.adj_matrix(Gij)
-    Ji_pl = -torch.einsum("bncdh,bnde->bnceh", Jj_pl, Adj)
+    Ji_pl = Jj_pl = None
+    if pose_jac:
+        o = torch.zeros_like(a)
+        aZ = a * Zu
+        Jj_pl = torch.stack([
+            fx * a * hc, o, -fx * Xa * a * hc,
+            -fx * Xa * Ya, fx * (aZ + Xa * Xa), -fx * Ya,
+            o, fy * a * hc, -fy * Ya * a * hc,
+            -fy * (aZ + Ya * Ya), fy * Xa * Ya, fy * Xa,
+        ], dim=2).reshape(B, N, 2, 6, HW)
+        Adj = se3.adj_matrix(Gij)
+        Ji_pl = -torch.einsum("bncdh,bnde->bnceh", Jj_pl, Adj)
 
     tij = Gij[..., :3]
     t0 = tij[..., 0][..., None]
@@ -171,3 +177,11 @@ def projective_jacobian_planes(poses, disps, intrinsics, ii, jj):
         fy * a * (t1 - Ya * t2),
     ], dim=2)
     return coords, valid, Ji_pl, Jj_pl, Jz_pl
+
+
+def induced_flow(poses, disps, intrinsics, ii, jj):
+    """Optical flow induced by camera motion: (flow (B,N,H,W,2), valid)."""
+    ht, wd = disps.shape[-2:]
+    coords0 = coords_grid(ht, wd, dtype=disps.dtype, device=disps.device)
+    coords1, valid = projective_transform(poses, disps, intrinsics, ii, jj)
+    return coords1[..., :2] - coords0, valid

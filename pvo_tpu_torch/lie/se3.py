@@ -87,3 +87,28 @@ def adj(g, a):
 def adjT(g, a):
     """Transposed adjoint action on tangent (co)vector a (...,6)."""
     return torch.einsum("...ji,...j->...i", adj_matrix(g), a)
+
+
+def matrix(g):
+    """SE3 7-vector -> 4x4 homogeneous matrix."""
+    t, q = g[..., :3], g[..., 3:]
+    R = so3.quat_to_matrix(q)
+    top = torch.cat([R, t[..., None]], dim=-1)
+    bot = torch.zeros_like(top[..., :1, :])
+    bot[..., 0, 3] = 1.0
+    return torch.cat([top, bot], dim=-2)
+
+
+def from_matrix(m):
+    """4x4 homogeneous matrix -> SE3 7-vector."""
+    q = so3.quat_from_matrix(m[..., :3, :3])
+    t = m[..., :3, 3]
+    return torch.cat([t, q], dim=-1)
+
+
+def normalize(g):
+    """Re-normalize the quaternion part."""
+    t, q = g[..., :3], g[..., 3:]
+    q = q / torch.sqrt(torch.clamp(torch.sum(q * q, -1, keepdim=True),
+                                   min=1e-24))
+    return torch.cat([t, q], dim=-1)

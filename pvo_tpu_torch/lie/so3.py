@@ -57,6 +57,40 @@ def quat_to_matrix(q):
     return m.reshape(q.shape[:-1] + (3, 3))
 
 
+def quat_from_matrix(m):
+    """3x3 rotation matrix -> scalar-last unit quaternion (branch-free:
+    the candidate with the largest pivot is selected per element)."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+
+    tr = m00 + m11 + m22
+    qw_ = torch.sqrt(torch.clamp(1.0 + tr, min=1e-12)) / 2
+    qx_ = torch.sqrt(torch.clamp(1.0 + m00 - m11 - m22, min=1e-12)) / 2
+    qy_ = torch.sqrt(torch.clamp(1.0 - m00 + m11 - m22, min=1e-12)) / 2
+    qz_ = torch.sqrt(torch.clamp(1.0 - m00 - m11 + m22, min=1e-12)) / 2
+
+    c0 = torch.stack([(m21 - m12) / (4 * qw_), (m02 - m20) / (4 * qw_),
+                      (m10 - m01) / (4 * qw_), qw_], dim=-1)
+    c1 = torch.stack([qx_, (m01 + m10) / (4 * qx_), (m02 + m20) / (4 * qx_),
+                      (m21 - m12) / (4 * qx_)], dim=-1)
+    c2 = torch.stack([(m01 + m10) / (4 * qy_), qy_, (m12 + m21) / (4 * qy_),
+                      (m02 - m20) / (4 * qy_)], dim=-1)
+    c3 = torch.stack([(m02 + m20) / (4 * qz_), (m12 + m21) / (4 * qz_), qz_,
+                      (m10 - m01) / (4 * qz_)], dim=-1)
+
+    cand = torch.stack([c0, c1, c2, c3], dim=-2)  # (..., 4, 4)
+    scores = torch.stack([tr, m00 - m11 - m22, m11 - m00 - m22,
+                          m22 - m00 - m11], dim=-1)
+    idx = torch.argmax(scores, dim=-1)
+    q = torch.take_along_dim(
+        cand, idx[..., None, None].expand(idx.shape + (1, 4)),
+        dim=-2)[..., 0, :]
+    n = torch.sqrt(torch.clamp(torch.sum(q * q, dim=-1, keepdim=True),
+                               min=1e-24))
+    return q / n
+
+
 def hat(phi):
     """so(3) hat operator: 3-vector -> 3x3 skew matrix."""
     x, y, z = phi[..., 0], phi[..., 1], phi[..., 2]

@@ -77,6 +77,11 @@ def gather_patch(vol, coords, radius):
     bx = _floor_index(x0) - r
     by = _floor_index(y0) - r
 
+    if H2 * W2 == 0:
+        # a level pooled away to nothing (H or W below 8): all taps are
+        # out of bounds, as in the JAX module
+        return vol.new_zeros((E, HW1, S, S)), x - x0, y - y0
+
     d = torch.arange(S, device=vol.device)
     ys = by[..., None, None] + d[:, None]
     xs = bx[..., None, None] + d[None, :]

@@ -14,8 +14,8 @@ filter's probe, geometry and DBA run in f32. TF32 is switched off for
 matmuls and cuDNN convolutions when the system is built.
 
 Not ported yet: the device-resident planner (``cfg.pipeline`` is
-ignored: the port always runs the classic host loop), the YUV upload
-packing (``cfg.yuv420_upload`` is ignored), and depth/flow upsampling.
+ignored: the port always runs the classic host loop) and the YUV upload
+packing (``cfg.yuv420_upload`` is ignored).
 """
 
 from __future__ import annotations
@@ -25,7 +25,9 @@ from typing import Optional
 
 import torch
 
+from pvo_tpu_torch.geom.upsample import upsample_inter
 from pvo_tpu_torch.utils.config import VOConfig
+from pvo_tpu_torch.utils.device import open_device
 from pvo_tpu_torch.lie import se3
 from pvo_tpu_torch.vo.backend import Backend
 from pvo_tpu_torch.vo.factor_graph import FactorGraph
@@ -48,12 +50,7 @@ class VOSystem:
         CPU runs only when asked for (``device="cpu"``). ``net_dtype``:
         storage dtype of the frontend's per-edge hidden state (parity
         tests pin f32)."""
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("VOSystem: no CUDA device; pass "
-                               "device='cpu' to run on the CPU")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        self.device = open_device(device)
         self.cfg = cfg or VOConfig()
 
         if net is None and weights_path is not None:
@@ -125,3 +122,17 @@ class VOSystem:
     def get_traj(self):
         """(counter, 7) keyframe w2c poses."""
         return self.video.poses[:self.video.counter].cpu().numpy()
+
+    @torch.no_grad()
+    def get_depth(self):
+        """(counter, H, W) keyframe inverse depths, upsampled x8
+        bilinearly on the device and read back once."""
+        d = self.video.disps[:self.video.counter][..., None]
+        return upsample_inter(d)[..., 0].cpu().numpy()
+
+    @torch.no_grad()
+    def get_flow(self):
+        """(counter, H, W, 2) upsampled ``video.full_flow`` x 8 (a
+        buffer of ones that nothing writes, as in the JAX package)."""
+        f = self.video.full_flow[:self.video.counter] * 8.0
+        return upsample_inter(f).cpu().numpy()

@@ -47,6 +47,9 @@ class DepthVideo:
         self.inps = torch.zeros((B, h, w, 128), dtype=feat_dtype, **z)
         self.segms = torch.zeros((B, h, w), dtype=torch.long, **z)
         self.damping = 1e-6 * torch.ones((B, h, w), **z)
+        # read by VOSystem.get_flow; nothing writes it, as in the JAX
+        # package's DepthVideo
+        self.full_flow = torch.ones((B, h, w, 2), **z)
 
     def _remap_segments(self, segm):
         """Host remap of arbitrary panoptic ids -> local [0, S) ids;

@@ -108,6 +108,30 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert not bad, bad
 
 
+EXPORT_SLICE = ("geom/upsample.py", "utils/io.py", "utils/ate.py",
+                "utils/device.py", "scripts/test_vo2.py", "scripts/test_vo.py",
+                "scripts/bench_vo2_export.py")
+
+
+def test_import_walk_covers_the_export_slice():
+    """The walk above reads the export slice's files, and none of them,
+    nor chip_smoke.py, imports cv2 or PIL at module level: only the CLIs'
+    file reading and the final resize import them, inside functions (the
+    card's machine is not known to have either)."""
+    sources = port_sources()
+    for rel in EXPORT_SLICE:
+        assert ROOT / "pvo_tpu_torch" / rel in sources, rel
+    for path in sources:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        top = [n for n in tree.body
+               if isinstance(n, (ast.Import, ast.ImportFrom))]
+        names = [a.name for n in top if isinstance(n, ast.Import)
+                 for a in n.names] + \
+            [n.module or "" for n in top if isinstance(n, ast.ImportFrom)]
+        assert not [m for m in names if m.split(".")[0] in ("cv2", "PIL")], \
+            path
+
+
 def test_port_config_equals_the_jax_package_config():
     ours = [(f.name, f.type, f.default) for f in dataclasses.fields(VOConfig)]
     theirs = [(f.name, f.type, f.default)

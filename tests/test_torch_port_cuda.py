@@ -347,6 +347,17 @@ def test_packed_launch_counts_and_checks(dev):
         cuda_corr_exp.corr_lookup_packed(f1, f2[:, :, :50], coords)
 
 
+def _tamed_net():
+    """Random weights with the flow and mask heads' last convs scaled by
+    0.01 (chip_smoke.tame_net): unscaled, the recurrence is chaotic."""
+    net = DroidNet.from_seed(0)
+    with torch.no_grad():
+        for head in ("delta", "delta_dy", "delta_mask"):
+            for p in getattr(net.update, head)[2].parameters():
+                p.mul_(0.01)
+    return net
+
+
 @pytest.mark.parametrize("image, cached", [
     ((240, 808), True),     # 30x101 features: every level <= 120 a side
     ((376, 1248), False),   # vkitti2 at full size, 47x156: W > 120
@@ -357,11 +368,7 @@ def test_update_caches_volume_only_for_narrow_streams(dev, image, cached):
     else K3 per step and no volume."""
     H, W = image
     assert cuda_corr.volume_cache_ok(H // 8, W // 8) == cached
-    net = DroidNet.from_seed(0)
-    with torch.no_grad():   # tame the random heads (chip_smoke.tame_net)
-        for head in ("delta", "delta_dy", "delta_mask"):
-            for p in getattr(net.update, head)[2].parameters():
-                p.mul_(0.01)
+    net = _tamed_net()
     cfg = VOConfig(image_size=image, buffer=64, warmup=5, filter_thresh=-1.0,
                    keyframe_thresh=0.0, max_edges=48, frontend_window=8)
     sysm = VOSystem(cfg, net=net, device="cuda")
@@ -379,3 +386,70 @@ def test_update_caches_volume_only_for_narrow_streams(dev, image, cached):
     assert cuda_corr.LAUNCHES == (
         {"build_volumes": 1, "corr_extract": 2, "corr_lookup": 0} if cached
         else {"build_volumes": 0, "corr_extract": 0, "corr_lookup": 2})
+
+
+def test_build_volumes_f32_at_the_export_shape(dev):
+    """f32 features into K1 at the narrow export's shape (E=2, 30x101),
+    through the wrapper and on a pooled pyramid: the SIMT kernel into
+    the bf16 volume, held like the tensor-core kernel."""
+    f1, f2, _ = _inputs(2, 30, 101, torch.float32, dev, seed=31)
+    ref = cuda_corr.build_volumes_plain(f1, f2)
+    vol = cuda_corr.build_volumes(f1, f2)
+    torch.cuda.synchronize()
+    assert vol.dtype == torch.bfloat16 and vol.shape == (2, 3030, 4032)
+    _k1_close(vol, ref, 30, 101)
+    pyr = cuda_corr.pool_pyramid(f2, dtype=torch.float32)
+    assert torch.equal(cuda_corr.build_volumes_pooled(f1, pyr), vol)
+
+
+def _export_window(size, seed=0):
+    from pvo_tpu_torch.scripts.bench_vo2_export import bench_inputs
+    images, poses, intr8 = bench_inputs(size, seed)
+    dev = torch.device("cuda")
+    return (torch.from_numpy(poses)[None].to(dev),
+            torch.from_numpy(images)[None].to(dev),
+            torch.ones((1, 2, size[0] // 8, size[1] // 8), device=dev),
+            torch.from_numpy(np.tile(intr8, (1, 2, 1))).to(dev))
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("size, cached", [((240, 808), True),
+                                          ((376, 1248), False)],
+                         ids=["30x101", "47x156"])
+def test_forward_routes_and_launch_counts(dev, size, cached, bf16):
+    """DroidNet.forward on a 2-frame window: K1 once and K2 per step at
+    30x101, K3 per step and no volume at 47x156, for f32 features (the
+    export's) and under ``compute_dtype=bf16`` (K1's and K3's
+    tensor-core kernels: K3 then counts (block, level) pairs)."""
+    iters = 3
+    net = _tamed_net().to(dev).eval()
+    kw = {}
+    if bf16:
+        net = net.to(torch.bfloat16)
+        kw["compute_dtype"] = torch.bfloat16
+    cuda_corr.reset_launches()
+    cuda_corr.reset_routes()
+    with torch.no_grad():
+        out = net(*_export_window(size), [0, 1], [1, 0], num_steps=iters,
+                  ret_flow=True, downsample=True, final_only=True, **kw)
+    torch.cuda.synchronize()
+    assert cuda_corr.LAUNCHES == (
+        {"build_volumes": 1, "corr_extract": iters, "corr_lookup": 0}
+        if cached else
+        {"build_volumes": 0, "corr_extract": 0, "corr_lookup": iters})
+    assert (sum(cuda_corr.routes()) > 0) == (bf16 and not cached)
+    H, W = size
+    assert out["disps_up"][-1].shape == (1, 2, H, W)
+    assert out["flows"][-1].shape == (1, 2, H // 8, W // 8, 2)
+    for k in ("disps_up", "flows", "masks_up", "residuals"):
+        assert out[k][-1].dtype == torch.float32
+        assert torch.isfinite(out[k][-1]).all()
+
+
+def test_forward_plain_corr_launches_nothing(dev):
+    net = _tamed_net().to(dev).eval()
+    cuda_corr.reset_launches()
+    with torch.no_grad():
+        net(*_export_window((64, 96)), [0, 1], [1, 0], num_steps=2,
+            corr_impl="plain")
+    assert not any(cuda_corr.LAUNCHES.values())

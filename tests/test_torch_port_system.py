@@ -8,7 +8,8 @@
     backend's edges whole or in 8-edge chunks, and with the trajectory
     filler (terminate(image_stream)); counters
     and edge sets exact, poses within 1e-3 abs, disparities within 1e-2
-    relative (plus 1e-4 abs next to the 0.001 disparity floor).
+    relative (plus 1e-4 abs next to the 0.001 disparity floor), and
+    get_depth / get_flow against the JAX accessors.
 (c) The port runs 3 frames on the CPU without importing JAX, and never
     picks the CPU by itself.
 
@@ -299,6 +300,13 @@ def test_port_system_matches_jax(monkeypatch, backend_chunk, fill):
     # (0.0012 and 0.0021, median 0.94), where the measured 7e-5 abs
     # difference is 6% relative
     np.testing.assert_allclose(dp, dj, rtol=1e-2, atol=1e-4)
+    # the accessors: disparities upsampled x8 (bilinear, end points on
+    # end points) at the disparities' tolerance, and the upsampled
+    # full_flow buffer (ones x 8 on both sides)
+    depth, flow = pt.get_depth(), pt.get_flow()
+    assert depth.shape == (n, H, W) and flow.shape == (n, H, W, 2)
+    np.testing.assert_allclose(depth, jx.get_depth(), rtol=1e-2, atol=1e-4)
+    np.testing.assert_allclose(flow, jx.get_flow(), rtol=0, atol=1e-6)
 
 
 # ------------------------------------------------ (c) no JAX

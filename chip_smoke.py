@@ -11,22 +11,27 @@ Phases, one line each (any failure exits non-zero):
                 (nvcc, sm_90a), both at once;
   3. kernels  - each CUDA kernel against its plain PyTorch version on the
                 same inputs, C=128. K1 and K2 at 30x101, E in {1, 24, 48}:
-                <= 2e-2 (bf16 volume); K1 (bf16 tensor-core kernel, also
-                at a ragged E=3 17x45, and its f32-feature variant at
-                E=2) must also give >= 99.9% of entries bit-equal, every
-                entry within one bf16 ulp and pad columns exactly 0; K2
-                must also reproduce, bit for bit, the output of the
-                kernel it replaced on a saved case. K3 <= 1e-4 at 30x101
-                with E in {1, 48, 256}, wide 47x156 and tall 128x40, for
-                bf16 features (tensor-core kernel) and f32 ones (SIMT
-                kernel), through both entries (gathered features, and
-                frames + pyramid + edge indices), on smooth, scattered,
-                mixed, NaN/huge and border-band coordinates; the mixed
-                case must take both routes of the tensor-core kernel
-                and the smooth one only the tensor cores. For K1-K3 the
-                time stands beside its bound (kbench.kernel_bound) and,
-                for K1, beside torch.bmm on the same operands (a
-                yardstick the port never calls). P1 (X1) and P2 (X2-X5)
+                <= 2e-2 (bf16 volume); K1 (the bf16 kernel, also at a
+                ragged E=3 17x45, and the f32 kernel's three TF32 passes
+                at E=2 30x101 and E=3 17x45) must also give >= 99.9% of
+                entries bit-equal, every entry within one bf16 ulp and
+                pad columns exactly 0; K2 must also reproduce, bit for
+                bit, the output of the kernel it replaced on a saved
+                case. K3 <= 1e-4 at 30x101 with E in {1, 48, 256}, wide
+                47x156 and tall 128x40, for bf16 features (bf16
+                products) and f32 ones (three TF32 passes), through both
+                entries (gathered features, and frames + pyramid + edge
+                indices in the kernel), on smooth, scattered, mixed,
+                NaN/huge and border-band coordinates; the mixed case
+                must take both routes of either kernel and the smooth
+                one only the tensor cores; the indexed entry on f32
+                features must launch once and allocate only its output;
+                the f32 kernel also at C=24 (f32 and bf16 features), 1
+                to 4 levels, and where the last level is pooled away to
+                nothing. For K1-K3 the time stands beside its bound
+                (kbench.kernel_bound) and, for K1, beside torch.bmm on
+                the same operands (a yardstick the port never calls).
+                P1 (X1) and P2 (X2-X5)
                 in every variant at their harness shapes and in
                 border-straddling bands, |d| <= 2e-2 + 8e-3 |ref| (bf16
                 outputs) with >= 99.9% of outputs bit-equal, and every
@@ -109,6 +114,7 @@ K1_EQUAL = 0.999
 EXPORT_TOL = 1e-3
 EXPORT_SIZE, EXPORT_NARROW, EXPORT_ITERS, EXPORT_PAIRS = \
     (376, 1248), (240, 808), 15, 5
+EXPORT_NARROW_PAIRS = 3
 # packed bf16 outputs: |d| <= 2e-2 + 8e-3 |ref|, one bf16 ulp above K1/K2,
 # and at least PACKED_EQUAL of them bit-equal: the tolerance alone
 # cannot tell one rounding variant from another, which differ by one
@@ -125,7 +131,12 @@ REPLACES = {
 # steady state (48 edges) for K1/K2, the backend's chunk for K3 (bf16
 # features, smooth coordinates, the indexed entry)
 HEADLINE = {"build_volumes": (48, 30, 101), "corr_extract": (48, 30, 101),
-            "corr_lookup": (256, 30, 101)}
+            "corr_lookup": (256, 30, 101),
+            # the f32 kernels: the export's narrow route and its step
+            "build_volumes_f32": (2, 30, 101), "corr_lookup_f32": (2, 47, 156)}
+# the result rows of K1's and K3's f32 kernels (three TF32 passes)
+F32_ROWS = {"build_volumes": "build_volumes_f32",
+            "corr_lookup": "corr_lookup_f32"}
 # K3's checks: (E, H, W) and the coordinates of kbench.lookup_coords
 K3_SHAPES = ((1, 30, 101), (48, 30, 101), (256, 30, 101), (2, 47, 156),
              (2, 128, 40))
@@ -158,12 +169,12 @@ def log(phase, **kv):
           flush=True)
 
 
-def kernel_inputs(E, H, W, dtype, seed, band=None):
+def kernel_inputs(E, H, W, dtype, seed, band=None, width=C):
     """Seeded features and coords; ``band`` = (axis, lo, hi) sends half
     the pixels' coords into a band straddling a border."""
     rng = np.random.RandomState(seed)
-    f1 = torch.tensor(rng.randn(E, H, W, C), dtype=torch.float32)
-    f2 = torch.tensor(rng.randn(E, H, W, C), dtype=torch.float32)
+    f1 = torch.tensor(rng.randn(E, H, W, width), dtype=torch.float32)
+    f2 = torch.tensor(rng.randn(E, H, W, width), dtype=torch.float32)
     cx = rng.uniform(-2.0, W + 1.0, (E, H, W))
     cy = rng.uniform(-2.0, H + 1.0, (E, H, W))
     if band is not None:
@@ -176,13 +187,16 @@ def kernel_inputs(E, H, W, dtype, seed, band=None):
 
 
 def check_kernels():
-    """Phase 3, K1-K3: returns {kernel: {"err": worst error, "ms",
+    """Phase 3, K1-K3: returns {row: {"err": worst error, "ms",
     "plain_ms", "bound_ms", "bound_by", "library_ms"}}, the times at the
-    kernel's HEADLINE shape."""
-    res = {k: {"err": 0.0, "library_ms": None} for k in cuda_corr.KERNELS}
+    row's HEADLINE shape; a row is a kernel, or its f32 kernel
+    (F32_ROWS)."""
+    res = {k: {"err": 0.0, "library_ms": None}
+           for k in (*cuda_corr.KERNELS, *F32_ROWS.values())}
 
     def record(name, shape, err, fn, plain_fn, plain_reps=10, headline=None,
                library_fn=None, **note):
+        row = F32_ROWS[name] if note.get("features") == "f32" else name
         ms = device_time_ms(fn)
         plain_ms = device_time_ms(plain_fn, reps=plain_reps)
         bound = kernel_bound(name, *shape, C, features=note.get("features",
@@ -199,9 +213,9 @@ def check_kernels():
         if not err <= TOL[name]:
             raise AssertionError(f"{name} at {shape}: error {err} > "
                                  f"{TOL[name]}")
-        r = res[name]
+        r = res[row]
         r["err"] = max(r["err"], err)
-        if shape == HEADLINE[name] if headline is None else headline:
+        if shape == HEADLINE[row] if headline is None else headline:
             r.update(times)
 
     # bf16 features pool to a bf16-rounded pyramid, level by level
@@ -212,13 +226,30 @@ def check_kernels():
     log("kernel", name="pool_pyramid", shape="2x30x101",
         bf16_levels_rounded=True)
 
-    for shape, dtype in (((3, 17, 45), torch.bfloat16),
-                         ((2, 30, 101), torch.float32)):
-        f1, f2, _ = kernel_inputs(*shape, dtype, seed=sum(shape))
-        res["build_volumes"]["err"] = max(
-            res["build_volumes"]["err"],
-            check_volume(shape, dtype, cuda_corr.build_volumes(f1, f2),
-                         cuda_corr.build_volumes_plain(f1, f2)))
+    shape = (3, 17, 45)
+    f1, f2, _ = kernel_inputs(*shape, torch.bfloat16, seed=sum(shape))
+    res["build_volumes"]["err"] = max(
+        res["build_volumes"]["err"],
+        check_volume(shape, torch.bfloat16, cuda_corr.build_volumes(f1, f2),
+                     cuda_corr.build_volumes_plain(f1, f2)))
+
+    # K1 on f32 features (three TF32 passes), beside one library product
+    # of the same f32 operands
+    for shape in ((2, 30, 101), (3, 17, 45)):
+        f1, f2, _ = kernel_inputs(*shape, torch.float32, seed=sum(shape))
+        vol = cuda_corr.build_volumes(f1, f2)
+        pyr = cuda_corr.pool_pyramid(f2)
+        a = f1.reshape(shape[0], -1, C) * cuda_corr.SCALE
+        b = torch.nn.functional.pad(
+            pyr, (0, 0, 0, vol.shape[-1] - pyr.shape[1])).transpose(1, 2)
+        record("build_volumes", shape,
+               check_volume(shape, torch.float32, vol,
+                            cuda_corr.build_volumes_plain(f1, f2)),
+               lambda: cuda_corr.build_volumes_pooled(f1, pyr),
+               lambda: cuda_corr.build_volumes_plain(f1, f2),
+               library_fn=lambda: torch.bmm(a, b), features="f32",
+               entry="pooled")
+        del vol, pyr, a, b
 
     # K2 must give the bits of the one-warp, 2-byte-load kernel it replaced
     vol, coords = (t.cuda() for t in kbench.saved_extract_case())
@@ -262,6 +293,7 @@ def check_kernels():
     for shape in K3_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             check_lookup(shape, dtype, record)
+    check_lookup_f32_corners()
 
     # K3 through the gathered entry (pooling included) on uniform random
     # coordinates with border bands, for f32 features too: the shapes of
@@ -320,27 +352,23 @@ def check_lookup(shape, dtype, record):
         # numpy's max keeps a NaN (a NaN on one side only)
         err = float(np.max([err, kbench.lookup_err(idx, idx_ref)]))
         del out, idx, idx_ref
-        if tensor and kind == "smooth" and routes[1]:
-            raise AssertionError(f"corr_lookup at {shape}: {routes[1]} "
-                                 "(block, level) pairs off the tensor cores "
-                                 "on smooth coordinates")
-        if tensor and kind == "mixed" and not (routes[0] and routes[1]):
-            raise AssertionError(f"corr_lookup at {shape}: the mixed case "
-                                 f"took routes {routes}, not both")
-        if not tensor and routes != (0, 0):
-            raise AssertionError("the SIMT kernel counted routes")
+        if kind == "smooth" and routes[1]:
+            raise AssertionError(f"corr_lookup {feats} at {shape}: "
+                                 f"{routes[1]} (block, level) pairs off the "
+                                 "tensor cores on smooth coordinates")
+        if kind == "mixed" and not (routes[0] and routes[1]):
+            raise AssertionError(f"corr_lookup {feats} at {shape}: the mixed "
+                                 f"case took routes {routes}, not both")
         if kind == "smooth":
-            # timed through the indexed entry (the backend's) for bf16
-            # features, the gathered one (the probe's) for f32 ones
-            fn = (lambda: cuda_corr.corr_lookup_indexed(frames, pyr, ii, jj,
-                                                        coords)) \
-                if tensor else (lambda: cuda_corr.corr_lookup(f1, f2, coords))
-            record("corr_lookup", shape, err, fn,
+            # timed through the indexed entry: the backend's (bf16) and
+            # the export step's (f32)
+            record("corr_lookup", shape, err,
+                   lambda: cuda_corr.corr_lookup_indexed(frames, pyr, ii, jj,
+                                                         coords),
                    lambda: cuda_corr.corr_lookup_plain(f1, f2, coords),
-                   plain_reps=3, headline=tensor and shape == HEADLINE[
-                       "corr_lookup"], features=feats, coords=kind,
-                   entry="indexed" if tensor else "gathered",
-                   tensor_core_pairs=routes[0], per_pixel_pairs=routes[1])
+                   plain_reps=3, features=feats, coords=kind,
+                   entry="indexed", tensor_core_pairs=routes[0],
+                   per_pixel_pairs=routes[1])
         else:
             log("kernel", name="corr_lookup",
                 shape="x".join(map(str, shape)), features=feats, coords=kind,
@@ -350,14 +378,85 @@ def check_lookup(shape, dtype, record):
                 raise AssertionError(f"corr_lookup {feats} at {shape} on "
                                      f"{kind} coordinates: error {err}")
         torch.cuda.empty_cache()
-    if tensor and E in (48, 256):
-        # the gathered entry pools its edges' f2 on every call
+    if (tensor and E in (48, 256)) or (not tensor and E <= 2):
+        # the gathered entry pools its edges' f2 on every call (the
+        # motion filter's probe is the f32 one at E=1)
         coords = torch.from_numpy(
             kbench.lookup_coords("smooth", E, H, W, seed=E + H)).cuda()
         ms = device_time_ms(lambda: cuda_corr.corr_lookup(f1, f2, coords))
         log("kernel", name="corr_lookup", shape="x".join(map(str, shape)),
             features=feats, coords="smooth", entry="gathered",
             ms=f"{ms:.4f}")
+    if not tensor:
+        check_no_gather(frames, pyr, ii, jj, coords)
+
+
+def check_no_gather(frames, pyr, ii, jj, coords):
+    """The indexed entry on f32 features indexes the edges' frames in
+    the kernel: one launch, and no allocation but its output (a gather
+    of frames or pyramids would allocate)."""
+    ii, jj = ii.int().contiguous(), jj.int().contiguous()
+    torch.cuda.synchronize()
+    cuda_corr.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = cuda_corr.corr_lookup_indexed(frames, pyr, ii, jj, coords)
+    peak = torch.cuda.max_memory_allocated() - before
+    size = out.numel() * out.element_size()
+    log("kernel", name="corr_lookup", shape="x".join(map(str, coords.shape)),
+        features="f32", entry="indexed", launches=cuda_corr.LAUNCHES[
+            "corr_lookup"], allocated_bytes=peak, output_bytes=size)
+    # the allocator hands out a block up to 1 MiB larger than asked; one
+    # frame's features are 1.5 MB at 30x101, its pyramid more
+    if cuda_corr.F32_LAUNCHES["corr_lookup"] != 1 or peak >= size + 2 ** 20:
+        raise AssertionError(f"corr_lookup_indexed on f32 features: "
+                             f"{cuda_corr.F32_LAUNCHES} launches, {peak} "
+                             f"bytes allocated for an output of {size}")
+
+
+def check_lookup_f32_corners():
+    """K3's f32 kernel off the main path's shape: C=24 for f32 and bf16
+    features (bf16 ones whose C is no multiple of 16 take it on an f32
+    pyramid), 1 to 4 levels, and features under 8 a side, whose last
+    level is pooled away to nothing. Both entries, smooth and mixed
+    coordinates, <= 1e-4."""
+    cases = [((3, 30, 101), 24, torch.float32, 4),
+             ((3, 30, 101), 24, torch.bfloat16, 4),
+             ((2, 5, 7), C, torch.float32, 4), ((3, 9, 3), 24,
+                                                torch.float32, 4)]
+    cases += [((2, 30, 101), C, torch.float32, n) for n in (1, 2, 3)]
+    for shape, width, dtype, levels in cases:
+        E, H, W = shape
+        f1, f2, _ = kernel_inputs(E, H, W, dtype, seed=width + levels,
+                                  width=width)
+        frames = torch.cat([f1, f2])
+        pyr = cuda_corr.lookup_pyramid(frames, levels)
+        if pyr.dtype != torch.float32:
+            raise AssertionError("not the f32 kernel's pyramid")
+        ii = torch.arange(E - 1, -1, -1, device="cuda")
+        jj = E + torch.arange(E, device="cuda")
+        for kind in ("smooth", "mixed"):
+            coords = torch.from_numpy(
+                kbench.lookup_coords(kind, E, H, W, seed=levels)).cuda()
+            cuda_corr.reset_launches()
+            err = max(
+                kbench.lookup_err(
+                    cuda_corr.corr_lookup(f1, f2, coords, levels),
+                    cuda_corr.corr_lookup_plain(f1, f2, coords, levels)),
+                kbench.lookup_err(
+                    cuda_corr.corr_lookup_indexed(frames, pyr, ii, jj,
+                                                  coords, levels),
+                    cuda_corr.corr_lookup_indexed_plain(frames, pyr, ii, jj,
+                                                        coords, levels)))
+            log("kernel", name="corr_lookup", shape="x".join(map(str, shape)),
+                features=str(dtype).split(".")[-1], C=width, levels=levels,
+                coords=kind, max_abs_err=f"{err:.3g}",
+                tol=TOL["corr_lookup"])
+            if not err <= TOL["corr_lookup"] or \
+                    cuda_corr.F32_LAUNCHES["corr_lookup"] != 2:
+                raise AssertionError(f"corr_lookup f32 kernel at {shape}, "
+                                     f"C={width}, {levels} levels, {kind}: "
+                                     f"error {err}")
 
 
 def check_volume(shape, dtype, vol, ref):
@@ -577,7 +676,9 @@ def check_reference():
 
 
 def run_main_path():
-    """Phase 5: returns the kernel launch counts of the run."""
+    """Phase 5: returns the kernel launch counts of the run, K1's and
+    K3's split by feature type (F32_ROWS: the motion filter's probe is
+    the run's f32 K3; the video's features are bf16, so no f32 K1)."""
     H, W, n_frames = 240, 808, 40
     cfg = VOConfig(image_size=(H, W), buffer=128, filter_thresh=0.01,
                    keyframe_thresh=0.0, warmup=12, segm_filter=True)
@@ -643,6 +744,7 @@ def run_main_path():
     # before terminate filled every frame; filler_s: the filler
     term_s = time.perf_counter() - t0 - filler_s[0]
     launches = dict(cuda_corr.LAUNCHES)
+    f32_launches = dict(cuda_corr.F32_LAUNCHES)
 
     # the frontend initializes at t=12 (warmup 12, admission committed
     # one frame late); steady state is t=13..39
@@ -655,7 +757,8 @@ def run_main_path():
         init_frame_s=f"{times[12]:.3f}", terminate_s=f"{term_s:.3f}",
         filler_s=f"{filler_s[0]:.3f}",
         peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
-        **{f"launches_{k}": v for k, v in launches.items()})
+        **{f"launches_{k}": v for k, v in launches.items()},
+        **{f"of_them_f32_{k}": v for k, v in f32_launches.items()})
     # K3 inside terminate: chunks of the backend's global updates
     wrapper = k3_wrapper.ms()
     kernel = [ms for _, ms in k3_kernel.ms()]
@@ -693,10 +796,15 @@ def run_main_path():
     if not (depth.shape == (n, H, W) and flow.shape == (n, H, W, 2)
             and np.isfinite(depth).all() and np.isfinite(flow).all()):
         raise AssertionError(f"bad accessors {depth.shape} {flow.shape}")
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing}")
+    # the tracking path's bf16 kernels, and K3's f32 kernel (the probe)
+    launches.update({F32_ROWS[k]: v for k, v in f32_launches.items()})
+    for k in cuda_corr.F32_KERNELS:
+        launches[k] -= f32_launches[k]
+    missing = [k for k, v in launches.items()
+               if v == 0 and k != "build_volumes_f32"]
+    if missing or launches["build_volumes_f32"]:
+        raise AssertionError(f"launches on the main path: {launches}; never "
+                             f"launched: {missing}")
     return launches
 
 
@@ -748,8 +856,9 @@ def forward_outputs(net, size, iters=3):
 def time_export_kernels():
     """K1-K3 as the export calls them (E=2, f32 features, smooth
     coordinates): error against plain, time, plain time and bound. K1
-    and K2 at the narrow 30x101, K3 through the indexed entry at 47x156
-    (the SIMT kernel: the wrapper gathers the edges' frames per call)."""
+    (three TF32 passes, beside torch.bmm on the same f32 operands) and K2
+    at the narrow 30x101, K3 through the indexed entry at 47x156 (three
+    TF32 passes, the edges' frames indexed in the kernel)."""
     def line(name, shape, out, ref, fn, plain_fn, library_fn=None):
         err = (out.float() - ref.float()).abs().max().item()
         ms, plain_ms = device_time_ms(fn), device_time_ms(plain_fn, reps=3)
@@ -824,7 +933,8 @@ def run_export():
 
     per_pair = {}
     for size, pairs, want in ((EXPORT_SIZE, EXPORT_PAIRS, (0, 0, EXPORT_ITERS)),
-                              (EXPORT_NARROW, 3, (1, EXPORT_ITERS, 0))):
+                              (EXPORT_NARROW, EXPORT_NARROW_PAIRS,
+                               (1, EXPORT_ITERS, 0))):
         H, W = size
         tag = f"{H}x{W}"
         # one warm-up pair, then the counts from 0 over the timed pairs
@@ -835,6 +945,10 @@ def run_export():
             net, size, EXPORT_ITERS, pairs=pairs)
         launches = dict(cuda_corr.LAUNCHES)
         per_pair[tag] = {k: v // pairs for k, v in launches.items()}
+        f32 = dict(cuda_corr.F32_LAUNCHES)
+        if any(f32[k] != launches[k] for k in f32):
+            raise AssertionError(f"export at {tag}: f32 features launched "
+                                 f"{f32} of {launches} on the f32 kernels")
         log("export", image=tag, iters=EXPORT_ITERS, pairs=pairs,
             features="f32", vo2_export_s_per_pair=f"{s_per_pair:.4f}",
             peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
@@ -931,16 +1045,37 @@ def main():
     harness = run_harnesses()
     export = run_export()
 
-    kernels = [{
-        "name": k, "route": "cuda", "source": "pvo_tpu_torch/csrc/corr.cu",
-        "replaces": REPLACES[k], "launches": launches[k],
-        "max_abs_err": res[k]["err"], "ms": res[k]["ms"],
-        "plain_ms": res[k]["plain_ms"], "bound_ms": res[k]["bound_ms"],
-        "bound_by": res[k]["bound_by"],
-        "library_ms": res[k]["library_ms"],
-        # the export path, per exported pair, counted from 0 as well
-        **{f"launches_export_{tag}": n[k] for tag, n in export.items()}}
-        for k in cuda_corr.KERNELS]
+    # K1 and K3 have a row for each feature type. A bf16 row's launches
+    # are phase 5's (the video's features); an f32 row's are the timed
+    # pairs of the export route that runs it (K1: 240x808, K3: 376x1248),
+    # each counted from 0; the f32 K3 also runs as phase 5's probe. K2 is
+    # one kernel on both paths
+    pairs = {"build_volumes_f32": (EXPORT_NARROW, EXPORT_NARROW_PAIRS),
+             "corr_lookup_f32": (EXPORT_SIZE, EXPORT_PAIRS)}
+    f32_of = {v: k for k, v in F32_ROWS.items()}
+    kernels = []
+    for row in (*cuda_corr.KERNELS, *F32_ROWS.values()):
+        k = f32_of.get(row, row)
+        n, extra = launches[row], {}
+        if row in pairs:
+            (H, W), timed = pairs[row]
+            tag = f"{H}x{W}"
+            extra = {"launches_tracking": n,
+                     f"launches_per_pair_{tag}": export[tag][k]}
+            n = export[tag][k] * timed
+        elif k not in F32_ROWS:
+            extra = {f"launches_export_{tag}": per[k]
+                     for tag, per in export.items()}
+        kernels.append({
+            "name": row, "route": "cuda",
+            "source": "pvo_tpu_torch/csrc/corr.cu", "replaces": REPLACES[k],
+            "launches": n, "max_abs_err": res[row]["err"],
+            "ms": res[row]["ms"], "plain_ms": res[row]["plain_ms"],
+            "bound_ms": res[row]["bound_ms"],
+            "bound_by": res[row]["bound_by"],
+            "library_ms": res[row]["library_ms"], **extra})
+        if n == 0:
+            raise AssertionError(f"{row} was never launched on its path")
     for x, (_, kernel, site) in HARNESS.items():
         n, ms, plain_ms, err = harness[x]
         bound = kernel_bound(kernel, HARNESS_E[kernel], 30, 101, C)

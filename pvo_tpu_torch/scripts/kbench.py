@@ -5,7 +5,9 @@
 
 ``device_time_ms`` records CUDA events around ``reps`` calls after one
 warm-up call and returns the mean device time per call, as
-``scripts/kbench.py`` times kernels for the JAX package on the TPU.
+``scripts/kbench.py`` times kernels for the JAX package on the TPU; with
+``queued=True`` the calls wait behind a busy card and run back to back,
+which takes the host's enqueue rate out of a short kernel's time.
 ``gpu_line`` is the card's name and power limit, to stand beside every
 time kept. ``kernel_bound`` is the least time the card could take for a
 kernel's work at a shape, from the bytes it must move and the operations
@@ -52,13 +54,24 @@ def gpu_line():
         check=True).stdout.strip().splitlines()[0]
 
 
-def device_time_ms(fn, reps=10):
+# cycles the card is kept busy ahead of a queued timing (about 10 ms)
+QUEUE_CYCLES = 20_000_000
+
+
+def device_time_ms(fn, reps=10, queued=False):
     """Mean device time of ``fn()`` in ms over ``reps`` calls (CUDA
-    events), after one warm-up call."""
+    events), after one warm-up call. The events see the host as well
+    where it enqueues slower than the card runs (a wrapper's checks and
+    its launch take some 40 us: the floor of a short kernel's time).
+    ``queued`` keeps the card busy while the calls are enqueued, so they
+    run back to back and the time is the card's alone; ``reps`` calls
+    must be enqueued within the 10 ms."""
     require_cuda()
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for _ in range(reps):
         fn()

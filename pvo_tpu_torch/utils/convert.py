@@ -69,14 +69,37 @@ def droidnet_from_jax(params) -> DroidNet:
     return net
 
 
+# Prefixes of checkpoint keys that :func:`load_droidnet_torch` drops: keys
+# a reference checkpoint is known to carry and the port leaves out by
+# design. None is known: the reference DroidNet's encoders use instance
+# norm without parameters or running statistics, and every other key has
+# its module here.
+IGNORED_KEY_PREFIXES = ()
+# The affine-brightness head of a ``use_aff_bri`` checkpoint
+# (pvo_tpu/utils/convert.py:74-79), which the port does not model yet
+AFF_BRI_PREFIXES = ("update.global_avg_pool.", "update.param_linear.")
+
+
 def load_droidnet_torch(path: str) -> DroidNet:
     """Load a reference DroidNet checkpoint (DDP ``module.`` prefixes
-    stripped). Keys the port does not model are ignored; a key the port
-    needs and the checkpoint lacks is an error."""
+    stripped). A key the port needs and the checkpoint lacks is an
+    error, and so is a key of the checkpoint that the port does not
+    model, unless it starts with one of :data:`IGNORED_KEY_PREFIXES`
+    (none so far). The weights of the affine-brightness head are such
+    keys until the head is ported with VO training (ROADMAP.md Queue 1
+    item 5)."""
     sd = torch.load(path, map_location="cpu")
     sd = {k.replace("module.", ""): v for k, v in sd.items()}
     net = DroidNet()
-    missing, _ = net.load_state_dict(sd, strict=False)
+    missing, unexpected = net.load_state_dict(sd, strict=False)
     if missing:
         raise KeyError(f"checkpoint lacks {missing}")
+    unexpected = [k for k in unexpected
+                  if not k.startswith(IGNORED_KEY_PREFIXES)]
+    if unexpected:
+        aff = [k for k in unexpected if k.startswith(AFF_BRI_PREFIXES)]
+        hint = (" (the affine-brightness head of a use_aff_bri checkpoint: "
+                "not ported yet, ROADMAP.md Queue 1 item 5)") if aff else ""
+        raise KeyError(f"checkpoint has keys the port does not model: "
+                       f"{unexpected}{hint}")
     return net

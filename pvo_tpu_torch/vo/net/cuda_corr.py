@@ -5,7 +5,8 @@ PyTorch versions.
 Each wrapper launches its kernel for CUDA tensors and takes the plain
 version only for tensors on the CPU; it never falls back. The library
 is built with ``nvcc`` for ``sm_90a`` at first use into ``csrc/build/``
-and loaded with ctypes. ``LAUNCHES`` counts kernel launches per kernel.
+and loaded with ctypes. ``LAUNCHES`` counts kernel launches per kernel,
+``F32_LAUNCHES`` those of them that were K1's and K3's f32 kernels.
 
 K1 ``build_volumes`` replaces ``pallas_build_volumes``
   (pvo_tpu/vo/net/pallas_corr.py:381, body ``_build_kernel`` :349).
@@ -29,10 +30,18 @@ K1 ``build_volumes`` replaces ``pallas_build_volumes``
   tile is read from L2 once per 128-row f1 tile (24 times per edge at
   30x101, 1.2 GB at E=48), which costs about as much as the store
   (PERF.md); sharing each tile between more f1 rows is the next step.
-  f32 features take a SIMT f32 tile product (128x128, 8x8 per thread)
-  on an f32 pyramid into the same layout. Only a direct caller passes
-  them (the tests, the checks of ``chip_smoke.py``): the video stores
-  bf16 features in every configuration, as the JAX package's does.
+  f32 features (the flow/depth export's narrow route passes them; the
+  video stores bf16 ones) are bound by operations: E=2 at 30x101 is 6.19
+  GFLOP, 0.092 ms at the f32 SIMT peak, against 0.015 ms for the store.
+  They take the same skeleton on the tensor cores in three TF32 passes
+  (:func:`tf32_split`): each operand is split into hi = tf32(x) and lo =
+  tf32(x - hi) when its tile is staged into shared memory, and the
+  product is lo.hi + hi.lo + hi.hi with f32 accumulation
+  (wgmma.m64n64k8). The dropped lo.lo term is 2^-22 of a product, far
+  below the volume's bf16 rounding; one TF32 pass alone would flip a
+  fifth of the bf16 outputs. C must be a multiple of 8, at most 128
+  (both parts of a 128-row f1 tile and a 64-row pyramid tile fill the
+  block's shared memory).
 K2 ``corr_extract`` replaces ``pallas_corr_extract`` (:461, body
   ``_extract_kernel`` :265). Bound: memory (E=48 at 30x101: 190 MB, 0.057
   ms at 3.35 TB/s): a pixel reads 4 x 8x8 bf16 taps and writes 196 f32,
@@ -66,10 +75,20 @@ K3 ``corr_lookup`` replaces ``pallas_corr_lookup`` (:565, body
   coalesced stores. A level whose box exceeds 1536 positions (scattered
   or non-finite coordinates) takes per-pixel dot products against the
   bf16 pyramid inside the same kernel; :func:`routes` counts the (block,
-  level) pairs on each route. f32 features, or C not a multiple of 16,
-  take the SIMT kernel (4 pixels x 64 taps per block, one dot product
-  per thread on an f32 pyramid; indexed edges' frames are gathered for
-  it): only direct callers and the motion filter's f32 probe pass
+  level) pairs on each route. f32 features (the export's step at wide
+  sizes, the motion filter's probe), or bf16 ones whose C is no multiple
+  of 16, take the same design on an f32 pyramid with the three TF32
+  passes of K1: bound by operations (E=2 at 47x156: 0.96 GFLOP of tap
+  products, 0.014 ms at the f32 SIMT peak), and so small a launch that
+  blocks in flight matter most: a block is 8 x 8 pixels at one level
+  (the level is on the grid: 960 blocks at E=2, 47x156, 208 for the
+  probe, two to an SM), the box's rows stream 32 at a time through
+  registers, where they are split, into wgmma.m64n32k8; boxes above 768
+  positions take per-pixel f32 dot products. The products differ from
+  the plain version's by a few 1e-7 (:func:`tf32_split`), inside the
+  1e-4 the f32 path is held to; a single TF32 pass (3.5e-4) is not. C
+  must be a multiple of 8, at most 128. Edges index frames here too, so
+  nothing is gathered for
   them. The pyramid is pooled by the caller's
   entry: :func:`corr_lookup` pools the edges' f2, and
   :func:`corr_lookup_indexed` takes the frames' features and their
@@ -114,6 +133,9 @@ ULP_FLOOR = 2.0 ** -6
 
 KERNELS = ("build_volumes", "corr_extract", "corr_lookup")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
+# of LAUNCHES, those of the f32 kernels of K1 and K3 (f32 pyramid)
+F32_KERNELS = ("build_volumes", "corr_lookup")
+F32_LAUNCHES = dict.fromkeys(F32_KERNELS, 0)
 
 SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "corr.cu"
 BUILD_DIR = SOURCE.parent / "build"
@@ -126,6 +148,8 @@ _lib = None
 def reset_launches():
     for k in KERNELS:
         LAUNCHES[k] = 0
+    for k in F32_KERNELS:
+        F32_LAUNCHES[k] = 0
 
 
 def _nvcc():
@@ -234,6 +258,47 @@ def check_tensor(name, t, shape, dtypes, device):
 
 
 FEATS = (torch.float32, torch.bfloat16)
+# widest f32 features of the three-pass TF32 kernels (K1 and K3)
+F32_MAX_C = 128
+
+
+def check_f32_width(C):
+    if C % 8 or C > F32_MAX_C:
+        raise ValueError(f"the f32 kernels need C a multiple of 8 and at "
+                         f"most {F32_MAX_C}, not {C}")
+
+
+# ------------------------------------------------- f32 operands, 3 x TF32
+
+def tf32_round(x):
+    """f32 ``x`` rounded to TF32 (10 mantissa bits; nearest, ties away
+    from zero) as ``cvt.rna.tf32.f32`` rounds: half a TF32 ulp added to
+    the magnitude's bits, the 13 low bits cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split(x):
+    """(hi, lo) with hi = tf32(x), lo = tf32(x - hi): the two parts in
+    which the f32 kernels hand an operand to the tensor cores. x - hi is
+    exact in f32; |x - hi - lo| <= 2^-23 |x|."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def tf32_matmul_plain(a, b, passes=3):
+    """a @ b^T (a: (..., M, C), b: (..., N, C), f32) as the f32 kernels
+    form it: lo.hi + hi.lo + hi.hi over :func:`tf32_split` operands with
+    ``passes=3`` (the lo.lo term, 2^-22 of a product, is dropped), hi.hi
+    alone with ``passes=1``. Each pass is an f32 product here; the
+    tensor cores differ only in the order of the sums."""
+    if passes not in (1, 3):
+        raise ValueError(f"passes={passes!r}: 1 or 3")
+    (ah, al), (bh, bl) = tf32_split(a), tf32_split(b)
+    bh, bl = bh.transpose(-1, -2), bl.transpose(-1, -2)
+    if passes == 1:
+        return ah @ bh
+    return (al @ bh + ah @ bl) + ah @ bh
 
 
 # ---------------------------------------------------------------- K1
@@ -254,8 +319,8 @@ def build_volumes(f1, f2, num_levels=4):
     bf16: level l (f2 pooled l times) at column offset
     sum_{k<l} H_k W_k, values f1 . f2_l / 16 accumulated in f32, and
     columns from N2 = sum_l H_l W_l to N2p = :func:`padded_n2` (N2) zero.
-    bf16 features take the tensor-core kernel, which needs C a multiple
-    of 16 and at most 256."""
+    bf16 features need C a multiple of 16 and at most 256, f32 ones
+    (three TF32 passes) a multiple of 8 and at most 128."""
     if f1.device.type == "cpu":
         return build_volumes_plain(f1, f2, num_levels)
     check_tensor("f2", f2, f1.shape, (f1.dtype,), f1.device)
@@ -278,6 +343,8 @@ def build_volumes_pooled(f1, pyr, num_levels=4):
     if bf16 and (C % 16 or C > 256):
         raise ValueError(f"bf16 features need C a multiple of 16 and at "
                          f"most 256, not {C}")
+    if not bf16:
+        check_f32_width(C)
     N2p = padded_n2(N2)
     vol = torch.empty((E, H * W, N2p), dtype=torch.bfloat16,
                       device=f1.device)
@@ -288,14 +355,16 @@ def build_volumes_pooled(f1, pyr, num_levels=4):
             torch.cuda.current_stream().cuda_stream)
     check_rc(rc, "build_volumes")
     LAUNCHES["build_volumes"] += 1
+    F32_LAUNCHES["build_volumes"] += not bf16
     return vol
 
 
 def within_one_ulp(a, b):
     """Elementwise: |a - b| is at most one bf16 ulp of max(|a|, |b|,
-    ULP_FLOOR). K1 and its plain version form the same products and sum
-    them in another f32 order, so an entry differs by one bf16 rounding
-    step at most; where the sum cancels to below ULP_FLOOR, the f32
+    ULP_FLOOR). K1 and its plain version form the same products (f32
+    features: up to the 2^-22 of :func:`tf32_split`) and sum them in
+    another f32 order, so an entry differs by one bf16 rounding step at
+    most; where the sum cancels to below ULP_FLOOR, the f32
     order difference (about C * 2^-24 * sum |f1 f2| / 16, 4e-5 for
     unit-variance features at C=128) may exceed the tiny value's own
     ulp, and one ulp at ULP_FLOOR (2^-13) bounds it."""
@@ -368,7 +437,7 @@ def corr_extract(vol, coords, num_levels=4):
 # ---------------------------------------------------------------- K3
 
 # per device: two 64-bit counters of (block, level) pairs, [tensor-core
-# route, per-pixel route], that the tensor-core kernel adds to
+# route, per-pixel route], that K3's kernels (bf16 and f32) add to
 _routes = {}
 
 
@@ -379,7 +448,7 @@ def _route_counter(device):
 
 
 def routes():
-    """(block, level) pairs that K3's tensor-core kernel has run on the
+    """(block, level) pairs that K3 (either feature type) has run on the
     tensor cores and on its per-pixel route since :func:`reset_routes`,
     summed over the cards; reading them waits for the card."""
     tot = sum(c.cpu() for c in _routes.values()) if _routes else [0, 0]
@@ -393,8 +462,8 @@ def reset_routes():
 
 def lookup_dtype(feats):
     """The pyramid dtype K3 takes for features ``feats`` (..., C): bf16
-    (the tensor-core kernel) for bf16 features with C a multiple of 16
-    up to 256, else f32 (the SIMT kernel)."""
+    (the bf16 kernel) for bf16 features with C a multiple of 16 up to
+    256, else f32 (the three-pass TF32 kernel)."""
     C = feats.shape[-1]
     tensor = feats.dtype == torch.bfloat16 and C % 16 == 0 and C <= 256
     return torch.bfloat16 if tensor else torch.float32
@@ -419,7 +488,7 @@ def corr_lookup_indexed_plain(fmaps, pyr, ii, jj, coords, num_levels=4):
     c = coords.reshape(E, H * W, 2).float()
     outs, off = [], 0
     for lvl, (h, w) in enumerate(level_shapes(H, W, num_levels)):
-        f2 = pyr[jj, off:off + h * w].reshape(E, h, w, -1)
+        f2 = pyr[jj, off:off + h * w].reshape(E, h, w, pyr.shape[-1])
         outs.append(corr_ops._lookup_level(corr_ops.corr_volume(f1, f2),
                                            c / (2 ** lvl), RADIUS))
         off += h * w
@@ -444,12 +513,8 @@ def _launch_lookup(f1, pyr, ii, jj, coords, num_levels):
     if pyr.dtype == torch.bfloat16:
         kind = 2
     else:
-        # the SIMT kernel reads edge e's own rows: gather indexed frames
         kind = int(f1.dtype == torch.bfloat16)
-        if ii is not None:
-            f1, ii = f1[ii.long()], None
-        if jj is not None:
-            pyr, jj = pyr[jj.long()], None
+        check_f32_width(C)
     out = torch.empty((E, H, W, num_levels * TAPS), dtype=torch.float32,
                       device=dev)
     with torch.cuda.device(dev):
@@ -462,6 +527,7 @@ def _launch_lookup(f1, pyr, ii, jj, coords, num_levels):
             torch.cuda.current_stream().cuda_stream)
     check_rc(rc, "corr_lookup")
     LAUNCHES["corr_lookup"] += 1
+    F32_LAUNCHES["corr_lookup"] += kind != 2
     return out
 
 

@@ -94,6 +94,8 @@ class DroidNet(nn.Module):
             return lambda c: cuda_corr.corr_extract(vols, c.contiguous())
         fmaps = fmaps.contiguous()
         pyr = cuda_corr.lookup_pyramid(fmaps)
+        # the kernel indexes the edges' frames with int32: converted once
+        ii, jj = ii.int(), jj.int()
         return lambda c: cuda_corr.corr_lookup_indexed(fmaps, pyr, ii, jj,
                                                        c.contiguous())
 

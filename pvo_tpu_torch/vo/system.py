@@ -14,8 +14,11 @@ filter's probe, geometry and DBA run in f32. TF32 is switched off for
 matmuls and cuDNN convolutions when the system is built.
 
 Not ported yet: the device-resident planner (``cfg.pipeline`` is
-ignored: the port always runs the classic host loop) and the YUV upload
-packing (``cfg.yuv420_upload`` is ignored).
+ignored: the port always runs the classic host loop), the YUV upload
+packing (``cfg.yuv420_upload`` is ignored) and the update operator's
+affine-brightness head: ``cfg.use_aff_bri=True`` raises, since the
+port's ``DynamicUpdateModule`` has no such head yet (it comes with VO
+training, ROADMAP.md Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -52,6 +55,11 @@ class VOSystem:
         tests pin f32)."""
         self.device = open_device(device)
         self.cfg = cfg or VOConfig()
+        if self.cfg.use_aff_bri:
+            raise NotImplementedError(
+                "cfg.use_aff_bri=True: the port's update operator has no "
+                "affine-brightness head yet; it comes with VO training "
+                "(ROADMAP.md Queue 1 item 5)")
 
         if net is None and weights_path is not None:
             from pvo_tpu_torch.utils.convert import load_droidnet_torch

@@ -43,6 +43,30 @@ def test_lookup_bound_f32_features_is_operations():
     assert round(b["ms"], 2) == 0.76
 
 
+def test_f32_kernel_bounds_at_the_export_shapes():
+    """The f32 kernels' callers: K1 at E=2, 30x101 (two (3030 x 128) x
+    (128 x 3991) products, 6.19 GFLOP at the f32 SIMT peak against a 49
+    MB store) and K3 at E=2, 47x156 (0.96 GFLOP of tap products, 26.6 MB
+    moved); the probe at E=1, 30x101."""
+    b = kbench.kernel_bound("build_volumes", 2, 30, 101, features="f32")
+    assert b["flops"] == 2 * PX * 3991 * 128 * 2
+    assert round(b["flops"] / 1e9, 2) == 6.19
+    assert b["bytes_out"] == 2 * PX * 4032 * 2
+    assert b["bound_by"] == "operations"
+    assert round(b["ms"], 4) == 0.0924
+    assert round(b["bytes_ms"], 4) == 0.0164   # 6 MB in, 49 MB out
+    b = kbench.kernel_bound("corr_lookup", 2, 47, 156, features="f32")
+    px = 2 * 47 * 156
+    assert b["flops"] == px * 4 * 64 * 128 * 2
+    assert round(b["flops"] / 1e9, 2) == 0.96
+    assert b["bytes"] == 2 * px * 128 * 4 + px * 8 + px * 196 * 4
+    assert round(b["bytes"] / 1e6, 1) == 26.6
+    assert b["bound_by"] == "operations"
+    assert round(b["ms"], 4) == 0.0143
+    b = kbench.kernel_bound("corr_lookup", 1, 30, 101, features="f32")
+    assert b["bound_by"] == "operations" and round(b["ms"], 4) == 0.0030
+
+
 def test_extract_bound():
     """K2 at E=48: 4 x 64 bf16 taps and the coords in, 196 f32 out."""
     b = kbench.kernel_bound("corr_extract", 48, 30, 101)
@@ -156,9 +180,39 @@ def test_corr_probe_substitutions_name_lines_of_the_source():
     each must occur there once, or the probe has gone stale."""
     from pvo_tpu_torch.scripts import corr_probe
     source = corr_probe.cuda_corr.SOURCE.read_text()
-    for table in (corr_probe.K3_VARIANTS, corr_probe.K2_VARIANTS,
-                  corr_probe.ABLATIONS):
+    tables = (corr_probe.K3_VARIANTS, corr_probe.K2_VARIANTS,
+              corr_probe.ABLATIONS, corr_probe.K3F_VARIANTS,
+              corr_probe.K1F_VARIANTS, corr_probe.K3F_ABLATIONS,
+              corr_probe.K1F_ABLATIONS)
+    for table in tables:
+        assert "as committed" in table or "whole kernel" in table
         for tag, subs in table.items():
             for old, new in subs:
                 assert source.count(old) == 1, (tag, old)
                 assert new != old
+
+
+@pytest.mark.parametrize("table", ["K3F_ABLATIONS", "K1F_ABLATIONS"])
+def test_corr_probe_f32_ablations_rewrite_only_the_f32_kernels(table):
+    """Every ablation of an f32 kernel leaves the bf16 kernels' and K2's
+    text alone, and the all-off line is the sum of the single ones."""
+    from pvo_tpu_torch.scripts import corr_probe
+    source = corr_probe.cuda_corr.SOURCE.read_text()
+    cut = {"K1, bf16": "// ---------------------------------------------------------------- K1, bf16",
+           "K2": "// ---------------------------------------------------------------- K2",
+           "K3, bf16": "// ---------------------------------------------------------------- K3, bf16"}
+    f32_start = source.index("f32 operands, 3 x TF32")
+    k2 = source.index(cut["K2"])
+    k3f = source.index("K3, f32")
+    k3t = source.index(cut["K3, bf16"])
+    ablations = getattr(corr_probe, table)
+    single = set()
+    for tag, subs in ablations.items():
+        for old, _ in subs:
+            at = source.index(old)
+            assert f32_start <= at < k2 or k3f <= at < k3t, (tag, old)
+            if not tag.startswith("none of them"):
+                single.add(old)
+    last = list(ablations)[-1]
+    assert last.startswith("none of them")
+    assert {old for old, _ in ablations[last]} <= single

@@ -9,9 +9,10 @@ JAX so that it runs on a machine with only PyTorch:
 
 Tolerances are those of tests/test_pallas_corr.py: 1e-4 where the path
 is f32 end to end, 2e-2 where the volume is rounded to bf16. K1 forms
-the plain version's products and sums them in another f32 order, so it
-must also give >= 99.9% of entries bit-equal, every entry within one
-bf16 ulp (cuda_corr.within_one_ulp) and pad columns exactly 0. For the
+the plain version's products (on f32 features up to the 2^-22 that its
+three TF32 passes drop) and sums them in another f32 order, so it must
+also give >= 99.9% of entries bit-equal, every entry within one bf16
+ulp (cuda_corr.within_one_ulp) and pad columns exactly 0. For the
 packed bf16 outputs of P1 and P2, |d| <= 2e-2 + 8e-3 |ref| with at
 least 99.9% of the outputs bit-equal. The tolerance alone cannot tell
 one rounding variant from another: they differ by one bf16 ulp in
@@ -42,10 +43,10 @@ def dev():
     return torch.device("cuda")
 
 
-def _inputs(E, H, W, dtype, dev, seed, lo=-2.0, bias_rows=None):
+def _inputs(E, H, W, dtype, dev, seed, lo=-2.0, bias_rows=None, width=C):
     rng = np.random.RandomState(seed)
-    f1 = torch.tensor(rng.randn(E, H, W, C), dtype=torch.float32)
-    f2 = torch.tensor(rng.randn(E, H, W, C), dtype=torch.float32)
+    f1 = torch.tensor(rng.randn(E, H, W, width), dtype=torch.float32)
+    f2 = torch.tensor(rng.randn(E, H, W, width), dtype=torch.float32)
     cx = rng.uniform(lo, W + 1.0, (E, H, W))
     cy = rng.uniform(lo, H + 1.0, (E, H, W))
     if bias_rows is not None:
@@ -83,7 +84,8 @@ def test_build_and_extract_match_plain(dev, E):
 @pytest.mark.parametrize("geom, dtype", [
     ((3, 17, 45), torch.bfloat16),   # ragged rows and column tiles
     ((2, 8, 12), torch.bfloat16),    # one tile, mostly padding
-    ((2, 30, 101), torch.float32),   # the f32-feature (SIMT) variant
+    ((2, 30, 101), torch.float32),   # f32 features: three TF32 passes
+    ((3, 17, 45), torch.float32),
     ((2, 17, 45), torch.float32)])
 def test_build_volumes_ragged_and_f32_match_plain(dev, geom, dtype):
     E, H, W = geom
@@ -106,6 +108,9 @@ def test_build_volumes_pooled_is_the_kernel_alone(dev):
     with pytest.raises(ValueError):  # wgmma's k16 steps: C % 16 == 0
         cuda_corr.build_volumes(f1[..., :24].contiguous(),
                                 f2[..., :24].contiguous())
+    with pytest.raises(ValueError):  # f32: k8 steps, C % 8 == 0
+        cuda_corr.build_volumes(f1[..., :20].float().contiguous(),
+                                f2[..., :20].float().contiguous())
 
 
 @pytest.mark.parametrize("geom", [(1, 30, 101), (24, 30, 101), (1, 47, 156),
@@ -141,8 +146,9 @@ K3_SHAPES = [(1, 30, 101), (48, 30, 101), (256, 30, 101), (2, 47, 156),
 def test_lookup_cases_match_plain_through_both_entries(dev, geom, kind,
                                                        dtype):
     """K3 within 1e-4 of plain (NaN where plain is NaN) on every kind of
-    coordinates: bf16 features take the tensor-core kernel, f32 ones the
-    SIMT kernel; the indexed entry reads shuffled frames."""
+    coordinates: bf16 features take bf16 products, f32 ones three TF32
+    passes, both over the bounding box of a pixel tile or, where that is
+    too large, per pixel; the indexed entry reads shuffled frames."""
     E, H, W = geom
     f1, f2, _ = _inputs(E, H, W, dtype, dev, seed=E + H)
     coords = torch.from_numpy(
@@ -153,14 +159,11 @@ def test_lookup_cases_match_plain_through_both_entries(dev, geom, kind,
     tc, simt = cuda_corr.routes()
     assert out.shape == (E, H, W, 196)
     assert kbench.lookup_err(out, ref) <= 1e-4
-    if dtype == torch.float32:
-        assert (tc, simt) == (0, 0)
-    else:
-        assert tc > 0
-        if kind in ("smooth", "wild"):
-            assert simt == 0
-        if kind == "mixed":   # neighbouring tiles on different routes
-            assert simt > 0
+    assert tc > 0
+    if kind in ("smooth", "wild"):
+        assert simt == 0
+    if kind == "mixed":   # neighbouring tiles on different routes
+        assert simt > 0
 
     frames = torch.cat([f1, f2])
     pyr = cuda_corr.lookup_pyramid(frames)
@@ -200,6 +203,67 @@ def test_lookup_tensor_core_other_widths_and_levels(dev, width, levels):
         assert cuda_corr.routes()[0] > 0
 
 
+@pytest.mark.parametrize("geom, width, dtype, levels", [
+    ((3, 30, 101), 24, torch.float32, 4),
+    ((3, 30, 101), 24, torch.bfloat16, 4),   # bf16, C % 16 != 0: f32 pyramid
+    ((2, 30, 101), C, torch.float32, 1),
+    ((2, 30, 101), C, torch.float32, 2),
+    ((2, 30, 101), C, torch.float32, 3),
+    ((2, 5, 7), C, torch.float32, 4),        # the last level pooled away
+    ((3, 9, 3), 24, torch.float32, 4)],
+    ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+@pytest.mark.parametrize("kind", ["smooth", "mixed"])
+def test_lookup_f32_kernel_widths_levels_and_vanishing_levels(
+        dev, geom, width, dtype, levels, kind):
+    """K3's f32 kernel off the main path's shape, through both entries."""
+    E, H, W = geom
+    f1, f2, _ = _inputs(E, H, W, dtype, dev, seed=width + levels,
+                        width=width)
+    assert cuda_corr.lookup_dtype(f1) == torch.float32
+    coords = torch.from_numpy(
+        kbench.lookup_coords(kind, E, H, W, seed=levels)).to(dev)
+    cuda_corr.reset_launches()
+    out = cuda_corr.corr_lookup(f1, f2, coords, levels)
+    ref = cuda_corr.corr_lookup_plain(f1, f2, coords, levels)
+    assert out.shape == (E, H, W, levels * 49)
+    assert kbench.lookup_err(out, ref) <= 1e-4
+    frames = torch.cat([f1, f2])
+    pyr = cuda_corr.lookup_pyramid(frames, levels)
+    ii = torch.arange(E - 1, -1, -1, device=dev)
+    jj = E + torch.arange(E, device=dev)
+    idx = cuda_corr.corr_lookup_indexed(frames, pyr, ii, jj, coords, levels)
+    idx_ref = cuda_corr.corr_lookup_indexed_plain(frames, pyr, ii, jj,
+                                                  coords, levels)
+    assert kbench.lookup_err(idx, idx_ref) <= 1e-4
+    assert cuda_corr.F32_LAUNCHES["corr_lookup"] == 2
+
+
+def test_lookup_indexed_f32_indexes_in_the_kernel(dev):
+    """f32 edges are indexed in the kernel: one launch, and no
+    allocation but the output (a gather of frames would allocate)."""
+    f1, f2, _ = _inputs(2, 47, 156, torch.float32, dev, seed=8)
+    frames = torch.cat([f1, f2])
+    pyr = cuda_corr.lookup_pyramid(frames)
+    coords = torch.from_numpy(
+        kbench.lookup_coords("smooth", 2, 47, 156)).to(dev)
+    ii = torch.tensor([1, 0], dtype=torch.int32, device=dev)
+    jj = torch.tensor([2, 3], dtype=torch.int32, device=dev)
+    cuda_corr.corr_lookup_indexed(frames, pyr, ii, jj, coords)  # builds
+    torch.cuda.synchronize()
+    cuda_corr.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = cuda_corr.corr_lookup_indexed(frames, pyr, ii, jj, coords)
+    peak = torch.cuda.max_memory_allocated() - before
+    assert cuda_corr.LAUNCHES["corr_lookup"] == 1
+    assert cuda_corr.F32_LAUNCHES["corr_lookup"] == 1
+    # the allocator hands out a block up to 1 MiB larger than asked; one
+    # frame's features are 3.7 MB here, its pyramid more
+    assert peak < out.numel() * 4 + 2 ** 20
+    ref = cuda_corr.corr_lookup(frames[ii.long()], frames[jj.long()], coords)
+    assert torch.equal(out, ref)   # the same kernel on the same rows
+
+
 def test_lookup_indexed_checks_and_counts(dev):
     f1, f2, coords = _inputs(3, 30, 101, torch.bfloat16, dev, seed=2)
     frames = torch.cat([f1, f2])
@@ -216,13 +280,23 @@ def test_lookup_indexed_checks_and_counts(dev):
         cuda_corr.corr_lookup_indexed(frames, pyr.float(), ii, jj, coords)
     with pytest.raises(ValueError):  # one index per edge
         cuda_corr.corr_lookup_indexed(frames, pyr, ii[:2], jj, coords)
-    # C not a multiple of 16: the SIMT kernel on an f32 pyramid
+    # C not a multiple of 16: the f32 kernel on an f32 pyramid, with
+    # the edges indexed in the kernel and its blocks counted by route
     g1, g2 = f1[..., :24].contiguous(), f2[..., :24].contiguous()
     assert cuda_corr.lookup_pyramid(g2).dtype == torch.float32
     cuda_corr.reset_routes()
+    cuda_corr.reset_launches()
     err = kbench.lookup_err(cuda_corr.corr_lookup(g1, g2, coords),
                             cuda_corr.corr_lookup_plain(g1, g2, coords))
-    assert err <= 1e-4 and cuda_corr.routes() == (0, 0)
+    assert err <= 1e-4 and sum(cuda_corr.routes()) > 0
+    gframes = torch.cat([g1, g2])
+    out = cuda_corr.corr_lookup_indexed(
+        gframes, cuda_corr.lookup_pyramid(gframes), ii, jj, coords)
+    assert torch.equal(out, cuda_corr.corr_lookup(g1, g2, coords))
+    assert cuda_corr.F32_LAUNCHES["corr_lookup"] == 3
+    with pytest.raises(ValueError):  # three TF32 passes: C % 8 == 0
+        cuda_corr.corr_lookup(f1[..., :20].float().contiguous(),
+                              f2[..., :20].float().contiguous(), coords)
 
 
 def test_extract_equals_the_replaced_kernel_on_the_saved_case(dev):
@@ -259,6 +333,16 @@ def test_launch_counts_and_checks(dev):
     cuda_corr.corr_lookup(f1, f2, coords)
     assert cuda_corr.LAUNCHES == {"build_volumes": 1, "corr_extract": 1,
                                   "corr_lookup": 1}
+    # f32 features: both were the f32 kernels
+    assert cuda_corr.F32_LAUNCHES == {"build_volumes": 1, "corr_lookup": 1}
+    frames = torch.cat([f1, f2])
+    idx = cuda_corr.corr_lookup_indexed(
+        frames, cuda_corr.lookup_pyramid(frames), torch.tensor([0], device=dev),
+        torch.tensor([1], device=dev), coords)
+    assert cuda_corr.LAUNCHES["corr_lookup"] == 2
+    assert torch.equal(idx, cuda_corr.corr_lookup(f1, f2, coords))
+    cuda_corr.reset_launches()
+    assert not any(cuda_corr.F32_LAUNCHES.values())
     with pytest.raises(TypeError):
         cuda_corr.corr_extract(vol.float(), coords)
     with pytest.raises(ValueError):  # K1's layout only: row stride N2p
@@ -390,14 +474,18 @@ def test_update_caches_volume_only_for_narrow_streams(dev, image, cached):
 
 def test_build_volumes_f32_at_the_export_shape(dev):
     """f32 features into K1 at the narrow export's shape (E=2, 30x101),
-    through the wrapper and on a pooled pyramid: the SIMT kernel into
-    the bf16 volume, held like the tensor-core kernel."""
+    through the wrapper and on a pooled pyramid: three TF32 passes into
+    the bf16 volume, held like the bf16 kernel (every entry within one
+    bf16 ulp of plain, >= 99.9% bit-equal, pad columns 0)."""
     f1, f2, _ = _inputs(2, 30, 101, torch.float32, dev, seed=31)
     ref = cuda_corr.build_volumes_plain(f1, f2)
+    cuda_corr.reset_launches()
     vol = cuda_corr.build_volumes(f1, f2)
     torch.cuda.synchronize()
+    assert cuda_corr.F32_LAUNCHES["build_volumes"] == 1
     assert vol.dtype == torch.bfloat16 and vol.shape == (2, 3030, 4032)
     _k1_close(vol, ref, 30, 101)
+    assert cuda_corr.within_one_ulp(vol, ref).all()
     pyr = cuda_corr.pool_pyramid(f2, dtype=torch.float32)
     assert torch.equal(cuda_corr.build_volumes_pooled(f1, pyr), vol)
 
@@ -420,7 +508,7 @@ def test_forward_routes_and_launch_counts(dev, size, cached, bf16):
     """DroidNet.forward on a 2-frame window: K1 once and K2 per step at
     30x101, K3 per step and no volume at 47x156, for f32 features (the
     export's) and under ``compute_dtype=bf16`` (K1's and K3's
-    tensor-core kernels: K3 then counts (block, level) pairs)."""
+    bf16 kernels); K3 counts (block, level) pairs either way."""
     iters = 3
     net = _tamed_net().to(dev).eval()
     kw = {}
@@ -437,7 +525,10 @@ def test_forward_routes_and_launch_counts(dev, size, cached, bf16):
         {"build_volumes": 1, "corr_extract": iters, "corr_lookup": 0}
         if cached else
         {"build_volumes": 0, "corr_extract": 0, "corr_lookup": iters})
-    assert (sum(cuda_corr.routes()) > 0) == (bf16 and not cached)
+    assert (sum(cuda_corr.routes()) > 0) == (not cached)
+    assert cuda_corr.F32_LAUNCHES == (
+        {"build_volumes": 0, "corr_lookup": 0} if bf16 else
+        {k: cuda_corr.LAUNCHES[k] for k in cuda_corr.F32_KERNELS})
     H, W = size
     assert out["disps_up"][-1].shape == (1, 2, H, W)
     assert out["flows"][-1].shape == (1, 2, H // 8, W // 8, 2)

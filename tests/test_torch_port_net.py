@@ -133,17 +133,20 @@ def test_graph_agg(nets):
 
 def test_load_reference_checkpoint(nets, tmp_path):
     """A reference-style .pth (DDP ``module.`` prefixes, reference key
-    names, an extra key the port does not model) loads into DroidNet."""
+    names) loads into DroidNet; a key the port does not model raises, as
+    a missing one does."""
     _, params, tnet = nets
     sd = {f"module.{k}": v for k, v in
           params_from_jax(jax.device_get(params)).items()}
-    sd["module.unused.weight"] = torch.zeros(1)
     path = tmp_path / "droid.pth"
     torch.save(sd, path)
     loaded = load_droidnet_torch(str(path))
     for k, v in tnet.state_dict().items():
         torch.testing.assert_close(loaded.state_dict()[k], v, rtol=0, atol=0)
+    torch.save({**sd, "module.unused.weight": torch.zeros(1)}, path)
+    with pytest.raises(KeyError, match="does not model"):
+        load_droidnet_torch(str(path))
     del sd["module.update.agg.eta.0.bias"]
     torch.save(sd, path)
-    with pytest.raises(KeyError):
+    with pytest.raises(KeyError, match="lacks"):
         load_droidnet_torch(str(path))

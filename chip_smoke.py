@@ -34,8 +34,15 @@ Phases, one line each (any failure exits non-zero):
                 P1 (X1) and P2 (X2-X5)
                 in every variant at their harness shapes and in
                 border-straddling bands, |d| <= 2e-2 + 8e-3 |ref| (bf16
-                outputs) with >= 99.9% of outputs bit-equal, and every
-                two variants' outputs differing in >= 1%;
+                outputs) with >= 99.9% of outputs bit-equal (P2: all of
+                them, and the sha256 of the kernel it replaced on a
+                saved case), and every two variants' outputs differing
+                in >= 1%; P1 (bf16 wgmma products) also on smooth
+                coordinates at 64x30x101 and 2x47x156, on mixed and
+                NaN/huge ones, at a ragged 3x17x45 and where the last
+                level is pooled away to nothing, its (block, level)
+                pairs within and above the bounding-box cap equal to
+                the numpy model's (smooth: none above);
   4. reference- the port's loop with the kernels against the same loop
                 with their plain versions, on the card: 64x96, 8 frames
                 + terminate(image_stream), same weights (mask logits
@@ -58,7 +65,9 @@ Phases, one line each (any failure exits non-zero):
                 (python -m pvo_tpu_torch.scripts.corr_exp*), each
                 program once (corr_exp5 runs corr_exp4's) with its
                 kernel's launches counted: P1's and P2's times beside
-                their plain versions;
+                their plain versions; P1 through the wrapper and as the
+                kernel alone on the harness's uniform coordinates and on
+                smooth ones, with bound, share and route counts;
   7. export   - the flow/depth export (scripts.test_vo2.export_pair on
                 DroidNet.forward, f32, weights of tame_net(0,
                 mask_bias=-2)). K1-K3 at the export's shapes (E=2, f32
@@ -91,6 +100,7 @@ import numpy as np
 import torch
 
 from pvo_tpu_torch.scripts import bench_vo2_export, kbench
+from pvo_tpu_torch.scripts.harness import harness_inputs
 from pvo_tpu_torch.scripts.kbench import (device_time_ms, gpu_line,
                                           kernel_bound)
 from pvo_tpu_torch.scripts.test_vo2 import export_pair
@@ -195,14 +205,21 @@ def check_kernels():
            for k in (*cuda_corr.KERNELS, *F32_ROWS.values())}
 
     def record(name, shape, err, fn, plain_fn, plain_reps=10, headline=None,
-               library_fn=None, **note):
+               library_fn=None, sector_coords=None, **note):
         row = F32_ROWS[name] if note.get("features") == "f32" else name
         ms = device_time_ms(fn)
         plain_ms = device_time_ms(plain_fn, reps=plain_reps)
         bound = kernel_bound(name, *shape, C, features=note.get("features",
-                                                                "bf16"))
+                                                                "bf16"),
+                             coords=sector_coords)
         times = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound["ms"],
                  "bound_by": bound["bound_by"]}
+        if "sector_ms" in bound:
+            # the same bound with the taps counted in whole 32-byte sectors
+            note = {**note, "sectors_per_pixel":
+                    f"{bound['sectors'] / np.prod(shape):.2f}",
+                    "sector_bound_ms": f"{bound['sector_ms']:.4f}",
+                    "share_of_sector_bound": f"{bound['sector_ms'] / ms:.4f}"}
         if library_fn is not None:
             times["library_ms"] = device_time_ms(library_fn)
         log("kernel", name=name, shape="x".join(map(str, shape)), **note,
@@ -286,7 +303,8 @@ def check_kernels():
         err = (out - cuda_corr.corr_extract_plain(ref, coords)).abs().max()
         record("corr_extract", shape, err.item(),
                lambda: cuda_corr.corr_extract(ref, coords),
-               lambda: cuda_corr.corr_extract_plain(ref, coords))
+               lambda: cuda_corr.corr_extract_plain(ref, coords),
+               sector_coords=coords.cpu().numpy())
         del vol, ref, out
         torch.cuda.empty_cache()
 
@@ -479,18 +497,21 @@ def check_volume(shape, dtype, vol, ref):
     return err
 
 
-def packed_err(name, shape, variant, out, ref):
-    """Max |out - ref| of two packed bf16 outputs; raises beyond
-    PACKED_TOL or below PACKED_EQUAL bit-equal."""
+def packed_err(name, shape, variant, out, ref, equal_share=PACKED_EQUAL,
+               **note):
+    """Max |out - ref| of two packed bf16 outputs (NaN in both counts as
+    equal, in one as a failure); raises beyond PACKED_TOL or below
+    ``equal_share`` bit-equal."""
     a, b = out.float(), ref.float()
-    d = (a - b).abs()
+    both_nan = a.isnan() & b.isnan()
+    d = (a - b).abs().masked_fill(both_nan, 0.0)
     bad = int((d > PACKED_TOL[0] + PACKED_TOL[1] * b.abs()).sum())
-    equal = (a == b).float().mean().item()
+    equal = ((a == b) | both_nan).float().mean().item()
     err = d.max().item()
     log("kernel", name=name, shape="x".join(map(str, shape)),
-        variant=repr(variant), max_abs_err=f"{err:.3g}", bad=bad,
+        variant=repr(variant), **note, max_abs_err=f"{err:.3g}", bad=bad,
         bit_equal=f"{equal:.6f}")
-    if bad or equal < PACKED_EQUAL or not np.isfinite(err):
+    if bad or equal < equal_share or not np.isfinite(err):
         raise AssertionError(f"{name} {variant} at {shape}: {bad} outputs "
                              f"beyond tolerance, {equal:.6f} bit-equal, "
                              f"max error {err}")
@@ -510,11 +531,36 @@ def check_distinct(name, shape, variants, outs):
                              f"{low[0]:.4f} of the outputs")
 
 
+def check_lookup_packed(shape, coords_kind, f1, f2, coords, variants):
+    """P1 in ``variants`` against plain on one set of inputs, its route
+    counts against the numpy model's; returns (worst max |d|, outputs)."""
+    E, H, W = shape
+    want = cuda_corr_exp.expected_routes(coords.cpu().numpy(), H, W)
+    worst, outs = 0.0, []
+    for kw in variants:
+        cuda_corr_exp.reset_routes()
+        outs.append(cuda_corr_exp.corr_lookup_packed(f1, f2, coords, **kw))
+        routes = cuda_corr_exp.routes()
+        worst = max(worst, packed_err(
+            "corr_lookup_packed", shape, kw, outs[-1],
+            cuda_corr_exp.corr_lookup_packed_plain(f1, f2, coords, **kw),
+            coords=coords_kind, pairs_within_cap=routes[0],
+            pairs_above_cap=routes[1]))
+        # smooth: every box within the cap; uniform and mixed: both kinds
+        if routes != want or (coords_kind == "smooth" and routes[1]) or (
+                coords_kind in ("uniform", "mixed") and not all(routes)):
+            raise AssertionError(f"corr_lookup_packed at {shape} on "
+                                 f"{coords_kind} coordinates took routes "
+                                 f"{routes}, the model says {want}")
+    return worst, outs
+
+
 def check_packed():
     """Phase 3, P1 and P2 in every output-defining variant against their
     plain versions, at the harness shapes and with half the pixels in a
-    band over the right or the bottom border. Returns the worst error of
-    each X kernel."""
+    band over the right or the bottom border; P1 also on the coordinates
+    of kbench.lookup_coords and off the harness's shape. Returns the
+    worst error of each X kernel."""
     err = dict.fromkeys(HARNESS, 0.0)
     shapes = [((64, 30, 101), None), ((2, 30, 101), ("x", 95.0, 106.0)),
               ((2, 30, 101), ("y", 25.0, 33.0))]
@@ -523,17 +569,37 @@ def check_packed():
     for shape, band in shapes:
         f1, f2, coords = kernel_inputs(*shape, torch.bfloat16, seed=7,
                                        band=band)
-        outs = []
-        for kw in p1_variants:
-            outs.append(cuda_corr_exp.corr_lookup_packed(f1, f2, coords,
-                                                         **kw))
-            e = packed_err(
-                "corr_lookup_packed", shape, kw, outs[-1],
-                cuda_corr_exp.corr_lookup_packed_plain(f1, f2, coords, **kw))
-            err["X1"] = max(err["X1"], e)
+        e, outs = check_lookup_packed(shape, "uniform" if band is None
+                                      else f"band_{band[0]}", f1, f2, coords,
+                                      p1_variants)
+        err["X1"] = max(err["X1"], e)
         check_distinct("corr_lookup_packed", shape, p1_variants, outs)
         del f1, f2, coords, outs
         torch.cuda.empty_cache()
+    # smooth coordinates (every box within the cap), mixed and NaN/huge
+    # ones, a ragged shape, and features under 8 a side (level 3 empty)
+    for shape, kind in (((64, 30, 101), "smooth"), ((2, 47, 156), "smooth"),
+                        ((2, 30, 101), "mixed"), ((2, 30, 101), "wild"),
+                        ((3, 17, 45), "smooth"), ((3, 17, 45), "scattered"),
+                        ((2, 5, 7), "smooth"), ((2, 5, 7), "scattered")):
+        f1, f2, _ = kernel_inputs(*shape, torch.bfloat16, seed=sum(shape))
+        coords = torch.from_numpy(
+            kbench.lookup_coords(kind, *shape, seed=shape[1])).cuda()
+        e, outs = check_lookup_packed(shape, kind, f1, f2, coords,
+                                      p1_variants)
+        err["X1"] = max(err["X1"], e)
+        del f1, f2, coords, outs
+        torch.cuda.empty_cache()
+
+    # P2 must give the bits of the 2-byte-load kernel it replaced
+    vol, coords = (t.cuda() for t in kbench.saved_extract_case())
+    same = kbench.fingerprint(cuda_corr_exp.corr_extract_packed(
+        vol, coords)) == kbench.SAVED_EXTRACT_PACKED_SHA256
+    log("kernel", name="corr_extract_packed",
+        shape="x".join(map(str, coords.shape)), equal_to_replaced_kernel=same)
+    if not same:
+        raise AssertionError("corr_extract_packed: output differs from the "
+                             "replaced kernel's on the saved case")
 
     shapes[0] = ((32, 30, 101), None)
     for shape, band in shapes:
@@ -545,7 +611,8 @@ def check_packed():
             outs.append(cuda_corr_exp.corr_extract_packed(vol, coords, **kw))
             e = packed_err(
                 "corr_extract_packed", shape, kw, outs[-1],
-                cuda_corr_exp.corr_extract_packed_plain(vol, coords, **kw))
+                cuda_corr_exp.corr_extract_packed_plain(vol, coords, **kw),
+                equal_share=1.0)
             for x in owners:
                 err[x] = max(err[x], e)
         check_distinct("corr_extract_packed", shape,
@@ -813,7 +880,8 @@ def run_harnesses():
     shapes, with its kernel's launches counted from 0; a harness that
     runs another's program (corr_exp5 runs corr_exp4's) takes that
     run's results. Returns {X: (launches, ms and plain_ms of the
-    harness's first case, worst max |d|)}."""
+    harness's first case, worst max |d|)} and, under "X1 routes",
+    corr_exp.time_routes()'s result."""
     res, ran = {}, {}
     for x, (mod, kernel, _) in HARNESS.items():
         main = importlib.import_module(f"pvo_tpu_torch.scripts.{mod}").main
@@ -833,6 +901,35 @@ def run_harnesses():
         if n == 0 or not np.isfinite(err):
             raise AssertionError(f"{x}: {n} launches, error {err}")
         res[x] = (n, ms, plain_ms, err)
+    # P1 on the harness's coordinates and on smooth ones, wrapper and
+    # kernel alone, with the (block, level) pairs of one launch by route
+    routes = importlib.import_module(
+        "pvo_tpu_torch.scripts.corr_exp").time_routes()
+    for kind, r in routes.items():
+        log("harness", kernel="X1", coords=kind, ms=f"{r['ms']:.4f}",
+            kernel_only_ms=f"{r['kernel_ms']:.4f}",
+            bound_ms=f"{r['bound_ms']:.4f}",
+            share_of_bound=f"{r['bound_ms'] / r['kernel_ms']:.4f}",
+            pairs_within_cap=r["routes"][0], pairs_above_cap=r["routes"][1])
+        if r["routes"] != r["expected_routes"]:
+            raise AssertionError(f"X1 on {kind} coordinates took routes "
+                                 f"{r['routes']}, the model says "
+                                 f"{r['expected_routes']}")
+    if routes["smooth"]["routes"][1] or not all(routes["uniform"]["routes"]):
+        raise AssertionError(f"X1's routes: {routes}")
+    res["X1 routes"] = routes
+    # P2's second bound: the sectors its loads touch on the harness's coords
+    E = HARNESS_E["corr_extract_packed"]
+    sectors = kernel_bound(
+        "corr_extract_packed", E, 30, 101, C,
+        coords=harness_inputs(E, 30, 101)[2].cpu().numpy())
+    ms = res["X2"][1]
+    log("harness", kernel="X2-X5", shape=f"{E}x30x101", ms=f"{ms:.4f}",
+        bound_ms=f"{sectors['ms']:.4f}",
+        share_of_bound=f"{sectors['ms'] / ms:.4f}",
+        sectors_per_pixel=f"{sectors['sectors'] / (E * 3030):.2f}",
+        sector_bound_ms=f"{sectors['sector_ms']:.4f}",
+        share_of_sector_bound=f"{sectors['sector_ms'] / ms:.4f}")
     return res
 
 
@@ -1079,12 +1176,22 @@ def main():
     for x, (_, kernel, site) in HARNESS.items():
         n, ms, plain_ms, err = harness[x]
         bound = kernel_bound(kernel, HARNESS_E[kernel], 30, 101, C)
+        extra = {}
+        if x == "X1":
+            # ms is on the harness's uniform coordinates, through the wrapper
+            uniform, smooth = (harness["X1 routes"][k]
+                               for k in ("uniform", "smooth"))
+            extra = {"kernel_only_ms": uniform["kernel_ms"],
+                     "ms_smooth": smooth["ms"],
+                     "kernel_only_ms_smooth": smooth["kernel_ms"],
+                     "pairs_within_above_cap": uniform["routes"],
+                     "pairs_within_above_cap_smooth": smooth["routes"]}
         kernels.append({
             "name": kernel, "route": "cuda",
             "source": "pvo_tpu_torch/csrc/corr_exp.cu", "replaces": site,
             "launches": n, "max_abs_err": max(err, packed[x]), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound["ms"],
-            "bound_by": bound["bound_by"], "library_ms": None})
+            "bound_by": bound["bound_by"], "library_ms": None, **extra})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

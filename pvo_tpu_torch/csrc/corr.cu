@@ -16,7 +16,8 @@
 //                         on the tensor cores over the bounding box of a
 //                         pixel tile's patches: bf16 products for bf16
 //                         features (8x16 pixels, a block walks the
-//                         levels), three TF32 passes for f32 features
+//                         levels; the body is corr_tc.cuh's, shared with
+//                         P1), three TF32 passes for f32 features
 //                         (8x8 pixels, a block per level). Edges may
 //                         index frames of features and pyramids.
 //
@@ -39,10 +40,9 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <limits.h>
 #include <stdint.h>
 
-#include "corr_common.cuh"
+#include "corr_tc.cuh"
 
 namespace {
 
@@ -70,24 +70,9 @@ __device__ __forceinline__ float blend(const Window& wn, float p00,
 // HW are zero-filled and not stored; pyramid rows past N2 are
 // zero-filled, so the pad columns N2..N2p-1 store 0.
 //
-// Shared-memory operand layout (the wgmma K-major layout without
-// swizzle): 8x8 core matrices of 128 contiguous bytes, (row r, k) at
-// ((r/8)*(C/8) + k/8)*128 + (r%8)*16 + (k%8)*2. Core matrices adjacent
-// in K are 128 bytes apart (the descriptor's leading byte offset), 8-row
-// groups C*16 bytes apart (its stride byte offset).
+// Both operands take the wgmma K-major layout of corr_tc.cuh in shared
+// memory.
 constexpr int K1_BM = 128, K1_BN = 128, K1_THREADS = 256, K1_TILES = 16;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte cp.async; src_bytes = 0 zero-fills the destination
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
 
 // rows r0..r0+rows-1 of base (rows x C bf16; rows from `total` on as 0)
 // into the core-matrix layout at dst; consecutive threads fill
@@ -106,14 +91,6 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
                ok ? 16 : 0);
     for (kk += K1_THREADS / 8; kk >= kc; kk -= kc) ++g;
   }
-}
-
-// shared-memory matrix descriptor, no swizzle: start address, leading
-// byte offset 128 (bits 16-29) and stride byte offset sbo (bits 32-45),
-// each in 16-byte units
-__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, int sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32);
 }
 
 // d (+)= A(64 x 16) B(128 x 16)^T, both K-major in shared memory
@@ -141,13 +118,6 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// keeps the compiler from moving accumulator reads across the wgmma wait
-template <int R>
-__device__ __forceinline__ void fence_acc(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 __host__ __device__ size_t tc_stage_bytes(int C) {
@@ -522,7 +492,8 @@ build_volumes_f32_kernel(const float* __restrict__ f1,
 // row at any 2-byte offset: the lane loads the two aligned 16-byte
 // vectors that cover them (one 32-byte sector or two, against eight
 // 2-byte loads), parks them in its own 32 bytes of shared memory and
-// picks its taps from there (zero outside the level). The row below
+// picks its taps from there (zero outside the level): patch_row
+// (corr_common.cuh), which P2 shares. The row below
 // comes from the next lane by a shuffle inside the 8-lane group. The
 // 7x7 windows are staged in shared memory in the output's dx-major
 // order, and the block writes its 8 pixels' 8 x 784 contiguous bytes as
@@ -549,34 +520,10 @@ corr_extract_kernel(const __nv_bfloat16* __restrict__ vol,
   const int W = lv.w[ll];
 
   Window wn = {0.f, 0.f, 0.f, 0.f};
-  bool row_ok = false;
-  int shift = 0;
-  if (live) {
-    wn = window_at(coords + (size_t)pix * 2, ll);
-    const float yy = wn.by + r;
-    // the row holds a tap of the level (false for NaN and huge origins)
-    row_ok = tap_ok(yy, lv.h[ll]) && wn.bx + (PATCH - 1) >= 0.0f &&
-             wn.bx < float(W);
-    if (row_ok) {
-      const int idx = lv.off[ll] + (int)yy * W + (int)wn.bx;
-      const int a0 = min(max(idx, 0) & ~7, N2 - 16);
-      const uint4* src =
-          reinterpret_cast<const uint4*>(vol + (size_t)pix * N2 + a0);
-      win[threadIdx.x][0] = __ldg(src);
-      win[threadIdx.x][1] = __ldg(src + 1);
-      shift = idx - a0;  // a tap inside the level lands in 0..15
-    }
-  }
-  const __nv_bfloat16* wv =
-      reinterpret_cast<const __nv_bfloat16*>(win[threadIdx.x]);
-
+  if (live) wn = window_at(coords + (size_t)pix * 2, ll);
   float v[PATCH];
-#pragma unroll
-  for (int dx = 0; dx < PATCH; ++dx) {
-    const float xx = wn.bx + dx;
-    v[dx] = (row_ok && tap_ok(xx, W)) ? __bfloat162float(wv[shift + dx])
-                                      : 0.0f;
-  }
+  patch_row(v, win[threadIdx.x], vol + (size_t)pix * N2, N2, wn, r, live,
+            lv.off[ll], lv.h[ll], W);
   float vn[PATCH];
 #pragma unroll
   for (int dx = 0; dx < PATCH; ++dx)
@@ -908,322 +855,28 @@ corr_lookup_f32_kernel(const T1* __restrict__ f1,
 // pyramid). Bound: memory, mostly the f32 output (E=256 at 30x101: 1.01
 // GB moved against 51 GFLOP, 0.30 ms against 0.05 ms at the bf16 peak),
 // so the products may be wasteful as long as every pooled row is read
-// few times.
-//
-// A block owns an 8 x 16 tile of neighbouring query pixels of one edge
-// and keeps their f1 rows in shared memory in K1's wgmma layout. Per
-// level it takes the bounding box of its pixels' 8x8 integer patches,
-// clipped to the level: where the coordinates are smooth (reprojected
-// pixels) the box is little more than the tile plus the window, 15 x 23
-// positions at level 0. The box's pooled rows arrive 64 at a time by
-// cp.async into a 2-stage ring (the next tile's load overlaps this
-// tile's products and gather); each tile is C/16 wgmma.m64n64k16 per
-// warpgroup (bf16 in, f32 accumulators), so a pooled row is read once
-// per 128 pixels, not once per tap. The f32 products go to a shared
-// 128 x 64 tile (row stride 72 floats: the accumulators' float2 stores
-// do not conflict), and two threads per pixel pick the taps of their
-// half of the 8x8 patch that fall in this tile into registers. After
-// the last tile they blend the 7x7 window (patch row 4 crosses from
-// the second thread to the first by a shuffle), stage it in the
-// product tile's memory in output order, and the block stores each
-// pixel's 49 floats of the level, a warp on consecutive addresses.
-// Measured on an H100: two blocks per SM with a 2-stage ring beat one
-// block with a ring of 3 to 9 stages by a third: the block's own
-// arithmetic and barriers, not the loads' latency, set its time.
-//
-// A level whose box exceeds K3T_BOX_CAP positions (scattered or wild
-// coordinates) takes per-pixel dot products against the bf16 pyramid
-// instead: each thread 32 taps of its pixel, f1 from shared memory.
-// routes[0] counts the (block, level) pairs on the tensor cores,
-// routes[1] those on the per-pixel route.
-constexpr int K3T_TH = 8, K3T_TW = 16, K3T_PIX = K3T_TH * K3T_TW;
-constexpr int K3T_THREADS = 2 * K3T_PIX;  // two warpgroups
-constexpr int K3T_BN = 64;                // box positions per tile
-constexpr int K3T_STAGES = 2, K3T_BLOCKS_PER_SM = 2;
-constexpr int K3T_LD = 72;                // product tile row stride
-constexpr int K3T_BOX_CAP = 1536;
-static_assert(K3T_PIX == 128 && K3T_THREADS == 256, "two warpgroups of 64");
-static_assert(K3T_PIX * TAPS <= K3T_PIX * K3T_LD, "stage fits the tile");
+// few times. The body is lookup_tc_body (corr_tc.cuh), which P1 shares:
+// the bounding-box route on the tensor cores, boxes over the cap per
+// pixel. What is K3's own is the epilogue: two threads per pixel blend
+// the 7x7 window from their half patches (patch row 4 crosses from the
+// second thread to the first by a shuffle), stage it in the product
+// tile's memory in output order, and the block stores each pixel's 49
+// floats of the level, a warp on consecutive addresses.
+struct WindowEpilogue {
+  float* out;  // (E, HW, L*49)
 
-// d (+)= A(64 x 16) B(64 x 16)^T, both K-major in shared memory
-__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
-                                                uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// the f1 rows of the block's pixel tile (row r = pixel (y0 + r / 16,
-// x0 + r % 16) of frame A; pixels outside the image as 0) into the
-// core-matrix layout at dst, chunk order as load_tile
-__device__ __forceinline__ void load_pixel_tile(uint32_t dst,
-                                                const __nv_bfloat16* A,
-                                                int y0, int x0, int H, int W,
-                                                int C) {
-  const int kc = C / 8, r = threadIdx.x & 7;
-  int g = (threadIdx.x >> 3) / kc, kk = (threadIdx.x >> 3) % kc;
-  for (int q = threadIdx.x; q < K3T_PIX * kc; q += K3T_THREADS) {
-    const int row = g * 8 + r;
-    const int y = y0 + row / K3T_TW, x = x0 + row % K3T_TW;
-    const bool ok = y < H && x < W;
-    cp_async16(dst + q * 16,
-               A + (ok ? ((size_t)y * W + x) * C + kk * 8 : 0), ok ? 16 : 0);
-    for (kk += K3T_THREADS / 8; kk >= kc; kk -= kc) ++g;
-  }
-}
-
-// box positions p0..p0+63 (pyramid rows rows[p]; positions from np on
-// as 0) of frame B into the core-matrix layout at dst
-__device__ __forceinline__ void load_box_tile(uint32_t dst,
-                                              const __nv_bfloat16* B,
-                                              const int* rows, int p0,
-                                              int np, int C) {
-  const int kc = C / 8, r = threadIdx.x & 7;
-  int g = (threadIdx.x >> 3) / kc, kk = (threadIdx.x >> 3) % kc;
-  for (int q = threadIdx.x; q < K3T_BN * kc; q += K3T_THREADS) {
-    const int p = p0 + g * 8 + r;
-    const bool ok = p < np;
-    cp_async16(dst + q * 16, B + (ok ? (size_t)rows[p] * C + kk * 8 : 0),
-               ok ? 16 : 0);
-    for (kk += K3T_THREADS / 8; kk >= kc; kk -= kc) ++g;
-  }
-}
-
-// sum of the 8 products of two 16-byte vectors of bf16, added to s
-__device__ __forceinline__ float dot8(const uint4& a, const uint4& b,
-                                      float s) {
-  const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&a);
-  const __nv_bfloat162* pb = reinterpret_cast<const __nv_bfloat162*>(&b);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 fa = __bfloat1622float2(pa[i]);
-    const float2 fb = __bfloat1622float2(pb[i]);
-    s = fmaf(fa.x, fb.x, s);
-    s = fmaf(fa.y, fb.y, s);
-  }
-  return s;
-}
-
-__host__ __device__ size_t k3t_smem_bytes(int C) {
-  return (size_t)K3T_PIX * C * 2 + K3T_STAGES * (size_t)K3T_BN * C * 2 +
-         sizeof(float) * K3T_PIX * K3T_LD + sizeof(int) * K3T_BOX_CAP +
-         sizeof(int) * MAX_LEVELS * 4;
-}
-
-__global__ void __launch_bounds__(K3T_THREADS, K3T_BLOCKS_PER_SM)
-corr_lookup_tc_kernel(const __nv_bfloat16* __restrict__ f1,
-                      const __nv_bfloat16* __restrict__ pyr,
-                      const int* __restrict__ ii, const int* __restrict__ jj,
-                      const float* __restrict__ coords,
-                      float* __restrict__ out,
-                      unsigned long long* __restrict__ routes, int H, int W,
-                      int N2, int C, float scale, Levels lv) {
-  extern __shared__ __align__(128) unsigned char k3_smem[];
-  const size_t stage_bytes = (size_t)K3T_BN * C * 2;
-  unsigned char* As = k3_smem;
-  unsigned char* Bs = As + (size_t)K3T_PIX * C * 2;
-  float* corr = reinterpret_cast<float*>(Bs + K3T_STAGES * stage_bytes);
-  int* rows = reinterpret_cast<int*>(corr + K3T_PIX * K3T_LD);
-  int* box = rows + K3T_BOX_CAP;  // per level x0, y0, x1, y1
-  float* stage = corr;            // the level's windows, [pixel][49]
-
-  const int e = blockIdx.z, HW = H * W;
-  const int y0 = blockIdx.y * K3T_TH, x0 = blockIdx.x * K3T_TW;
-  const __nv_bfloat16* A = f1 + (size_t)(ii ? ii[e] : e) * HW * C;
-  const __nv_bfloat16* B = pyr + (size_t)(jj ? jj[e] : e) * N2 * C;
-
-  const int wg = threadIdx.x / 128, warp = threadIdx.x % 128 / 32;
-  const int lane = threadIdx.x % 32;
-  const int sbo = C * 16, kc = C / 8;
-
-  load_pixel_tile(smem_u32(As), A, y0, x0, H, W, C);
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-
-  // this thread's pixel and its half of the pixel's 8x8 patch
-  const int p = threadIdx.x / 2, half = threadIdx.x % 2;
-  const int py = y0 + p / K3T_TW, px = x0 + p % K3T_TW;
-  const bool live = py < H && px < W;
-  const size_t pix = (size_t)e * HW + (live ? py * W + px : 0);
-  float cxy[2] = {0.f, 0.f};
-  if (live) {
-    cxy[0] = coords[pix * 2];
-    cxy[1] = coords[pix * 2 + 1];
-  }
-
-  // bounding boxes of the block's patches, clipped to each level
-  if (threadIdx.x < MAX_LEVELS * 4)
-    box[threadIdx.x] = threadIdx.x % 4 < 2 ? INT_MAX : INT_MIN;
-  __syncthreads();
-  for (int l = 0; l < lv.n; ++l) {
-    const Window wn = window_at(cxy, l);
-    // the patch holds a tap of the level (false for NaN, huge origins)
-    const bool v = live && wn.bx + (PATCH - 1) >= 0.0f &&
-                   wn.bx < float(lv.w[l]) && wn.by + (PATCH - 1) >= 0.0f &&
-                   wn.by < float(lv.h[l]);
-    const int bx = v ? (int)wn.bx : 0, by = v ? (int)wn.by : 0;
-    const int lo_x = __reduce_min_sync(0xffffffffu, v ? max(bx, 0) : INT_MAX);
-    const int lo_y = __reduce_min_sync(0xffffffffu, v ? max(by, 0) : INT_MAX);
-    const int hi_x = __reduce_max_sync(
-        0xffffffffu, v ? min(bx + PATCH - 1, lv.w[l] - 1) : INT_MIN);
-    const int hi_y = __reduce_max_sync(
-        0xffffffffu, v ? min(by + PATCH - 1, lv.h[l] - 1) : INT_MIN);
-    if (lane == 0) {
-      atomicMin(box + 4 * l, lo_x);
-      atomicMin(box + 4 * l + 1, lo_y);
-      atomicMax(box + 4 * l + 2, hi_x);
-      atomicMax(box + 4 * l + 3, hi_y);
-    }
-  }
-  __syncthreads();
-
-  const uint64_t da = wgmma_desc(smem_u32(As) + wg * 64 * C * 2, sbo);
-  const int n_out = lv.n * TAPS;
-  float d[32] = {};
-
-  for (int l = 0; l < lv.n; ++l) {
-    const int Wl = lv.w[l], Hl = lv.h[l];
-    const int bx0 = box[4 * l], by0 = box[4 * l + 1];
-    const bool any = bx0 <= box[4 * l + 2];
-    const int bw = any ? box[4 * l + 2] - bx0 + 1 : 0;
-    const int np = any ? bw * (box[4 * l + 3] - by0 + 1) : 0;
-    const bool tensor = np <= K3T_BOX_CAP;  // the same for the whole block
-    if (threadIdx.x == 0) atomicAdd(routes + (tensor ? 0 : 1), 1ULL);
-
-    Window wn = {0.f, 0.f, 0.f, 0.f};
-    int ibx = 0, iby = 0;
-    unsigned xm = 0, ym = 0;  // taps (patch rows of this half) in the level
-    if (live) {
-      wn = window_at(cxy, l);
-      if (wn.bx + (PATCH - 1) >= 0.0f && wn.bx < float(Wl) &&
-          wn.by + (PATCH - 1) >= 0.0f && wn.by < float(Hl)) {
-        ibx = (int)wn.bx;
-        iby = (int)wn.by + half * 4;
-#pragma unroll
-        for (int c = 0; c < PATCH; ++c)
-          xm |= (unsigned)(ibx + c >= 0 && ibx + c < Wl) << c;
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          ym |= (unsigned)(iby + r >= 0 && iby + r < Hl) << r;
-        if (ym == 0) xm = 0;
-      }
-    }
-
-    float pt[4][PATCH];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < PATCH; ++c) pt[r][c] = 0.0f;
-
-    if (tensor) {
-      for (int q = threadIdx.x; q < np; q += K3T_THREADS) {
-        const int y = q / bw;
-        rows[q] = lv.off[l] + (by0 + y) * Wl + bx0 + (q - y * bw);
-      }
-      __syncthreads();  // rows ready; the last level's stage is stored
-      const int nt = (np + K3T_BN - 1) / K3T_BN;
-      // box position of this thread's tap (row 0, column 0)
-      const int p00 = (iby - by0) * bw + (ibx - bx0);
-      // every tile is one cp.async group, empty past the last tile, so
-      // that the groups in flight count the same at every step
-      for (int t = 0; t < K3T_STAGES - 1; ++t) {
-        if (t < nt)
-          load_box_tile(smem_u32(Bs + t * stage_bytes), B, rows, t * K3T_BN,
-                        np, C);
-        asm volatile("cp.async.commit_group;\n" ::: "memory");
-      }
-      for (int n = 0; n < nt; ++n) {
-        const int s = n % K3T_STAGES, ahead = n + K3T_STAGES - 1;
-        asm volatile("cp.async.wait_group %0;\n" ::"n"(K3T_STAGES - 2)
-                     : "memory");
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        __syncthreads();  // tile n landed; the last tile's gather is over
-        // the stage that tile n-1 left takes the tile K3T_STAGES-1 ahead
-        if (ahead < nt)
-          load_box_tile(smem_u32(Bs + (ahead % K3T_STAGES) * stage_bytes), B,
-                        rows, ahead * K3T_BN, np, C);
-        asm volatile("cp.async.commit_group;\n" ::: "memory");
-
-        const uint64_t db = wgmma_desc(smem_u32(Bs + s * stage_bytes), sbo);
-        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-        for (int k = 0; k < C / 16; ++k)
-          wgmma_m64n64k16(d, da + 16 * k, db + 16 * k, k > 0);
-        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-        fence_acc(d);
-        // accumulator d[4j + 2i + c] is (row 16*warp + lane/4 + 8i,
-        // column 8j + 2(lane%4) + c) of this warpgroup's 64 pixels
-#pragma unroll
-        for (int j = 0; j < K3T_BN / 8; ++j)
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const int row = wg * 64 + warp * 16 + lane / 4 + 8 * i;
-            *reinterpret_cast<float2*>(corr + row * K3T_LD + 8 * j +
-                                       2 * (lane % 4)) =
-                make_float2(d[4 * j + 2 * i] * scale,
-                            d[4 * j + 2 * i + 1] * scale);
-          }
-        __syncthreads();  // products visible; stage s may be refilled
-
-        const float* mine = corr + p * K3T_LD - n * K3T_BN;
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int pr = p00 + r * bw;
-          // no tap of this row in columns [n*64, n*64 + 64)
-          if (!((ym >> r) & 1) || pr + PATCH <= n * K3T_BN ||
-              pr >= (n + 1) * K3T_BN)
-            continue;
-#pragma unroll
-          for (int c = 0; c < PATCH; ++c)
-            if (((xm >> c) & 1) &&
-                (unsigned)(pr + c - n * K3T_BN) < (unsigned)K3T_BN)
-              pt[r][c] = mine[pr + c];
-        }
-      }
-      __syncthreads();  // every gather is over: the tile becomes the stage
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-      __syncthreads();  // f1 landed; the last level's stage is stored
-      // f1 chunk kk of pixel p is 16 bytes at ((p/8)*kc + kk)*128 + (p%8)*16
-      const uint4* a4 = reinterpret_cast<const uint4*>(
-          As + (size_t)(p / 8) * kc * 128 + (p % 8) * 16);
-      float* mine = corr + p * K3T_LD + half * 32;
-      for (int t = 0; t < 32; ++t) {
-        const int r = t / PATCH, c = t % PATCH;
-        float val = 0.0f;
-        if (((ym >> r) & 1) && ((xm >> c) & 1)) {
-          const uint4* b4 = reinterpret_cast<const uint4*>(
-              B + ((size_t)lv.off[l] + (size_t)(iby + r) * Wl + ibx + c) * C);
-          float s = 0.0f;
-          for (int kk = 0; kk < kc; ++kk)
-            s = dot8(a4[kk * 8], __ldg(b4 + kk), s);
-          val = s * scale;
-        }
-        mine[t] = val;
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < PATCH; ++c) pt[r][c] = mine[r * PATCH + c];
-      __syncthreads();  // every patch is read: the tile becomes the stage
-    }
-
+  __device__ __forceinline__ void operator()(int l, const Window& wn,
+                                             const float (&pt)[4][PATCH],
+                                             float* stage,
+                                             const LookupTile& t,
+                                             const Levels& lv) const {
+    const int p = t.p, half = t.half, lane = t.lane;
     // patch row 4 (the second thread's first row) for the first thread
     float nx[PATCH];
 #pragma unroll
     for (int c = 0; c < PATCH; ++c)
       nx[c] = __shfl_down_sync(0xffffffffu, pt[0][c], 1);
-    if (live) {
+    if (t.live) {
       float* o = stage + p * TAPS + half * 4;
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
@@ -1240,16 +893,28 @@ corr_lookup_tc_kernel(const __nv_bfloat16* __restrict__ f1,
     }
     __syncthreads();
     // a warp per pixel: the level's 49 floats are contiguous in out
+    const int n_out = lv.n * TAPS;
     for (int qp = threadIdx.x / 32; qp < K3T_PIX; qp += K3T_THREADS / 32) {
-      const int qy = y0 + qp / K3T_TW, qx = x0 + qp % K3T_TW;
-      if (qy >= H || qx >= W) continue;
-      float* o = out + ((size_t)e * HW + qy * W + qx) * n_out + l * TAPS;
+      const int qy = t.y0 + qp / K3T_TW, qx = t.x0 + qp % K3T_TW;
+      if (qy >= t.H || qx >= t.W) continue;
+      float* o = out + ((size_t)t.e * t.H * t.W + qy * t.W + qx) * n_out +
+                 l * TAPS;
       o[lane] = stage[qp * TAPS + lane];
       if (lane + 32 < TAPS) o[lane + 32] = stage[qp * TAPS + lane + 32];
     }
-    // the next level's first barrier comes before it touches the stage
   }
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+};
+
+__global__ void __launch_bounds__(K3T_THREADS, K3T_BLOCKS_PER_SM)
+corr_lookup_tc_kernel(const __nv_bfloat16* __restrict__ f1,
+                      const __nv_bfloat16* __restrict__ pyr,
+                      const int* __restrict__ ii, const int* __restrict__ jj,
+                      const float* __restrict__ coords,
+                      float* __restrict__ out,
+                      unsigned long long* __restrict__ routes, int H, int W,
+                      int N2, int C, float scale, Levels lv) {
+  lookup_tc_body<false>(f1, pyr, ii, jj, coords, routes, H, W, N2, C, scale,
+                        lv, WindowEpilogue{out});
 }
 
 }  // namespace

@@ -1,5 +1,6 @@
 // Shared pieces of the correlation kernels (corr.cu, corr_exp.cu):
-// window geometry and the pyramid level table. Included once per
+// window geometry, the pyramid level table and the loads of a patch row
+// from K1's volume. Included once per
 // translation unit; everything is internal to it.
 #pragma once
 
@@ -7,7 +8,6 @@
 #include <cuda_runtime.h>
 
 namespace {
-
 
 constexpr int RADIUS = 3;
 constexpr int WIN = 2 * RADIUS + 1;   // 7
@@ -35,11 +35,6 @@ Levels make_levels(int n, const int* hw) {
   return lv;
 }
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
 // Window origin and fractions of one pixel at level l. Origins are kept
 // in float so NaN or huge coordinates give out-of-range taps instead of
 // an overflowing integer conversion; a NaN fraction still propagates to
@@ -57,6 +52,45 @@ __device__ __forceinline__ Window window_at(const float* c, int l) {
 
 __device__ __forceinline__ bool tap_ok(float p, int n) {
   return p >= 0.0f && p < float(n);
+}
+
+// Patch row r (8 taps) of a pixel's window wn at one level, read from the
+// pixel's row of K1's volume (vol_row, N2 values: the row stride, a
+// multiple of 64, so every aligned vector lies inside the row) into v,
+// zero outside the level: K2's and P2's loads. The taps are 16
+// contiguous bytes at any 2-byte offset: the lane loads the two aligned
+// 16-byte vectors that cover them, parks them in its own 32 bytes of
+// shared memory (slot) and picks its taps from there. (Every fourth
+// lane's slot lies on the same banks; a slot of a word per bank and
+// lane, filled by eight 4-byte stores, measured 2% slower in P2 and 8%
+// in K2 on an H100.) off, H, W: the level's first column and its shape.
+__device__ __forceinline__ void patch_row(float (&v)[PATCH], uint4 (&slot)[2],
+                                          const __nv_bfloat16* vol_row,
+                                          int N2, const Window& wn, int r,
+                                          bool live, int off, int H, int W) {
+  bool row_ok = false;
+  int shift = 0;
+  if (live) {
+    const float yy = wn.by + r;
+    // the row holds a tap of the level (false for NaN and huge origins)
+    row_ok = tap_ok(yy, H) && wn.bx + (PATCH - 1) >= 0.0f &&
+             wn.bx < float(W);
+    if (row_ok) {
+      const int idx = off + (int)yy * W + (int)wn.bx;
+      const int a0 = min(max(idx, 0) & ~7, N2 - 16);
+      const uint4* src = reinterpret_cast<const uint4*>(vol_row + a0);
+      slot[0] = __ldg(src);
+      slot[1] = __ldg(src + 1);
+      shift = idx - a0;  // a tap inside the level lands in 0..15
+    }
+  }
+  const __nv_bfloat16* wv = reinterpret_cast<const __nv_bfloat16*>(slot);
+#pragma unroll
+  for (int dx = 0; dx < PATCH; ++dx) {
+    const float xx = wn.bx + dx;
+    v[dx] = (row_ok && tap_ok(xx, W)) ? __bfloat162float(wv[shift + dx])
+                                      : 0.0f;
+  }
 }
 
 }  // namespace

@@ -6,13 +6,14 @@
 //
 //   P1 pvo_corr_lookup_packed   correlation against the pooled f2
 //                               pyramid + 8x8 windowed lookup, no stored
-//                               volume (X1).
+//                               volume (X1), on the tensor cores: K3's
+//                               body (corr_tc.cuh) with a packed epilogue.
 //   P2 pvo_corr_extract_packed  8x8 windowed lookup from K1's volume
 //                               (X2-X5), with X3's diagnostic modes.
 //
 // Layouts (row-major, contiguous):
-//   f1      (E, HW, C)      float or bf16
-//   pyr     (E, N2, C)      float; level l holds H_l*W_l rows from row
+//   f1      (E, HW, C)      bf16
+//   pyr     (E, N2, C)      bf16; level l holds H_l*W_l rows from row
 //                           off_l (cuda_corr.pool_pyramid)
 //   vol     (E, HW, N2p)    bf16 (K1, pvo_build_volumes); the row stride
 //                           N2p is passed to pvo_corr_extract_packed as
@@ -35,7 +36,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "corr_common.cuh"
+#include "corr_tc.cuh"
 
 namespace {
 
@@ -83,104 +84,123 @@ __device__ __forceinline__ float lerp2(float w0, float a, float w1,
 }
 
 // ---------------------------------------------------------------- P1
-// One block = 4 query pixels x 64 taps (K3's structure). Per level, each
-// thread takes the length-C dot product of its pixel's f1 row (staged in
-// shared memory as f32) with the pooled f2 row under its tap (zero out
-// of range) into a shared 8x8 patch; then each thread blends and stores
-// one packed tap. BF16 rounds the correlation, the weights and the row
-// blend to bf16 (X1's seldt="bf16").
-constexpr int P1_PIX = 4;
-constexpr int P1_THREADS = P1_PIX * PTAPS;  // 256
+// bf16 features (C a multiple of 16) on a bf16 pyramid. Bound: memory
+// (E=64 at 30x101: 99 MB of features in, 99 MB of packed taps out, 0.06
+// ms, against 12.7 GFLOP, 0.013 ms at the bf16 peak). The body is K3's
+// (lookup_tc_body, corr_tc.cuh): a block owns 8 x 16 neighbouring
+// pixels of one edge, takes per level the bounding box of their 8x8
+// patches, streams the box's pooled rows through a cp.async ring into
+// wgmma.m64n64k16, and two threads per pixel gather their half patch
+// from the f32 product tile. A box over the cap (scattered coordinates:
+// at 30x101 the level-0 box of uniform coordinates is the whole level)
+// stays on the tensor cores and works its rows out as it goes
+// (P1_DENSE; false selects K3's per-pixel dot products, the slower of
+// the two here: the times are in cuda_corr_exp.py's notes).
+//
+// What is P1's own is the epilogue. From the thread's half patch: X1's
+// rows-first blend with separately rounded products and sums (lerp2);
+// BF16 rounds the correlation, the weights and the row blend to bf16
+// (X1's seldt="bf16"); pad taps (dy or dx = 7) are 0. The level's 64
+// bf16 per pixel are staged in the product tile's memory (16-byte chunk
+// dy of pixel p at chunk dy ^ (p % 8), so neither side conflicts) and
+// stored as 16-byte vectors: level-major, 8 lanes write a pixel's 128
+// contiguous bytes; dy-major, a level's rows are eight 16-byte pieces
+// 16 * L bytes apart.
+constexpr bool P1_DENSE = true;
+static_assert(K3T_PIX * PTAPS * 2 <= K3T_PIX * K3T_LD * 4,
+              "the packed stage fits the product tile");
 
-template <typename T1, bool DYMAJOR, bool BF16>
-__global__ void __launch_bounds__(P1_THREADS)
-corr_lookup_packed_kernel(const T1* __restrict__ f1,
-                          const float* __restrict__ pyr,
-                          const float* __restrict__ coords,
-                          __nv_bfloat16* __restrict__ out, int HW,
-                          int n_pix, int N2, int C, float scale,
-                          Levels lv) {
-  extern __shared__ __align__(16) float smem[];
-  float* f1s = smem;                       // [4][C]
-  float* patch = smem + P1_PIX * C;        // [4][64]
-  constexpr int WM = BF16 ? W_BF16 : W_F32;
+template <bool DYMAJOR, bool BF16>
+struct PackedEpilogue {
+  __nv_bfloat16* out;  // (E, HW, L*64)
 
-  const int pl = threadIdx.x / PTAPS;
-  const int tap = threadIdx.x % PTAPS;
-  const int pix = blockIdx.x * P1_PIX + pl;
-  const bool live = pix < n_pix;
-
-  for (int i = threadIdx.x; i < P1_PIX * C; i += P1_THREADS) {
-    const int p = blockIdx.x * P1_PIX + i / C;
-    f1s[i] = p < n_pix ? to_f32(f1[(size_t)p * C + i % C]) : 0.0f;
-  }
-  __syncthreads();
-
-  const int e = live ? pix / HW : 0;
-  const float* a = f1s + pl * C;
-  float* pt = patch + pl * PTAPS;
-  const int ty = tap / PATCH, tx = tap % PATCH;
-  const int n_ch = lv.n * PTAPS;
-
-  for (int l = 0; l < lv.n; ++l) {
-    Window wn = {0.f, 0.f, 0.f, 0.f};
-    float val = 0.0f;
-    if (live) {
-      wn = window_at(coords + (size_t)pix * 2, l);
-      const float yy = wn.by + ty, xx = wn.bx + tx;
-      if (tap_ok(yy, lv.h[l]) && tap_ok(xx, lv.w[l])) {
-        const float* b = pyr + ((size_t)e * N2 + lv.off[l] +
-                                (int)yy * lv.w[l] + (int)xx) * C;
-        float s = 0.0f;
-        int c = 0;
-        if ((C & 3) == 0) {
-          for (; c < C; c += 4) {
-            const float4 bv = *reinterpret_cast<const float4*>(b + c);
-            const float4 av = *reinterpret_cast<const float4*>(a + c);
-            s = fmaf(av.x, bv.x, s);
-            s = fmaf(av.y, bv.y, s);
-            s = fmaf(av.z, bv.z, s);
-            s = fmaf(av.w, bv.w, s);
+  __device__ __forceinline__ void operator()(int l, const Window& wn,
+                                             float (&pt)[4][PATCH],
+                                             float* tile_mem,
+                                             const LookupTile& t,
+                                             const Levels& lv) const {
+    constexpr int WM = BF16 ? W_BF16 : W_F32;
+    uint4* stage = reinterpret_cast<uint4*>(tile_mem);  // [pixel][8 rows]
+    const int p = t.p;
+    if (BF16) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < PATCH; ++c) pt[r][c] = bf16_round(pt[r][c]);
+    }
+    // patch row 4 (the second thread's first row) for the first thread
+    float nx[PATCH];
+#pragma unroll
+    for (int c = 0; c < PATCH; ++c)
+      nx[c] = __shfl_down_sync(0xffffffffu, pt[0][c], 1);
+    if (t.live) {
+      float wy0, wy1, wx0, wx1;
+      weights<WM>(wn.fy, wy0, wy1);
+      weights<WM>(wn.fx, wx0, wx1);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int dy = t.half * 4 + r;
+        __align__(16) __nv_bfloat16 o[PATCH];
+#pragma unroll
+        for (int dx = 0; dx < PATCH; ++dx) o[dx] = __float2bfloat16(0.0f);
+        if (dy < WIN) {
+          float m[PATCH];
+#pragma unroll
+          for (int j = 0; j < PATCH; ++j) {
+            m[j] = lerp2(wy0, pt[r][j], wy1, r < 3 ? pt[(r + 1) % 4][j]
+                                                   : nx[j]);
+            if (BF16) m[j] = bf16_round(m[j]);
           }
+#pragma unroll
+          for (int dx = 0; dx < WIN; ++dx)
+            o[dx] = __float2bfloat16(lerp2(wx0, m[dx], wx1, m[dx + 1]));
         }
-        for (; c < C; ++c) s = fmaf(a[c], b[c], s);
-        val = s * scale;
+        stage[p * PATCH + (dy ^ (p & 7))] =
+            *reinterpret_cast<const uint4*>(o);
       }
     }
-    pt[tap] = BF16 ? bf16_round(val) : val;
     __syncthreads();
-    if (live) {
-      float o = 0.0f;
-      if (ty < WIN && tx < WIN) {
-        float wy0, wy1, wx0, wx1;
-        weights<WM>(wn.fy, wy0, wy1);
-        weights<WM>(wn.fx, wx0, wx1);
-        const int q = ty * PATCH + tx;
-        float t0 = lerp2(wy0, pt[q], wy1, pt[q + PATCH]);
-        float t1 = lerp2(wy0, pt[q + 1], wy1, pt[q + PATCH + 1]);
-        if (BF16) {
-          t0 = bf16_round(t0);
-          t1 = bf16_round(t1);
-        }
-        o = lerp2(wx0, t0, wx1, t1);
-      }
-      const int ch = DYMAJOR ? ty * (lv.n * PATCH) + l * PATCH + tx
-                             : l * PTAPS + tap;
-      out[(size_t)pix * n_ch + ch] = __float2bfloat16(o);
+    const int n_ch = lv.n * PTAPS;
+    for (int q = threadIdx.x; q < K3T_PIX * PATCH; q += K3T_THREADS) {
+      const int qp = q / PATCH, dy = q % PATCH;
+      const int qy = t.y0 + qp / K3T_TW, qx = t.x0 + qp % K3T_TW;
+      if (qy >= t.H || qx >= t.W) continue;
+      __nv_bfloat16* o =
+          out + ((size_t)t.e * t.H * t.W + qy * t.W + qx) * n_ch +
+          (DYMAJOR ? dy * (lv.n * PATCH) + l * PATCH : l * PTAPS + dy * PATCH);
+      *reinterpret_cast<uint4*>(o) = stage[qp * PATCH + (dy ^ (qp & 7))];
     }
-    __syncthreads();
   }
+};
+
+template <bool DYMAJOR, bool BF16>
+__global__ void __launch_bounds__(K3T_THREADS, K3T_BLOCKS_PER_SM)
+corr_lookup_packed_kernel(const __nv_bfloat16* __restrict__ f1,
+                          const __nv_bfloat16* __restrict__ pyr,
+                          const float* __restrict__ coords,
+                          __nv_bfloat16* __restrict__ out,
+                          unsigned long long* __restrict__ routes, int H,
+                          int W, int N2, int C, float scale, Levels lv) {
+  lookup_tc_body<P1_DENSE>(f1, pyr, nullptr, nullptr, coords, routes, H, W,
+                           N2, C, scale, lv,
+                           PackedEpilogue<DYMAJOR, BF16>{out});
 }
 
 // ---------------------------------------------------------------- P2
-// FULL / NOSTORE: one warp per query pixel, lane = level * 8 + patch row
-// (K2's structure). Each lane reads its 8 patch values of one row of the
-// level's volume slice (zero outside the level), takes the row below
-// from the next lane by a shuffle, blends, and stores its 8 packed taps
-// (row dy = lane % 8, dy == 7 all zero) as one 16-byte store.
+// Bound: memory; a pixel reads 4 x 8x8 bf16 taps (512 B, in 16-byte
+// runs at any 2-byte offset: about 30 32-byte sectors at 30x101) and
+// writes 512 B; nothing is reused.
+// FULL / NOSTORE: one warp per query pixel, 8 pixels per block, lane =
+// level * 8 + patch row (K2's structure). Each lane reads its 8 patch
+// values of one row of the level's volume slice with K2's loads
+// (patch_row, corr_common.cuh: the two aligned 16-byte vectors that
+// cover them, zero outside the level), takes the row below from the next
+// lane by a shuffle, blends, and stores its 8 packed taps (row dy =
+// lane % 8, dy == 7 all zero) as one 16-byte store: a warp writes its
+// pixel's 512 contiguous bytes.
 // NOVAB / DMA: the warp's lanes cover columns 0-127 of the last level,
 // four columns each, and zero the rest of the pixel's channels.
-constexpr int P2_PIX = 4;
+constexpr int P2_PIX = 8;
 
 template <int MODE, int WM, bool MID>
 __global__ void __launch_bounds__(32 * P2_PIX)
@@ -199,20 +219,11 @@ corr_extract_packed_kernel(const __nv_bfloat16* __restrict__ vol,
     const bool live = l < lv.n;
     const int ll = live ? l : 0;
 
+    __shared__ __align__(16) uint4 win[32 * P2_PIX][2];
     const Window wn = window_at(coords + (size_t)pix * 2, ll);
-    const int H = lv.h[ll], W = lv.w[ll];
-    const float yy = wn.by + r;
-    const bool row_ok = live && tap_ok(yy, H);
-    const __nv_bfloat16* row =
-        vol + (size_t)pix * N2 + lv.off[ll] + (row_ok ? (int)yy * W : 0);
-
     float v[PATCH];
-#pragma unroll
-    for (int dx = 0; dx < PATCH; ++dx) {
-      const float xx = wn.bx + dx;
-      v[dx] = (row_ok && tap_ok(xx, W)) ? __bfloat162float(row[(int)xx])
-                                        : 0.0f;
-    }
+    patch_row(v, win[threadIdx.x], vol + (size_t)pix * N2, N2, wn, r, live,
+              lv.off[ll], lv.h[ll], lv.w[ll]);
     float vn[PATCH];
 #pragma unroll
     for (int dx = 0; dx < PATCH; ++dx)
@@ -301,51 +312,50 @@ int extract_mode(int wmode, int mid, const void* vol, const void* coords,
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T1, bool DYMAJOR, bool BF16>
+template <bool DYMAJOR, bool BF16>
 int launch_lookup(const void* f1, const void* pyr, const void* coords,
-                  void* out, int HW, int n_pix, int N2, int C, float scale,
-                  const Levels& lv, cudaStream_t s) {
-  const int blocks = (n_pix + P1_PIX - 1) / P1_PIX;
-  const size_t smem = sizeof(float) * P1_PIX * (size_t)(C + PTAPS);
-  corr_lookup_packed_kernel<T1, DYMAJOR, BF16><<<blocks, P1_THREADS, smem,
-                                                 s>>>(
-      static_cast<const T1*>(f1), static_cast<const float*>(pyr),
-      static_cast<const float*>(coords), static_cast<__nv_bfloat16*>(out),
-      HW, n_pix, N2, C, scale, lv);
+                  void* out, void* routes, int E, int H, int W, int N2,
+                  int C, float scale, const Levels& lv, cudaStream_t s) {
+  const size_t smem = k3t_smem_bytes(C);
+  const cudaError_t err = cudaFuncSetAttribute(
+      corr_lookup_packed_kernel<DYMAJOR, BF16>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  corr_lookup_packed_kernel<DYMAJOR, BF16>
+      <<<dim3((W + K3T_TW - 1) / K3T_TW, (H + K3T_TH - 1) / K3T_TH, E),
+         K3T_THREADS, smem, s>>>(
+          static_cast<const __nv_bfloat16*>(f1),
+          static_cast<const __nv_bfloat16*>(pyr),
+          static_cast<const float*>(coords),
+          static_cast<__nv_bfloat16*>(out),
+          static_cast<unsigned long long*>(routes), H, W, N2, C, scale, lv);
   return (int)cudaGetLastError();
-}
-
-template <typename T1>
-int lookup_f1(int dymajor, int bf16, const void* f1, const void* pyr,
-              const void* coords, void* out, int HW, int n_pix, int N2,
-              int C, float scale, const Levels& lv, cudaStream_t s) {
-  if (dymajor)
-    return bf16 ? launch_lookup<T1, true, true>(f1, pyr, coords, out, HW,
-                                                n_pix, N2, C, scale, lv, s)
-                : launch_lookup<T1, true, false>(f1, pyr, coords, out, HW,
-                                                 n_pix, N2, C, scale, lv, s);
-  return bf16 ? launch_lookup<T1, false, true>(f1, pyr, coords, out, HW,
-                                               n_pix, N2, C, scale, lv, s)
-              : launch_lookup<T1, false, false>(f1, pyr, coords, out, HW,
-                                                n_pix, N2, C, scale, lv, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-int pvo_corr_lookup_packed(const void* f1, int f1_bf16, const void* pyr,
-                           const void* coords, void* out, int HW,
-                           int n_pix, int N2, int C, float scale,
+// bf16 features (E, H, W, C), C a multiple of 16 up to 256, on the bf16
+// pyramid (E, N2, C); routes: two 64-bit counters of (block, level)
+// pairs, [box within the cap, box above it]
+int pvo_corr_lookup_packed(const void* f1, const void* pyr,
+                           const void* coords, void* out, void* routes,
+                           int E, int H, int W, int N2, int C, float scale,
                            int n_levels, const int* level_hw, int dymajor,
                            int bf16, void* stream) {
+  if (C % 16 || C > 256 || E > 65535) return (int)cudaErrorInvalidValue;
   const Levels lv = make_levels(n_levels, level_hw);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (f1_bf16)
-    return lookup_f1<__nv_bfloat16>(dymajor, bf16, f1, pyr, coords, out,
-                                    HW, n_pix, N2, C, scale, lv, s);
-  return lookup_f1<float>(dymajor, bf16, f1, pyr, coords, out, HW, n_pix,
-                          N2, C, scale, lv, s);
+  if (dymajor)
+    return bf16 ? launch_lookup<true, true>(f1, pyr, coords, out, routes, E,
+                                            H, W, N2, C, scale, lv, s)
+                : launch_lookup<true, false>(f1, pyr, coords, out, routes, E,
+                                             H, W, N2, C, scale, lv, s);
+  return bf16 ? launch_lookup<false, true>(f1, pyr, coords, out, routes, E, H,
+                                           W, N2, C, scale, lv, s)
+              : launch_lookup<false, false>(f1, pyr, coords, out, routes, E,
+                                            H, W, N2, C, scale, lv, s);
 }
 
 int pvo_corr_extract_packed(const void* vol, const void* coords, void* out,

@@ -12,12 +12,15 @@ which takes the host's enqueue rate out of a short kernel's time.
 time kept. ``kernel_bound`` is the least time the card could take for a
 kernel's work at a shape, from the bytes it must move and the operations
 it does: the one place that counts them, for ``chip_smoke.py``, the
-table in ``PERF.md`` and the tests.
+table in ``PERF.md`` and the tests. For the two extractions it also
+gives, on given coordinates, a second figure that counts the volume's
+32-byte sectors their taps lie in (``touched_sectors``), not the taps'
+bytes.
 
     python -m pvo_tpu_torch.scripts.kbench
 
 prints the bounds at the main path's shapes and, on a card, the
-fingerprint of K2's output on :func:`saved_extract_case`.
+fingerprints of K2's and P2's outputs on :func:`saved_extract_case`.
 """
 
 from __future__ import annotations
@@ -39,6 +42,12 @@ WINDOW_TAPS = 49
 # H100 80GB HBM3: the redesign may not change one bit of the blend
 SAVED_EXTRACT_SHA256 = (
     "fe4cad5740376226523fc9c1342274884e07aaa28baac3fee9d486d5c6168d83")
+# sha256 of corr_extract_packed's output bytes (full, f32 weights) on
+# the same case, as the 2-byte-load kernel this one replaced gave it on
+# the same card
+SAVED_EXTRACT_PACKED_SHA256 = (
+    "cfadb2d9100eed20b63a5b62ce9bcabb36c77f2f13e7ad0a3ee959d4db9a7b10")
+SECTOR = 32       # bytes the memory moves at the least
 
 
 def require_cuda():
@@ -89,7 +98,42 @@ def level_sizes(H, W, levels):
     return sizes
 
 
-def kernel_bound(name, E, H, W, C=128, levels=4, features="bf16"):
+def touched_sectors(coords, H, W, levels=4):
+    """The 32-byte sectors of K1's volume that an extraction on
+    ``coords`` (E, H, W, 2; level-0 [x, y]) touches: per pixel, the
+    distinct sectors of its row of the volume (which starts on a sector)
+    that hold a tap of one of its 8x8 patches inside a level, summed
+    over the pixels. A patch row is 8 bf16 taps, 16 bytes at any 2-byte
+    offset: one sector or two; at the small levels neighbouring patch
+    rows share sectors. From numpy, in f32 as the kernels take the
+    window's origin."""
+    c = np.asarray(coords, dtype=np.float32).reshape(-1, 2)
+    per = SECTOR // 2                 # bf16 values in a sector
+    ids, off = [], 0
+    with np.errstate(invalid="ignore", over="ignore"):
+        for lvl in range(levels):
+            hl, wl = H >> lvl, W >> lvl
+            s = np.float32(1.0 / 2 ** lvl)
+            bx = np.floor(c[:, 0] * s) - np.float32(3)
+            by = np.floor(c[:, 1] * s) - np.float32(3)
+            cols = (bx + 7 >= 0) & (bx < wl)
+            c0 = np.where(cols, np.maximum(bx, 0), 0).astype(np.int64)
+            c1 = np.where(cols, np.minimum(bx + 7, wl - 1), 0).astype(
+                np.int64)
+            for r in range(8):
+                yy = by + np.float32(r)
+                ok = cols & (yy >= 0) & (yy < hl)
+                row = off + np.where(ok, yy, 0).astype(np.int64) * wl
+                ids.append(np.where(ok, (row + c0) // per, -1))
+                ids.append(np.where(ok, (row + c1) // per, -1))
+            off += hl * wl
+    ids = np.sort(np.stack(ids, 1), axis=1)
+    fresh = np.diff(ids, axis=1, prepend=-1) != 0
+    return int((fresh & (ids >= 0)).sum())
+
+
+def kernel_bound(name, E, H, W, C=128, levels=4, features="bf16",
+                 coords=None):
     """The roofline bound of kernel ``name`` on E edges of H x W
     features with C channels: every input read once and every output
     written once over the memory rate, against the operations over the
@@ -99,12 +143,15 @@ def kernel_bound(name, E, H, W, C=128, levels=4, features="bf16"):
     coordinates.
 
     Returns {"bytes_in", "bytes_out", "bytes", "flops", "bytes_ms",
-    "ops_ms", "ms", "bound_by"}."""
+    "ops_ms", "ms", "bound_by"}; for ``corr_extract`` and
+    ``corr_extract_packed`` with ``coords`` (E, H, W, 2) also "sectors"
+    (:func:`touched_sectors`) and "sector_ms", the time of the output,
+    the coords and those whole sectors in place of the taps' bytes."""
     px = E * H * W
     feat = 2 if features == "bf16" else 4
     n2 = sum(level_sizes(H, W, levels))
     n2p = -(-n2 // 64) * 64
-    coords = px * 2 * 4
+    coords_bytes = px * 2 * 4
     fmaps = 2 * px * C * feat
     lookup_flops = px * levels * PATCH_TAPS * C * 2
     # the blend: 4 products and 3 sums per window tap
@@ -115,25 +162,31 @@ def kernel_bound(name, E, H, W, C=128, levels=4, features="bf16"):
         b_in, b_out = fmaps, px * n2p * 2
         flops, kind = E * H * W * n2 * C * 2, features
     elif name == "corr_extract":
-        b_in, b_out = taps + coords, px * levels * WINDOW_TAPS * 4
+        b_in, b_out = taps + coords_bytes, px * levels * WINDOW_TAPS * 4
         flops, kind = blend_flops, "f32"
     elif name == "corr_lookup":
-        b_in, b_out = fmaps + coords, px * levels * WINDOW_TAPS * 4
+        b_in, b_out = fmaps + coords_bytes, px * levels * WINDOW_TAPS * 4
         flops, kind = lookup_flops, features
     elif name == "corr_lookup_packed":
-        b_in, b_out = fmaps + coords, packed
+        b_in, b_out = fmaps + coords_bytes, packed
         flops, kind = lookup_flops, features
     elif name == "corr_extract_packed":
-        b_in, b_out = taps + coords, packed
+        b_in, b_out = taps + coords_bytes, packed
         flops, kind = blend_flops, "f32"
     else:
         raise ValueError(f"no kernel named {name!r}")
     bytes_ms = 1e3 * (b_in + b_out) / HBM_BYTES_S
     ops_ms = 1e3 * flops / PEAK_FLOP_S[kind]
-    return {"bytes_in": b_in, "bytes_out": b_out, "bytes": b_in + b_out,
-            "flops": flops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-            "ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    res = {"bytes_in": b_in, "bytes_out": b_out, "bytes": b_in + b_out,
+           "flops": flops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+           "ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    if coords is not None and name in ("corr_extract",
+                                       "corr_extract_packed"):
+        res["sectors"] = touched_sectors(coords, H, W, levels)
+        res["sector_ms"] = 1e3 * (res["sectors"] * SECTOR + coords_bytes +
+                                  b_out) / HBM_BYTES_S
+    return res
 
 
 def saved_extract_case(E=2, H=30, W=101, seed=1234):
@@ -222,12 +275,22 @@ def main():
         print(f"{name} E={E} 30x101 C=128: {b['bytes'] / 1e9:.4f} GB, "
               f"{b['flops'] / 1e9:.2f} GFLOP, bound {b['ms']:.4f} ms "
               f"({b['bound_by']})")
+    for name, E in (("corr_extract", 48), ("corr_extract_packed", 32)):
+        for kind in ("smooth", "scattered"):
+            b = kernel_bound(name, E, 30, 101,
+                             coords=lookup_coords(kind, E, 30, 101))
+            print(f"{name} E={E} 30x101, {kind} coords: "
+                  f"{b['sectors'] / (E * 3030):.2f} sectors a pixel, bound "
+                  f"{b['sector_ms']:.4f} ms by sectors, {b['ms']:.4f} by "
+                  f"bytes")
     if torch.cuda.is_available():
-        from pvo_tpu_torch.vo.net import cuda_corr
-        vol, coords = saved_extract_case()
-        out = cuda_corr.corr_extract(vol.cuda(), coords.cuda())
+        from pvo_tpu_torch.vo.net import cuda_corr, cuda_corr_exp
+        vol, coords = (t.cuda() for t in saved_extract_case())
         print(gpu_line())
-        print("corr_extract saved case sha256", fingerprint(out))
+        print("corr_extract saved case sha256",
+              fingerprint(cuda_corr.corr_extract(vol, coords)))
+        print("corr_extract_packed saved case sha256",
+              fingerprint(cuda_corr_exp.corr_extract_packed(vol, coords)))
 
 
 if __name__ == "__main__":

@@ -436,28 +436,46 @@ def corr_extract(vol, coords, num_levels=4):
 
 # ---------------------------------------------------------------- K3
 
-# per device: two 64-bit counters of (block, level) pairs, [tensor-core
-# route, per-pixel route], that K3's kernels (bf16 and f32) add to
-_routes = {}
+class RouteCounter:
+    """Per card, two 64-bit counters that a lookup kernel adds to: the
+    (block, level) pairs whose bounding box was within the kernel's cap
+    (the tensor cores, from a table of the box's rows) and those above
+    it."""
+
+    def __init__(self):
+        self._counts = {}
+
+    def tensor(self, device):
+        if device not in self._counts:
+            self._counts[device] = torch.zeros(2, dtype=torch.int64,
+                                               device=device)
+        return self._counts[device]
+
+    def read(self):
+        """(within the cap, above it), summed over the cards; reading
+        them waits for the card."""
+        tot = sum(c.cpu() for c in self._counts.values()) \
+            if self._counts else [0, 0]
+        return int(tot[0]), int(tot[1])
+
+    def reset(self):
+        for c in self._counts.values():
+            c.zero_()
 
 
-def _route_counter(device):
-    if device not in _routes:
-        _routes[device] = torch.zeros(2, dtype=torch.int64, device=device)
-    return _routes[device]
+# K3's kernels (bf16 and f32): [tensor-core route, per-pixel route]
+_routes = RouteCounter()
 
 
 def routes():
     """(block, level) pairs that K3 (either feature type) has run on the
     tensor cores and on its per-pixel route since :func:`reset_routes`,
     summed over the cards; reading them waits for the card."""
-    tot = sum(c.cpu() for c in _routes.values()) if _routes else [0, 0]
-    return int(tot[0]), int(tot[1])
+    return _routes.read()
 
 
 def reset_routes():
-    for c in _routes.values():
-        c.zero_()
+    _routes.reset()
 
 
 def lookup_dtype(feats):
@@ -522,7 +540,7 @@ def _launch_lookup(f1, pyr, ii, jj, coords, num_levels):
             f1.data_ptr(), pyr.data_ptr(),
             None if ii is None else ii.data_ptr(),
             None if jj is None else jj.data_ptr(), coords.data_ptr(),
-            out.data_ptr(), _route_counter(dev).data_ptr(), kind, E, H, W,
+            out.data_ptr(), _routes.tensor(dev).data_ptr(), kind, E, H, W,
             N2, C, SCALE, num_levels, level_array(shapes),
             torch.cuda.current_stream().cuda_stream)
     check_rc(rc, "corr_lookup")

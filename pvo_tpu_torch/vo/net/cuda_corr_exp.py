@@ -25,11 +25,37 @@ P1 ``corr_lookup_packed`` replaces X1, ``scripts/corr_exp.py`` ``run``
   bilinear weights and the row blend to bf16 (``_kernel`` :54-61, :96,
   :106); ``"f32"`` keeps f32 throughout. X1's ``merge`` and ``blk``
   knobs are TPU selector and tiling choices and change no result.
-  Bound: on-chip reads. At E=64, 30x101 each pixel takes 4 x 64
-  length-128 dot products (12.7 GFLOP in all) against 512-byte pooled
-  f2 rows that neighbouring pixels share through L1. Design: K3's (4
-  pixels x 64 taps per block, f1 in shared memory, one dot product per
-  thread), with the blend and the bf16 packed store per thread.
+  Bound: memory. At E=64, 30x101 it reads 99 MB of bf16 features and
+  writes 99 MB of packed taps, 0.060 ms at 3.35 TB/s, against 12.7
+  GFLOP, 0.013 ms at the bf16 tensor-core peak: products are cheap and
+  re-reading pooled rows is not. Design: K3's body
+  (``csrc/corr_tc.cuh`` ``lookup_tc_body``, one text for both kernels)
+  with an epilogue of its own. bf16 features (C a multiple of 16; f32
+  ones raise on the card) on a bf16 pyramid, which holds the pooled
+  levels exactly; a block owns 8 x 16 neighbouring pixels of one edge,
+  f1 rows in shared memory in the ``wgmma`` layout; per level it takes
+  the bounding box of their 8x8 patches, streams the box's pooled rows
+  64 at a time through a 2-stage ``cp.async`` ring and forms tile x
+  box^T with ``wgmma.m64n64k16`` (f32 accumulators); two threads per
+  pixel gather their half patch from the f32 product tile. The
+  epilogue blends rows first with separately rounded products and sums
+  (X1's one-hot products), stages the level's 64 bf16 per pixel in the
+  product tile's memory and stores them as 16-byte vectors (level-major:
+  8 lanes write a pixel's 128 contiguous bytes; dy-major: eight 16-byte
+  pieces 64 bytes apart, 11% slower on smooth coordinates and 3% on
+  uniform ones, so the levels are not staged together). A box above
+  ``BOX_CAP`` = 1536 positions has no table of its rows in shared
+  memory: under X1's uniform coordinates the level-0 box is the whole
+  3030-position level. It stays on the tensor cores and works each
+  row's index out as its tile is loaded (48 tiles at level 0): 1.107 ms
+  at E=64 against 1.291 ms for K3's per-pixel dot products there (kernel
+  alone; ``scripts/corr_probe.py packed``, NVIDIA H100 80GB HBM3, 700
+  W). :func:`routes` counts the (block, level) pairs within and above
+  the cap, :func:`expected_routes` is the numpy model of that count.
+  The f32 sums come in another order than the plain version's, so the
+  outputs are held to >= 99.9% bit-equal (measured 99.994%), not to
+  equality. :func:`corr_lookup_packed_pooled` is the kernel alone on a
+  pyramid pooled beforehand.
 P2 ``corr_extract_packed`` replaces X2-X5: ``corr_exp2.py`` ``extract_v``
   (:93, :116), ``corr_exp3.py`` ``run_mode`` (:98, :118),
   ``corr_exp4.py`` ``extract_v2`` (:90, :112) and ``corr_exp5.py``
@@ -38,28 +64,43 @@ P2 ``corr_extract_packed`` replaces X2-X5: ``corr_exp2.py`` ``extract_v``
   (:data:`X2_VARIANTS`); X3's modes are ``mode``; X4 and X5 are the
   ``full`` f32 extraction (they differ from X2 only in TPU store and
   pipelining mechanics). Bound: memory. At E=32, 30x101 it writes 50 MB
-  of bf16 and reads 4 x 8 rows of 8 bf16 taps per pixel (50 MB, up to
-  twice that in 32-byte sectors). Design: K2's (one warp per pixel, a
-  lane per level and patch row, the lower row by shuffle), with each
-  lane's 8 packed taps written as one 16-byte store.
+  of bf16 and reads 4 x 8 rows of 8 bf16 taps per pixel: 50 MB as bytes
+  (0.030 ms), 97 MB as the 32-byte sectors those 16-byte runs lie in
+  (about 31 a pixel, ``kbench.touched_sectors``: 0.044 ms). Design:
+  K2's (one warp per pixel, 8 pixels per block, a lane per level and
+  patch row, the lower row by shuffle) with K2's loads, shared as
+  ``patch_row`` in ``csrc/corr_common.cuh``: a lane loads the two
+  aligned 16-byte vectors that cover its 8 taps and picks them out of
+  its own 32 bytes of shared memory. Each lane's 8 packed taps leave as
+  one 16-byte store, a warp writing its pixel's 512 contiguous bytes.
+  Bit-equal to the plain version and to the 2-byte-load kernel it
+  replaced (``kbench.SAVED_EXTRACT_PACKED_SHA256``). ``novab`` and
+  ``dma`` keep their column-per-lane code.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from . import corr as corr_ops
 from . import cuda_corr
-from .cuda_corr import (FEATS, RADIUS, SCALE, check_rc, check_tensor,
-                        level_array, level_shapes, padded_n2)
+from .cuda_corr import (RADIUS, SCALE, check_rc, check_tensor, level_array,
+                        level_shapes, padded_n2)
 
 KERNELS = ("corr_lookup_packed", "corr_extract_packed")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 SOURCE = cuda_corr.SOURCE.parent / "corr_exp.cu"
+
+# P1's pixel tile and the largest bounding box (positions of one level)
+# whose rows a block tables in shared memory: K3T_TH, K3T_TW and
+# K3T_BOX_CAP of csrc/corr_tc.cuh
+TILE = (8, 16)
+BOX_CAP = 1536
 
 PATCH = 2 * RADIUS + 2          # 8
 PTAPS = PATCH * PATCH           # 64 packed taps per level
@@ -95,8 +136,8 @@ def _library():
         lib = ctypes.CDLL(str(cuda_corr.build(SOURCE)))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         ip = ctypes.POINTER(ctypes.c_int)
-        lib.pvo_corr_lookup_packed.argtypes = [p, i, p, p, p, i, i, i, i, f,
-                                               i, ip, i, i, p]
+        lib.pvo_corr_lookup_packed.argtypes = [p, p, p, p, p, i, i, i, i, i,
+                                               f, i, ip, i, i, p]
         lib.pvo_corr_extract_packed.argtypes = [p, p, p, i, i, i, ip, i, i,
                                                 i, p]
         for fn in (lib.pvo_corr_lookup_packed, lib.pvo_corr_extract_packed):
@@ -159,12 +200,82 @@ def corr_lookup_packed_plain(f1, f2, coords, num_levels=4, order="level",
     return out.reshape(E, H, W, -1).to(torch.bfloat16)
 
 
+# P1's (block, level) pairs: [box within BOX_CAP, box above it]
+_routes = cuda_corr.RouteCounter()
+
+
+def routes():
+    """(block, level) pairs of P1 since :func:`reset_routes` whose
+    bounding box was within ``BOX_CAP`` (its rows tabled in shared
+    memory) and above it (rows worked out per tile); both run on the
+    tensor cores. Reading them waits for the card."""
+    return _routes.read()
+
+
+def reset_routes():
+    _routes.reset()
+
+
+def expected_routes(coords, H, W, levels=4):
+    """What :func:`routes` counts for one launch on ``coords`` (E, H, W,
+    2), from numpy: per edge, 8 x 16 pixel tile and level, the bounding
+    box of the tile's 8x8 integer patches that hold a tap of the level,
+    clipped to it, in f32 as the kernel takes it; a pair is above the
+    cap when the box has more than ``BOX_CAP`` positions. NaN and huge
+    coordinates hold no tap, and a tile (or an empty level) without any
+    counts as within the cap. K3's bf16 kernel has the same tile and
+    cap."""
+    c = np.asarray(coords, dtype=np.float32)
+    E = c.shape[0]
+    th, tw = TILE
+    within = above = 0
+    with np.errstate(invalid="ignore", over="ignore"):
+        for lvl, (hl, wl) in enumerate(level_shapes(H, W, levels)):
+            s = np.float32(1.0 / 2 ** lvl)
+            bx = np.floor(c[..., 0] * s) - np.float32(RADIUS)
+            by = np.floor(c[..., 1] * s) - np.float32(RADIUS)
+            ok = ((bx + (PATCH - 1) >= 0) & (bx < wl) &
+                  (by + (PATCH - 1) >= 0) & (by < hl))
+            big = np.iinfo(np.int64).max
+            ix = np.where(ok, bx, 0).astype(np.int64)
+            iy = np.where(ok, by, 0).astype(np.int64)
+            lo_x = np.where(ok, np.maximum(ix, 0), big)
+            lo_y = np.where(ok, np.maximum(iy, 0), big)
+            hi_x = np.where(ok, np.minimum(ix + PATCH - 1, wl - 1), -1)
+            hi_y = np.where(ok, np.minimum(iy + PATCH - 1, hl - 1), -1)
+            for y0 in range(0, H, th):
+                for x0 in range(0, W, tw):
+                    t = (slice(None), slice(y0, y0 + th),
+                         slice(x0, x0 + tw))
+                    any_ok = ok[t].reshape(E, -1).any(1)
+                    bw = hi_x[t].reshape(E, -1).max(1) - \
+                        lo_x[t].reshape(E, -1).min(1) + 1
+                    bh = hi_y[t].reshape(E, -1).max(1) - \
+                        lo_y[t].reshape(E, -1).min(1) + 1
+                    n = np.where(any_ok, bw * bh, 0)
+                    above += int((n > BOX_CAP).sum())
+                    within += int((n <= BOX_CAP).sum())
+    return within, above
+
+
+def _check_packed_features(name, t, shape, device):
+    """P1's kernel takes bf16 features whose C is a multiple of 16."""
+    check_tensor(name, t, shape, (torch.bfloat16,), device)
+    C = shape[-1]
+    if C % 16 or C > 256:
+        raise ValueError(f"corr_lookup_packed needs C a multiple of 16 and "
+                         f"at most 256, not {C}")
+
+
 def corr_lookup_packed(f1, f2, coords, num_levels=4, order="level",
                        seldt="f32"):
     """Fused correlation + packed windowed lookup (X1).
 
-    f1, f2: (E, H, W, C) f32 or bf16; coords: (E, H, W, 2) f32 level-0
-    [x, y]. Returns (E, H, W, num_levels*64) bf16 in ``order``
+    f1, f2: (E, H, W, C); coords: (E, H, W, 2) f32 level-0 [x, y]. On
+    the card the features are bf16 with C a multiple of 16 up to 256
+    (the kernel's products are bf16 ``wgmma``, as X1's harness feeds
+    it; anything else raises); the plain version on the CPU also takes
+    f32. Returns (E, H, W, num_levels*64) bf16 in ``order``
     ("level": l*64 + dy*8 + dx, "dy": dy*(8L) + l*8 + dx), with f32 or
     bf16 (``seldt``) intermediates."""
     _choice("order", order, ORDERS)
@@ -172,21 +283,36 @@ def corr_lookup_packed(f1, f2, coords, num_levels=4, order="level",
     if f1.device.type == "cpu":
         return corr_lookup_packed_plain(f1, f2, coords, num_levels, order,
                                         seldt)
+    _check_packed_features("f1", f1, f1.shape, f1.device)
+    _check_packed_features("f2", f2, f1.shape, f1.device)
+    with torch.cuda.device(f1.device):
+        pyr = cuda_corr.pool_pyramid(f2, num_levels, torch.bfloat16)
+    return corr_lookup_packed_pooled(f1, pyr, coords, num_levels, order,
+                                     seldt)
+
+
+def corr_lookup_packed_pooled(f1, pyr, coords, num_levels=4, order="level",
+                              seldt="f32"):
+    """P1 on an already pooled pyramid ``pyr`` =
+    :func:`cuda_corr.pool_pyramid` (f2, num_levels, torch.bfloat16):
+    :func:`corr_lookup_packed` without its pooling, the kernel alone.
+    Card only."""
+    _choice("order", order, ORDERS)
+    _choice("seldt", seldt, SELDT)
     E, H, W, C = f1.shape
-    check_tensor("f1", f1, (E, H, W, C), FEATS, f1.device)
-    check_tensor("f2", f2, (E, H, W, C), FEATS, f1.device)
-    check_tensor("coords", coords, (E, H, W, 2), (torch.float32,),
-                 f1.device)
+    dev = f1.device
     shapes = level_shapes(H, W, num_levels)
     levels = level_array(shapes)
     N2 = sum(h * w for h, w in shapes)
+    _check_packed_features("f1", f1, (E, H, W, C), dev)
+    check_tensor("pyr", pyr, (E, N2, C), (torch.bfloat16,), dev)
+    check_tensor("coords", coords, (E, H, W, 2), (torch.float32,), dev)
     out = torch.empty((E, H, W, num_levels * PTAPS), dtype=torch.bfloat16,
-                      device=f1.device)
-    with torch.cuda.device(f1.device):
-        pyr = cuda_corr.pool_pyramid(f2, num_levels)
+                      device=dev)
+    with torch.cuda.device(dev):
         rc = _library().pvo_corr_lookup_packed(
-            f1.data_ptr(), int(f1.dtype == torch.bfloat16), pyr.data_ptr(),
-            coords.data_ptr(), out.data_ptr(), H * W, E * H * W, N2, C,
+            f1.data_ptr(), pyr.data_ptr(), coords.data_ptr(),
+            out.data_ptr(), _routes.tensor(dev).data_ptr(), E, H, W, N2, C,
             SCALE, num_levels, levels, int(order == "dy"),
             int(seldt == "bf16"), torch.cuda.current_stream().cuda_stream)
     check_rc(rc, "corr_lookup_packed")

@@ -176,20 +176,46 @@ def test_lookup_coords_are_seeded_and_shaped(kind):
 
 
 def test_corr_probe_substitutions_name_lines_of_the_source():
-    """The variant and ablation probe rewrites corr.cu by exact lines:
-    each must occur there once, or the probe has gone stale."""
+    """The variant and ablation probe rewrites corr.cu and corr_exp.cu
+    (with the headers they include written out) by exact lines: each
+    must occur there once, or the probe has gone stale."""
     from pvo_tpu_torch.scripts import corr_probe
-    source = corr_probe.cuda_corr.SOURCE.read_text()
-    tables = (corr_probe.K3_VARIANTS, corr_probe.K2_VARIANTS,
-              corr_probe.ABLATIONS, corr_probe.K3F_VARIANTS,
-              corr_probe.K1F_VARIANTS, corr_probe.K3F_ABLATIONS,
-              corr_probe.K1F_ABLATIONS)
-    for table in tables:
-        assert "as committed" in table or "whole kernel" in table
-        for tag, subs in table.items():
-            for old, new in subs:
-                assert source.count(old) == 1, (tag, old)
-                assert new != old
+    tables = {
+        corr_probe.cuda_corr: (
+            corr_probe.K3_VARIANTS, corr_probe.K2_VARIANTS,
+            corr_probe.ABLATIONS, corr_probe.K3F_VARIANTS,
+            corr_probe.K1F_VARIANTS, corr_probe.K3F_ABLATIONS,
+            corr_probe.K1F_ABLATIONS),
+        corr_probe.cuda_corr_exp: (
+            corr_probe.P1_VARIANTS, corr_probe.P2_VARIANTS,
+            corr_probe.P2_ABLATIONS)}
+    for module, group in tables.items():
+        source = corr_probe.expanded(module.SOURCE)
+        assert '#include "' not in source and "#pragma once" not in source
+        for table in group:
+            assert any(tag.startswith(("as committed", "whole kernel"))
+                       for tag in table)
+            for tag, subs in table.items():
+                for old, new in subs:
+                    assert source.count(old) == 1, (tag, old)
+                    assert new != old
+
+
+def test_corr_probe_expands_each_header_once():
+    """K3's body lives in a header that corr.cu and corr_exp.cu both
+    include: the probe's text of either holds it, and the common header
+    under it, exactly once."""
+    from pvo_tpu_torch.scripts import corr_probe
+    for module in (corr_probe.cuda_corr, corr_probe.cuda_corr_exp):
+        source = corr_probe.expanded(module.SOURCE)
+        assert source.count("void lookup_tc_body(") == 1
+        assert source.count("struct Levels {") == 1
+        assert source.count("void patch_row(") == 1
+    # the body exists once in the sources
+    csrc = corr_probe.cuda_corr.SOURCE.parent
+    texts = [f.read_text() for f in sorted(csrc.glob("corr*.cu*"))
+             if "parent" not in f.name and "probe" not in f.name]
+    assert sum(t.count("wgmma_m64n64k16(d, da") for t in texts) == 1
 
 
 @pytest.mark.parametrize("table", ["K3F_ABLATIONS", "K1F_ABLATIONS"])
@@ -197,7 +223,7 @@ def test_corr_probe_f32_ablations_rewrite_only_the_f32_kernels(table):
     """Every ablation of an f32 kernel leaves the bf16 kernels' and K2's
     text alone, and the all-off line is the sum of the single ones."""
     from pvo_tpu_torch.scripts import corr_probe
-    source = corr_probe.cuda_corr.SOURCE.read_text()
+    source = corr_probe.expanded(corr_probe.cuda_corr.SOURCE)
     cut = {"K1, bf16": "// ---------------------------------------------------------------- K1, bf16",
            "K2": "// ---------------------------------------------------------------- K2",
            "K3, bf16": "// ---------------------------------------------------------------- K3, bf16"}

@@ -15,7 +15,9 @@ bit-equal, since X2's rounding variants differ from each other by one
 bf16 ulp in 13-15% of the outputs at these shapes, while the plain
 versions match every variant bit for bit on the CPU. Coordinates reach
 6 pixels past every border, so out-of-range taps and the selectors'
-lane wrap are covered.
+lane wrap are covered; X1 is also held on the smooth and the mixed
+coordinates of ``kbench.lookup_coords``, the cases P1's kernel routes
+apart.
 """
 
 import functools
@@ -31,6 +33,7 @@ from jax.experimental import pallas as pl
 from pvo_tpu.vo.net.pallas_corr import (build_corr_volumes,
                                         corr_level_shapes,
                                         pallas_corr_extract)
+from pvo_tpu_torch.scripts import kbench
 from pvo_tpu_torch.vo.net import cuda_corr_exp as cx
 
 E, H, W, C = 2, 12, 40, 32
@@ -112,6 +115,25 @@ def test_x1_matches_lookup_packed(xmods, data, store, seldt):
                                  seldt=seldt)
     want = xmods["corr_exp"].run(*data["f"], data["coords"], merge="none",
                                  store=store, seldt=seldt)
+    assert port.shape == (E, H, W, 256) and port.dtype == torch.bfloat16
+    assert_close(port, want)
+
+
+@pytest.mark.parametrize("seldt", ["f32", "bf16"])
+@pytest.mark.parametrize("store", ["perlevel", "matpack", "dymajor"])
+@pytest.mark.parametrize("kind", ["smooth", "mixed"])
+def test_x1_matches_lookup_packed_on_smooth_and_mixed_coords(xmods, data,
+                                                             kind, store,
+                                                             seldt):
+    """The coordinates that P1's kernel is built for: a pixel grid plus a
+    smooth flow (every tile's bounding box small), and smooth in one
+    half of the image, scattered in the other."""
+    coords = kbench.lookup_coords(kind, E, H, W, seed=2)
+    order = "dy" if store == "dymajor" else "level"
+    port = cx.corr_lookup_packed(*data["tf"], torch.from_numpy(coords),
+                                 order=order, seldt=seldt)
+    want = xmods["corr_exp"].run(*data["f"], jnp.asarray(coords),
+                                 merge="none", store=store, seldt=seldt)
     assert port.shape == (E, H, W, 256) and port.dtype == torch.bfloat16
     assert_close(port, want)
 

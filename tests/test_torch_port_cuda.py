@@ -361,10 +361,13 @@ def test_bf16_pyramid_is_rounded_level_by_level(dev):
                        lvl1.bfloat16().float().reshape(2, 750, C))
 
 
-def _packed_close(out, ref):
+def _packed_close(out, ref, equal_share=0.999):
     a, b = out.float(), ref.float()
-    assert ((a - b).abs() <= 2e-2 + 8e-3 * b.abs()).all()
-    assert (a == b).float().mean().item() >= 0.999
+    both_nan = a.isnan() & b.isnan()
+    assert (a.isnan() == b.isnan()).all()
+    # the positive form: a NaN on one side only is not within the tolerance
+    assert (((a - b).abs() <= 2e-2 + 8e-3 * b.abs()) | both_nan).all()
+    assert ((a == b) | both_nan).float().mean().item() >= equal_share
 
 
 def _distinct(outs):
@@ -388,6 +391,92 @@ def test_lookup_packed_matches_plain(dev, E, order, seldt):
     _packed_close(out, ref)
 
 
+@pytest.mark.parametrize("order", cuda_corr_exp.ORDERS)
+@pytest.mark.parametrize("seldt", cuda_corr_exp.SELDT)
+@pytest.mark.parametrize("geom, kind", [
+    ((64, 30, 101), "smooth"), ((2, 47, 156), "smooth"),
+    ((64, 30, 101), "scattered"), ((2, 30, 101), "mixed"),
+    ((2, 30, 101), "wild"), ((3, 17, 45), "smooth"),
+    ((3, 17, 45), "scattered"),
+    ((2, 5, 7), "smooth"),            # the last level pooled away
+    ((2, 5, 7), "scattered")],
+    ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else v)
+def test_lookup_packed_coords_shapes_and_routes(dev, geom, kind, order,
+                                                seldt):
+    """P1 (bf16 wgmma products over a tile's bounding box) against plain
+    on every kind of coordinates, off the harness's shape too; the
+    device's count of (block, level) pairs within and above the box cap
+    is the numpy model's: none above on smooth coordinates, both kinds
+    on scattered and mixed ones at 30x101."""
+    E, H, W = geom
+    f1, f2, _ = _inputs(E, H, W, torch.bfloat16, dev, seed=E + H)
+    coords = torch.from_numpy(
+        kbench.lookup_coords(kind, E, H, W, seed=W)).to(dev)
+    cuda_corr_exp.reset_routes()
+    out = cuda_corr_exp.corr_lookup_packed(f1, f2, coords, order=order,
+                                           seldt=seldt)
+    ref = cuda_corr_exp.corr_lookup_packed_plain(f1, f2, coords,
+                                                 order=order, seldt=seldt)
+    routes = cuda_corr_exp.routes()
+    assert out.shape == (E, H, W, 256) and out.dtype == torch.bfloat16
+    _packed_close(out, ref)
+    assert routes == cuda_corr_exp.expected_routes(coords.cpu().numpy(), H, W)
+    assert sum(routes) == E * -(-H // 8) * -(-W // 16) * 4
+    if kind in ("smooth", "wild"):
+        assert routes[1] == 0
+    if (H, W) == (30, 101) and kind in ("scattered", "mixed"):
+        assert routes[0] > 0 and routes[1] > 0
+
+
+def test_lookup_packed_pooled_is_the_kernel_alone_and_checks(dev):
+    """The pooled entry is the wrapper without its pooling; f32 features
+    and widths the bf16 wgmma cannot take are refused on the card."""
+    f1, f2, coords = _inputs(2, 30, 101, torch.bfloat16, dev, seed=11)
+    pyr = cuda_corr.pool_pyramid(f2, dtype=torch.bfloat16)
+    cuda_corr_exp.reset_launches()
+    for kw in ({}, {"order": "dy", "seldt": "bf16"}):
+        assert torch.equal(
+            cuda_corr_exp.corr_lookup_packed_pooled(f1, pyr, coords, **kw),
+            cuda_corr_exp.corr_lookup_packed(f1, f2, coords, **kw))
+    assert cuda_corr_exp.LAUNCHES["corr_lookup_packed"] == 4
+    with pytest.raises(TypeError):   # bf16 products only
+        cuda_corr_exp.corr_lookup_packed(f1.float(), f2.float(), coords)
+    with pytest.raises(TypeError):   # a bf16 pyramid
+        cuda_corr_exp.corr_lookup_packed_pooled(f1, pyr.float(), coords)
+    with pytest.raises(ValueError):  # wgmma's k16 steps: C % 16 == 0
+        cuda_corr_exp.corr_lookup_packed(f1[..., :24].contiguous(),
+                                         f2[..., :24].contiguous(), coords)
+    # another width and fewer levels
+    g1, g2 = f1[..., :48].contiguous(), f2[..., :48].contiguous()
+    for levels in (1, 3):
+        _packed_close(
+            cuda_corr_exp.corr_lookup_packed(g1, g2, coords, levels),
+            cuda_corr_exp.corr_lookup_packed_plain(g1, g2, coords, levels))
+
+
+def test_extract_packed_equals_the_replaced_kernel_on_the_saved_case(dev):
+    """P2's redesign changed its loads, not one bit of its output: the
+    sha256 on the saved case is the replaced kernel's."""
+    vol, coords = (t.to(dev) for t in kbench.saved_extract_case())
+    out = cuda_corr_exp.corr_extract_packed(vol, coords)
+    assert kbench.fingerprint(out) == kbench.SAVED_EXTRACT_PACKED_SHA256
+    assert torch.equal(
+        out, cuda_corr_exp.corr_extract_packed_plain(vol, coords))
+
+
+@pytest.mark.parametrize("geom, levels", [((1, 5, 7), 3), ((3, 5, 7), 2),
+                                          ((3, 17, 45), 4)])
+def test_extract_packed_ragged_blocks_and_fewer_levels(dev, geom, levels):
+    """Pixel counts that leave P2's last block partly empty."""
+    E, H, W = geom
+    f1, f2, coords = _inputs(E, H, W, torch.bfloat16, dev, seed=levels)
+    vol = cuda_corr.build_volumes_plain(f1, f2, levels)
+    out = cuda_corr_exp.corr_extract_packed(vol, coords, levels)
+    ref = cuda_corr_exp.corr_extract_packed_plain(vol, coords, levels)
+    assert out.shape == (E, H, W, levels * 64)
+    assert torch.equal(out, ref)
+
+
 @pytest.mark.parametrize("kw", [
     {}, {"weights": "bf16"}, {"weights": "round", "round_mid": True},
     {"weights": "bf16", "round_mid": True}, {"mode": "nostore"},
@@ -401,7 +490,7 @@ def test_extract_packed_matches_plain(dev, E, kw):
     ref = cuda_corr_exp.corr_extract_packed_plain(vol, coords, **kw)
     torch.cuda.synchronize()
     assert out.shape == (E, 30, 101, 256) and out.dtype == torch.bfloat16
-    _packed_close(out, ref)
+    _packed_close(out, ref, equal_share=1.0)
 
 
 def test_packed_variants_differ(dev):

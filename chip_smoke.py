@@ -3,7 +3,7 @@
     python3 chip_smoke.py            the whole run
     python3 chip_smoke.py main       only the named phases (kernels,
                                      packed, reference, main, harness,
-                                     export), without the result lines
+                                     export, vps), without the result lines
 
 Phases, one line each (any failure exits non-zero):
   1. device   - requires CUDA; prints the card's name and power limit;
@@ -85,8 +85,25 @@ Phases, one line each (any failure exits non-zero):
                 and kernel alone, CUDA events), and one pair under
                 torch.profiler (device ms, kernels and aten ops per
                 pair). Then the narrow route, 240x808: 1/15/0.
-Then one JSON line of kernel results, the card's name and power limit,
-and the contract line {"ok": true, "device": {...}}.
+  8. vps      - the VPS predictor (Panoptic FPN R-50 with flow-guided
+                fusion, vps/panoptic_fpn.py), weights of
+                benchmark_vps.tamed_model(0). The card against the CPU,
+                same weights, 128x192, TF32 off: plain, fusion with flow
+                and depth, fusion with depth_proj; sem equal on >= 99.9%
+                of pixels, the same valid detections (boxes within 1e-2
+                px, scores within 1e-4), pan equal on >= 99.5%; the splat
+                alone on the same inputs: targets equal on >= 99.9% of
+                each level, features bit-equal where they agree. Then
+                375x1242 (padded 384x1248), f32 and bf16, plain, fusion
+                with device-resident flow and depth, and the file protocol
+                (host flow and 1/8-res depth, staged): one warm-up, 20
+                frames with one in flight: vps_frames_per_sec, ms/frame,
+                peak memory, valid detections and pasted instances per
+                frame (both > 0); one fused frame under torch.profiler:
+                device ms by layer, NMS/ROIAlign/splat/stitch device and
+                host ms, kernels and aten ops, the card's busy share.
+Then the whole run's seconds, one JSON line of kernel results, the card's
+name and power limit, and the contract line {"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -100,6 +117,7 @@ import numpy as np
 import torch
 
 from pvo_tpu_torch.scripts import bench_vo2_export, kbench
+from pvo_tpu_torch.scripts.benchmark_vps import tamed_model, timed_pass
 from pvo_tpu_torch.scripts.harness import harness_inputs
 from pvo_tpu_torch.scripts.kbench import (device_time_ms, gpu_line,
                                           kernel_bound)
@@ -110,6 +128,7 @@ from pvo_tpu_torch.vo.net import cuda_corr
 from pvo_tpu_torch.vo.net import cuda_corr_exp
 from pvo_tpu_torch.vo.net.droidnet import DroidNet
 from pvo_tpu_torch.vo.system import VOSystem
+from pvo_tpu_torch.vps import panoptic_fpn as pfpn
 
 C = 128
 TOL = {"build_volumes": 2e-2, "corr_extract": 2e-2, "corr_lookup": 1e-4}
@@ -1105,15 +1124,262 @@ def run_export():
     return per_pair
 
 
+# ------------------------------------------------------------------ vps
+
+VPS_SMALL, VPS_SIZE, VPS_FRAMES = (128, 192), (375, 1242), 20
+# the card against the CPU, the same tamed weights, TF32 off
+VPS_SEM_EQUAL, VPS_PAN_EQUAL, VPS_TARGETS_EQUAL = 0.999, 0.995, 0.999
+VPS_BOX_TOL, VPS_SCORE_TOL = 1e-2, 1e-4
+VPS_LAYERS = ("vps.backbone", "vps.fpn", "vps.fusion", "vps.semseg",
+              "vps.rpn", "vps.box_head", "vps.mask_head")
+VPS_OPS = ("vps.nms", "vps.roi_align", "vps.splat", "vps.stitch")
+VPS_DEVICE = "cuda"
+
+
+def vps_inputs(hw, n, seed=0):
+    """A moving random texture (BGR uint8), a smooth flow (a few px), a
+    smooth depth map and w2c poses advancing along z."""
+    rng = np.random.RandomState(seed)
+    H, W = hw
+    base = rng.randint(0, 255, (H + 2 * n, W + 4 * n, 3), np.uint8)
+    imgs = [base[t:t + H, 2 * t:2 * t + W].copy() for t in range(n)]
+    yy, xx = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    flow = np.stack([2 + 3 * np.sin(xx / (W / 8)) + np.cos(yy / (H / 5)),
+                     1 + 2 * np.cos(yy / (H / 6))], -1).astype(np.float32)
+    depth = (5 + 2 * np.sin(xx / (W / 5)) + 3 * yy / H).astype(np.float32)
+    poses = []
+    for t in range(n):
+        T = np.eye(4, dtype=np.float32)
+        T[:3, 3] = [0.02 * t, 0.0, 0.1 * t]
+        poses.append(T)
+    return imgs, flow, depth, poses
+
+
+def vps_sequence(pred, data, intr):
+    """plain; fusion with flow and depth; fusion with depth_proj."""
+    imgs, flow, depth, poses = data
+    pred._video_id, pred.depth_proj = None, False
+    outs = [pred(imgs[0], video_id="v", pose_w2c=poses[0])]
+    outs.append(pred(imgs[1], video_id="v", flow=flow, depth=depth,
+                     pose_w2c=poses[1]))
+    pred.depth_proj, pred.intrinsics = True, intr
+    outs.append(pred(imgs[2], video_id="v", flow=flow, depth=depth,
+                     pose_w2c=poses[2]))
+    return outs
+
+
+def same_detections(a, b):
+    """Matches every valid detection of ``a`` with one of ``b``: same
+    class, box within VPS_BOX_TOL px, score within VPS_SCORE_TOL (the
+    order of two detections whose scores tie within rounding is free)."""
+    ia, ib = np.flatnonzero(a["valid"]), list(np.flatnonzero(b["valid"]))
+    if len(ia) != len(ib):
+        return False
+    for i in ia:
+        hit = [j for j in ib if a["classes"][i] == b["classes"][j]
+               and np.abs(a["boxes"][i] - b["boxes"][j]).max() <= VPS_BOX_TOL
+               and abs(a["scores"][i] - b["scores"][j]) <= VPS_SCORE_TOL]
+        if not hit:
+            return False
+        ib.remove(hit[0])
+    return True
+
+
+def check_vps_warp(feats_ref, flow, depth, tag):
+    """The splat on the card against the CPU on the same inputs: targets
+    equal for >= VPS_TARGETS_EQUAL of the pixels of each level, features
+    bit-equal at every target no disagreeing source reaches."""
+    cpu = pfpn.flow_warp_features(feats_ref, flow, depth)
+    dev = torch.device(VPS_DEVICE)
+    card = pfpn.flow_warp_features(
+        {k: v.to(dev) for k, v in feats_ref.items()}, flow.to(dev),
+        None if depth is None else depth.to(dev))
+    fl = flow.permute(2, 0, 1)
+    worst = 1.0
+    for k, f in feats_ref.items():
+        h, w = f.shape[2:]
+        mine = pfpn.splat_targets(fl.to(dev), (h, w)).cpu().numpy()
+        ref = pfpn.splat_targets(fl, (h, w)).numpy()
+        same = mine == ref
+        worst = min(worst, same.mean())
+        bad = np.zeros(h * w + 1, bool)
+        bad[mine[~same]] = bad[ref[~same]] = True
+        ok = ~bad[:h * w]
+        a = card[k][0].reshape(f.shape[1], -1).cpu().numpy()[:, ok]
+        b = cpu[k][0].reshape(f.shape[1], -1).numpy()[:, ok]
+        if same.mean() < VPS_TARGETS_EQUAL or not np.array_equal(a, b):
+            raise AssertionError(f"vps warp ({tag}) at {k}: targets equal "
+                                 f"{same.mean():.5f}, features equal where "
+                                 f"they agree: {np.array_equal(a, b)}")
+    return worst
+
+
+def vps_card_against_cpu(model):
+    """Step 1: the predictor on the card and on the CPU, full R-50 at
+    128x192, three frames; and the splat alone on the same inputs."""
+    H, W = VPS_SMALL
+    data = vps_inputs(VPS_SMALL, 3, seed=1)
+    intr = (725.0087 * W / 1242, 725.0087 * W / 1242, W / 2.0, H / 2.0)
+    card = pfpn.PanopticPredictor(model, device=VPS_DEVICE)
+    cpu = pfpn.PanopticPredictor(model, device="cpu")
+    got, want = vps_sequence(card, data, intr), vps_sequence(cpu, data, intr)
+    for name, (pan, _, sem, dets), (cpan, _, csem, cdets) in zip(
+            ("plain", "fusion_depth", "depth_proj"), got, want):
+        sem_eq, pan_eq = (sem == csem).mean(), (pan == cpan).mean()
+        same = same_detections(dets, cdets)
+        log("vps", card_vs_cpu=name, image=f"{H}x{W}",
+            sem_equal=f"{sem_eq:.5f}", pan_equal=f"{pan_eq:.5f}",
+            valid_dets=int(dets["valid"].sum()),
+            cpu_valid_dets=int(cdets["valid"].sum()), same_dets=same,
+            semantic_classes=len(np.unique(sem)))
+        if not (sem_eq >= VPS_SEM_EQUAL and pan_eq >= VPS_PAN_EQUAL and same
+                and dets["valid"].any()):
+            raise AssertionError(f"vps: the card differs from the CPU on "
+                                 f"the {name} frame")
+    # the splat alone, on the CPU's reference features: frame 1's f16
+    # flow and depth, frame 2's reprojected depth
+    imgs, flow, depth, poses = data
+    cpu._video_id = None
+    cpu(imgs[0], video_id="v")
+    feats = cpu._prev
+    fl = cpu._upload(flow, torch.float16)
+    d16 = cpu._upload(depth, torch.float16)
+    d_proj = pfpn.pose_transport_depth(torch.from_numpy(depth),
+                                       torch.from_numpy(poses[0]),
+                                       torch.from_numpy(poses[1]), intr)
+    worst = min(check_vps_warp(feats, fl, None, "flow"),
+                check_vps_warp(feats, fl, d16, "depth"),
+                check_vps_warp(feats, fl, d_proj, "depth_proj"))
+    log("vps", splat_card_vs_cpu="flow, depth, depth_proj",
+        targets_equal_worst_level=f"{worst:.5f}", features="bit-equal")
+
+
+def vps_range_key(e):
+    """A profiler range's key: a layer's name, or an op's name with the
+    layer it ran in (``nms@rpn``, ``nms@box_head``, ``stitch@host``)."""
+    if e.name in VPS_LAYERS:
+        return e.name[4:]
+    p = e.cpu_parent
+    while p is not None and p.name not in VPS_LAYERS:
+        p = p.cpu_parent
+    return f"{e.name[4:]}@{p.name[4:] if p is not None else 'host'}"
+
+
+def vps_profile(pred, data):
+    """One fused frame (device-resident flow and depth) under
+    torch.profiler: {range key: [device ms, host ms, kernels]}, and the
+    frame's kernels, aten ops and kernel ms."""
+    imgs, flow_dev, depth_dev = data
+    pred._video_id = None
+    pred(imgs[0], video_id="v")
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        pred(imgs[1], video_id="v", flow=flow_dev, depth=depth_dev)
+        torch.cuda.synchronize()
+    cpu = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CPU]
+    ranges = {}
+    for e in cpu:
+        if e.name in VPS_LAYERS + VPS_OPS:
+            r = ranges.setdefault(vps_range_key(e), [0.0, 0.0, 0])
+            r[0] += e.device_time_total / 1e3
+            r[1] += e.cpu_time_total / 1e3
+    for e in cpu:
+        p = e
+        while e.kernels and p is not None:
+            if p.name in VPS_LAYERS + VPS_OPS:
+                ranges[vps_range_key(p)][2] += len(e.kernels)
+            p = p.cpu_parent
+    rows = prof.key_averages()
+    on_card = [r for r in rows
+               if r.device_type == torch.autograd.DeviceType.CUDA
+               and not r.key.startswith("vps.")]
+    kernel_ms = sum(r.self_device_time_total for r in on_card) / 1e3
+    kernels = sum(r.count for r in on_card)
+    aten_ops = sum(r.count for r in rows if r.key.startswith("aten::"))
+    return ranges, kernels, aten_ops, kernel_ms
+
+
+def vps_full_width(model):
+    """Step 2: 375x1242 (padded 384x1248), f32 then bf16, each mode one
+    warm-up and VPS_FRAMES timed frames; then one fused frame profiled."""
+    H, W = VPS_SIZE
+    imgs, flow, depth, _ = vps_inputs(VPS_SIZE, VPS_FRAMES + 2)
+    rng = np.random.RandomState(0)
+    dev = torch.device(VPS_DEVICE)
+    flows = [flow + rng.uniform(-0.5, 0.5, flow.shape).astype(np.float32)
+             for _ in range(4)]
+    depths8 = [np.ascontiguousarray(depth[3::8, 3::8]) * (1 + 0.01 * i)
+               for i in range(4)]
+    data = (imgs, torch.from_numpy(flow).to(dev),
+            torch.from_numpy(depth).to(dev))
+    modes = {"plain": {}, "fusion": dict(flow=data[1], depth=data[2]),
+             "file": dict(files=(flows, depths8))}
+    summary = {}
+    for dtype in ("f32", "bf16"):
+        pred = pfpn.PanopticPredictor(model, bf16=dtype == "bf16", device=dev)
+        for mode, inputs in modes.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            s, outs = timed_pass(pred, imgs, VPS_FRAMES, **inputs)
+            dets = np.mean([o[3]["valid"].sum() for o in outs])
+            inst = np.mean([sum(seg["isthing"] for seg in o[1])
+                            for o in outs])
+            shapes = {o[0].shape for o in outs}
+            summary[dtype, mode] = s / VPS_FRAMES * 1e3
+            log("vps", image=f"{H}x{W}", dtype=dtype, mode=mode,
+                frames=VPS_FRAMES,
+                vps_frames_per_sec=f"{VPS_FRAMES / s:.3f}",
+                ms_per_frame=f"{s / VPS_FRAMES * 1e3:.2f}",
+                peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
+                valid_dets_per_frame=f"{dets:.2f}",
+                instances_per_frame=f"{inst:.2f}", gpu=repr(gpu_line()))
+            if not (dets > 0 and inst > 0 and shapes == {(H, W)}):
+                raise AssertionError(f"vps {dtype} {mode}: {dets} detections"
+                                     f", {inst} instances, pan {shapes}")
+        ranges, kernels, aten_ops, kernel_ms = vps_profile(pred, data)
+        # the splat's bound: the reference levels read once, the warped
+        # ones written once, the flow and depth read once
+        splat_bytes = sum(2 * v.numel() * v.element_size()
+                          for v in pred._prev.values()) + H * W * 3 * 4
+        log("vps", profiled=f"{dtype} fusion", image=f"{H}x{W}",
+            kernel_ms_per_frame=f"{kernel_ms:.2f}",
+            kernels_per_frame=kernels, aten_ops_per_frame=aten_ops,
+            busy_share=f"{kernel_ms / summary[dtype, 'fusion']:.3f}",
+            splat_bound_ms=f"{1e3 * splat_bytes / kbench.HBM_BYTES_S:.4f}")
+        layers = [k[4:] for k in VPS_LAYERS]
+        log("vps", profiled=f"{dtype} fusion", device_ms_by_layer=repr(
+            "; ".join(f"{k} {ranges.get(k, [0.0])[0]:.2f}"
+                      for k in layers)))
+        log("vps", profiled=f"{dtype} fusion",
+            ops_device_ms_host_ms_kernels=repr("; ".join(
+                f"{k} {v[0]:.2f}/{v[1]:.2f}/{v[2]}"
+                for k, v in sorted(ranges.items()) if k not in layers)))
+        del pred
+        torch.cuda.empty_cache()
+
+
+def run_vps():
+    """Phase 8: the VPS predictor (Panoptic FPN R-50 with fusion)."""
+    t0 = time.perf_counter()
+    model = tamed_model(0)
+    vps_card_against_cpu(model)
+    vps_full_width(model)
+    log("vps", seconds=f"{time.perf_counter() - t0:.1f}")
+
+
 PHASES = {"kernels": check_kernels, "packed": check_packed,
           "reference": check_reference, "main": run_main_path,
-          "harness": run_harnesses, "export": run_export}
+          "harness": run_harnesses, "export": run_export, "vps": run_vps}
 
 
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = gpu_line()
@@ -1141,6 +1407,7 @@ def main():
     launches = run_main_path()
     harness = run_harnesses()
     export = run_export()
+    run_vps()
 
     # K1 and K3 have a row for each feature type. A bf16 row's launches
     # are phase 5's (the video's features); an f32 row's are the timed
@@ -1192,6 +1459,7 @@ def main():
             "launches": n, "max_abs_err": max(err, packed[x]), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound["ms"],
             "bound_by": bound["bound_by"], "library_ms": None, **extra})
+    log("run", seconds=f"{time.perf_counter() - start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

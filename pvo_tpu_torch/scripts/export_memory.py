@@ -1,4 +1,5 @@
-"""Where the flow/depth export's peak memory comes from on the card.
+"""Where the flow/depth export's and the VPS predictor's peak memory
+comes from on the card.
 
     python -m pvo_tpu_torch.scripts.export_memory [H W ...]
 
@@ -10,10 +11,17 @@ pair, its peak, and the largest allocations with the port's call sites
 that made them. An allocation far larger than any tensor of its call
 site (an encoder convolution's activations are tens of MiB) is a
 workspace that cuDNN asked the allocator for.
+
+Then, with ``torch.backends.cudnn.benchmark`` off and then on: the peak
+and the largest cuDNN workspace (an allocation made under a C++ frame
+that names cuDNN) of one exported pair at 240x808 and of one fused VPS
+frame (f32, full R-50, 375x1242 padded to 384x1248, tamed random
+weights).
 """
 
 import sys
 
+import numpy as np
 import torch
 
 from pvo_tpu_torch.scripts import bench_vo2_export
@@ -41,6 +49,63 @@ def largest_allocations(snapshot, top=8):
     return rows
 
 
+def largest_cudnn_workspace(snapshot):
+    """MiB of the largest allocation made under a frame naming cuDNN, or
+    None when the snapshot has no such frame."""
+    sizes = [e["size"] for trace in snapshot["device_traces"] for e in trace
+             if e["action"] == "alloc" and any(
+                 "cudnn" in f.get("name", "").lower()
+                 for f in e.get("frames", []))]
+    return max(sizes) / 2 ** 20 if sizes else None
+
+
+def recorded(fn):
+    """(peak GiB, largest cuDNN workspace MiB) of one call of ``fn``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.memory._record_memory_history(max_entries=200000)
+    fn()
+    torch.cuda.synchronize()
+    snapshot = torch.cuda.memory._snapshot()
+    torch.cuda.memory._record_memory_history(enabled=None)
+    return (torch.cuda.max_memory_allocated() / 2 ** 30,
+            largest_cudnn_workspace(snapshot))
+
+
+def cudnn_benchmark_effect(net):
+    """B3: the export's narrow route and the VPS dense path, each with
+    cuDNN's benchmark mode off and on (one warm-up call each first)."""
+    from pvo_tpu_torch.scripts.benchmark_vps import tamed_model
+    from pvo_tpu_torch.vps.panoptic_fpn import PanopticPredictor
+
+    inputs = bench_vo2_export.bench_inputs((240, 808))
+    pred = PanopticPredictor(tamed_model(0))
+    rng = np.random.RandomState(0)
+    imgs = [rng.randint(0, 255, (375, 1242, 3)).astype(np.uint8)
+            for _ in range(2)]
+    flow = torch.from_numpy(
+        rng.uniform(-3, 3, (375, 1242, 2)).astype(np.float32)).cuda()
+    depth = torch.from_numpy(
+        rng.uniform(2, 20, (375, 1242)).astype(np.float32)).cuda()
+
+    def vps_frame():
+        pred._video_id = None
+        pred(imgs[0], video_id="v")
+        pred(imgs[1], video_id="v", flow=flow, depth=depth)
+
+    runs = (("export 240x808", lambda: export_pair(net, *inputs, iters=15)),
+            ("vps 384x1248 fused frame", vps_frame))
+    for bench in (False, True):
+        torch.backends.cudnn.benchmark = bench
+        for name, fn in runs:
+            fn()
+            peak, ws = recorded(fn)
+            ws = "not identified" if ws is None else f"{ws:.1f} MiB"
+            print(f"cudnn.benchmark={bench} {name}: peak {peak:.3f} GiB, "
+                  f"largest cuDNN workspace {ws}", flush=True)
+    torch.backends.cudnn.benchmark = False
+
+
 def main(argv=None):
     require_cuda()
     args = [int(v) for v in (sys.argv[1:] if argv is None else argv)]
@@ -64,6 +129,7 @@ def main(argv=None):
               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
         for mib, site in largest_allocations(snapshot):
             print(f"  {mib:9.1f} MiB  {site}")
+    cudnn_benchmark_effect(net)
     print(gpu_line())
 
 

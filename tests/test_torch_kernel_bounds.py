@@ -156,6 +156,29 @@ def test_import_walk_covers_the_export_slice():
             path
 
 
+VPS_SLICE = ("vps/categories.py", "vps/ops.py", "vps/resnet.py",
+             "vps/fpn.py", "vps/semseg.py", "vps/rpn.py", "vps/roi_heads.py",
+             "vps/panoptic_fpn.py", "utils/convert_vps.py",
+             "pipeline/tracking.py", "pipeline/matching.py", "pipeline/pq.py",
+             "pipeline/evaluator.py", "native.py",
+             "scripts/initial_segmentation.py", "scripts/test_vps.py",
+             "scripts/benchmark_vps.py")
+
+
+@pytest.mark.parametrize("rel", VPS_SLICE)
+def test_import_walk_covers_the_vps_slice(rel):
+    """The walk above reads each of the VPS slice's files; their
+    imports of the port's own modules resolve to files of the port."""
+    path = ROOT / "pvo_tpu_torch" / rel
+    assert path in port_sources()
+    for m in imported_modules(path):
+        if m.startswith("pvo_tpu_torch."):
+            parts = m.split(".")[1:]
+            base = ROOT / "pvo_tpu_torch" / "/".join(parts)
+            assert base.with_suffix(".py").exists() or \
+                (base / "__init__.py").exists(), (rel, m)
+
+
 def test_port_config_equals_the_jax_package_config():
     ours = [(f.name, f.type, f.default) for f in dataclasses.fields(VOConfig)]
     theirs = [(f.name, f.type, f.default)

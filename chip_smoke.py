@@ -3,7 +3,8 @@
     python3 chip_smoke.py            the whole run
     python3 chip_smoke.py main       only the named phases (kernels,
                                      packed, reference, main, harness,
-                                     export, vps), without the result lines
+                                     export, vps, loop), without the
+                                     result lines
 
 Phases, one line each (any failure exits non-zero):
   1. device   - requires CUDA; prints the card's name and power limit;
@@ -60,7 +61,12 @@ Phases, one line each (any failure exits non-zero):
                 alone, CUDA events) and the share of K3's (block, level)
                 pairs that ran on the tensor cores; at the end,
                 get_depth() and get_flow() give finite (counter, 240,
-                808) and (counter, 240, 808, 2) arrays;
+                808) and (counter, 240, 808, 2) arrays. Then one more
+                terminate under torch.profiler: device ms and kernels
+                inside each vo.backend.* / vo.filler.* range and the
+                corr kernels' own rows; and depth_consistency_count on
+                the video's keyframes (CUDA events, byte bound, counts
+                against the CPU's);
   6. harness  - the corr experiment harnesses
                 (python -m pvo_tpu_torch.scripts.corr_exp*), each
                 program once (corr_exp5 runs corr_exp4's) with its
@@ -102,31 +108,55 @@ Phases, one line each (any failure exits non-zero):
                 frame (both > 0); one fused frame under torch.profiler:
                 device ms by layer, NMS/ROIAlign/splat/stitch device and
                 host ms, kernels and aten ops, the card's busy share.
+  9. loop     - the PVO loop (scripts.run_pvo_loop, stages in this
+                process) at full size, two iterations: a synthetic
+                scene of 72 frames at 375x1242, both views
+                (data.synth_scene), prepared by scripts.prepare_vkitti,
+                weights saved as reference-format checkpoints
+                (tame_net(0, LOOP_HEAD_SCALE, LOOP_MASK_BIAS),
+                tamed_model(0)); VO 240x808 at VOConfig's thresholds,
+                export 376x1248 at 15 iterations, VPS 375x1242 R-50.
+                Per stage: seconds, peak memory, corr launches; for
+                test_vo the keyframes admitted and removed and the
+                backend's edges; for the VPS stages the host stitch's
+                seconds. The artifacts of tests/test_pvo_loop.py
+                scaled to 64 frames; K1, K2, K3 bf16 and K3 f32 each
+                launched in the loop, and each test_vo2 stage 0/0/15
+                launches a pair (K3 f32 only).
 Then the whole run's seconds, one JSON line of kernel results, the card's
 name and power limit, and the contract line {"ok": true, "device": {...}}.
 """
 
 import contextlib
+import glob
 import importlib
 import json
+import os.path as osp
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from pvo_tpu_torch.scripts import bench_vo2_export, kbench
+from pvo_tpu_torch.data.synth_scene import write_synth_scene
+from pvo_tpu_torch.geom.depth_filter import depth_consistency_count
+from pvo_tpu_torch.scripts import (bench_vo2_export, kbench, prepare_vkitti,
+                                   run_pvo_loop)
+from pvo_tpu_torch.scripts.bench_track import (corr_rows, profiled,
+                                               synth_stream, tame_net,
+                                               vo_counters)
 from pvo_tpu_torch.scripts.benchmark_vps import tamed_model, timed_pass
 from pvo_tpu_torch.scripts.harness import harness_inputs
 from pvo_tpu_torch.scripts.kbench import (device_time_ms, gpu_line,
                                           kernel_bound)
 from pvo_tpu_torch.scripts.test_vo2 import export_pair
 from pvo_tpu_torch.utils.config import VOConfig
+from pvo_tpu_torch.utils.tracing import range_device_ms
 from pvo_tpu_torch.vo.factor_graph import FactorGraph
 from pvo_tpu_torch.vo.net import cuda_corr
 from pvo_tpu_torch.vo.net import cuda_corr_exp
-from pvo_tpu_torch.vo.net.droidnet import DroidNet
 from pvo_tpu_torch.vo.system import VOSystem
 from pvo_tpu_torch.vps import panoptic_fpn as pfpn
 
@@ -182,6 +212,28 @@ HARNESS = {
 }
 # P2's output-defining variants (X2's rounding, X3's modes) and the X
 # kernels each one stands for
+# phase 5's split of terminate: the ranges read, and those that must
+# hold kernels
+TAIL_RANGES = ("vo.backend.", "vo.filler.")
+TAIL_LAYERS = ("vo.backend.update", "vo.backend.dba", "vo.filler.fnet",
+               "vo.filler.update", "vo.filler.dba")
+# the visualizer's disparity tolerance (pvo_tpu/vo/visualization.py)
+DEPTH_FILTER_THRESH = 0.005
+# phase 9: the loop's scene (frames, views) and iterations; the rows of
+# the corr kernels whose launches it counts
+# frames: the backend takes K3 (bf16) only beyond 256 edges, and on this
+# scene it adds about 4 edges a frame (a keyframe's neighbours; 252-294
+# over six runs of 64 frames), so 72 frames
+LOOP_FRAMES, LOOP_ITERS = 72, 2
+LOOP_VIEWS = ("clone", "15-deg-left")
+# the threads that render the scene's frames
+LOOP_WORKERS = 8
+LOOP_ROWS = ("build_volumes", "corr_extract", "corr_lookup",
+             "build_volumes_f32", "corr_lookup_f32")
+# the loop's VO weights: tame_net's scale of the flow and mask heads and
+# its mask bias, so that test_vo at VOConfig's thresholds (the JAX
+# driver passes none) admits and removes keyframes and stays finite
+LOOP_HEAD_SCALE, LOOP_MASK_BIAS = 0.2, -2.0
 P2_VARIANTS = (
     (dict(), ("X2", "X3", "X4", "X5")),
     (dict(weights="bf16"), ("X2",)),
@@ -641,41 +693,6 @@ def check_packed():
     return err
 
 
-def synth_stream(n, H, W, seed=0):
-    """bench.py's stream: a moving random texture and a panoptic map of
-    ~90 distinct ids per frame (4x4 cells at 1/8 res) moving with it."""
-    rng = np.random.RandomState(seed)
-    base = rng.randint(0, 255, (H + 64, W + 64, 3), np.uint8)
-    h, w = H // 8, W // 8
-    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
-    intr = np.array([725.0087 * W / 1242, 725.0087 * W / 1242,
-                     W / 2.0, H / 2.0], np.float32)
-    for t in range(n):
-        dy, dx = (2 * t) % 64, (3 * t) % 64
-        segm = ((((yy + t) // 4) * (w // 4 + 1) + (xx + 2 * t) // 4)
-                % 90 + 1).astype(np.int32) * 10000 + 3
-        yield t, base[dy:dy + H, dx:dx + W], intr, segm
-
-
-def tame_net(seed=0, scale=0.01, mask_bias=0.0):
-    """Random weights (seed) with the flow/mask heads' last convs scaled
-    by ``scale``. With unscaled random weights the tracker is chaotic: a
-    1e-6 change grows to O(1) in three updates, and at 240x808 the
-    disparities reach 1e10 and the bf16 update overflows to NaN by frame
-    18, with only 16-24 edges left after initialization. Scaled, the
-    run is stable and holds the reference's 48-edge steady state. The
-    work per update is the same. ``mask_bias`` is added to the mask
-    head's output bias: scaled, the head leaves the mask logits near 0,
-    the static/dynamic threshold."""
-    net = DroidNet.from_seed(seed)
-    with torch.no_grad():
-        for head in ("delta", "delta_dy", "delta_mask"):
-            getattr(net.update, head)[2].weight.mul_(scale)
-            getattr(net.update, head)[2].bias.mul_(scale)
-        net.update.delta_mask[2].bias.add_(mask_bias)
-    return net
-
-
 class EventTimer:
     """CUDA-event pairs around every call of the functions it wraps."""
 
@@ -882,6 +899,8 @@ def run_main_path():
     if not (depth.shape == (n, H, W) and flow.shape == (n, H, W, 2)
             and np.isfinite(depth).all() and np.isfinite(flow).all()):
         raise AssertionError(f"bad accessors {depth.shape} {flow.shape}")
+    terminate_split(sysm, frames)
+    time_depth_filter(sysm.video)
     # the tracking path's bf16 kernels, and K3's f32 kernel (the probe)
     launches.update({F32_ROWS[k]: v for k, v in f32_launches.items()})
     for k in cuda_corr.F32_KERNELS:
@@ -892,6 +911,50 @@ def run_main_path():
         raise AssertionError(f"launches on the main path: {launches}; never "
                              f"launched: {missing}")
     return launches
+
+
+def terminate_split(sysm, frames):
+    """Phase 5: one more terminate(image_stream) after the timed one,
+    under torch.profiler: the device ms and kernels inside each range of
+    the backend and the filler (vo/factor_graph.py), and the corr
+    kernels' own rows (launched through ctypes, inside no range; K3 bf16
+    is the backend's, K1 and K2 the filler's)."""
+    torch.cuda.synchronize()
+    with profiled() as prof:
+        sysm.terminate(iter(frames), backend_steps=(7, 12))
+        torch.cuda.synchronize()
+    ranges = range_device_ms(prof, TAIL_RANGES)
+    log("split", **{k: f"{ms:.3f}ms/{n}" for k, (ms, n) in
+                    sorted(ranges.items())})
+    log("split", **{f"kernel_{k}": f"{ms:.3f}ms/{n}" for k, (ms, n) in
+                    corr_rows(prof).items()})
+    empty = [k for k in TAIL_LAYERS if ranges.get(k, (0.0, 0))[1] == 0]
+    if empty:
+        raise AssertionError(f"no kernels inside {empty}")
+
+
+def time_depth_filter(video):
+    """Phase 5: depth_consistency_count (plain torch, the reference's
+    CUDA depth_filter) on the video's keyframes as the visualizer calls
+    it, by CUDA events, beside its byte bound: the disparities of the
+    keyframes and their 3 neighbours each side read once, the counts
+    written once. Its counts equal the CPU's on >= 99.9% of pixels (a
+    projection on a half pixel may round either way)."""
+    n = int(video.counter)
+    inds = torch.arange(n, device=video.disps.device)
+    thresh = DEPTH_FILTER_THRESH * video.disps[:n].mean(dim=(1, 2)).sqrt()
+    args = (video.poses, video.disps, video.intrinsics[0], inds, thresh)
+    counts = depth_consistency_count(*args)
+    ref = depth_consistency_count(*(a.cpu() for a in args))
+    equal = float((counts.cpu() == ref).float().mean())
+    ms = device_time_ms(lambda: depth_consistency_count(*args), reps=10)
+    F, h, w = video.disps.shape
+    nbytes = (min(n + 3, F) * h * w + n * h * w) * 4
+    log("depth_filter", keyframes=n, feature_hw=f"{h}x{w}",
+        ms=f"{ms:.4f}", bound_ms=f"{1e3 * nbytes / kbench.HBM_BYTES_S:.4f}",
+        counts_equal_cpu=f"{equal:.5f}", mean_count=f"{counts.mean():.3f}")
+    if equal < 0.999:
+        raise AssertionError(f"depth_consistency_count: {equal} equal")
 
 
 def run_harnesses():
@@ -1370,9 +1433,153 @@ def run_vps():
     log("vps", seconds=f"{time.perf_counter() - t0:.1f}")
 
 
+def loop_checkpoints(root):
+    """Reference-format checkpoints of the loop's weights: DroidNet under
+    DDP ``module.`` names (tame_net with LOOP_HEAD_SCALE and
+    LOOP_MASK_BIAS) and Panoptic FPN under ``model`` (tamed_model(0))."""
+    vo, vps = osp.join(root, "droid.pth"), osp.join(root, "panFPN.pth")
+    net = tame_net(0, scale=LOOP_HEAD_SCALE, mask_bias=LOOP_MASK_BIAS)
+    torch.save({f"module.{k}": v for k, v in net.state_dict().items()}, vo)
+    torch.save({"model": tamed_model(0).state_dict()}, vps)
+    return vo, vps
+
+
+def loop_stage_counter(rows):
+    """run_pvo_loop.run_stage that appends one row a stage to ``rows``:
+    iteration (0: the initial segmentation), stage, seconds, peak GiB,
+    the corr kernels' launches inside it (LOOP_ROWS), for test_vo the
+    keyframes admitted and removed and the backend's edges, for the VPS
+    stages the frames stitched and the host seconds of the stitch."""
+    run_stage = run_pvo_loop.run_stage
+    removed, kf, edges, stitch = [], [], [], []
+    combine = pfpn.combine_panoptic
+
+    def timed_combine(*a, **kw):
+        t0 = time.perf_counter()
+        out = combine(*a, **kw)
+        stitch.append(time.perf_counter() - t0)
+        return out
+
+    def launches():
+        f32 = cuda_corr.F32_LAUNCHES
+        n = {k: cuda_corr.LAUNCHES[k] - f32.get(k, 0)
+             for k in cuda_corr.KERNELS}
+        return {**n, **{F32_ROWS[k]: v for k, v in f32.items()}}
+
+    def counted(script, args_list):
+        it = sum(r["stage"] == "test_vo" for r in rows) + \
+            (script == "test_vo")
+        del removed[:], kf[:], edges[:], stitch[:]
+        before = launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with vo_counters(removed, edges, kf), \
+                patched(pfpn, "combine_panoptic", timed_combine):
+            run_stage(script, args_list)
+        torch.cuda.synchronize()
+        after = launches()
+        row = dict(iteration=it if script != "initial_segmentation" else 0,
+                   stage=script, seconds=time.perf_counter() - t0,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   launches={k: after[k] - before[k] for k in after})
+        if script == "test_vo":
+            row.update(admitted=kf[0] + len(removed), removed=len(removed),
+                       keyframes=kf[0], backend_edges=list(edges))
+        if stitch:
+            row.update(stitched_frames=len(stitch), stitch_s=sum(stitch))
+        rows.append(row)
+        log("loop", **{k: (f"{v:.2f}" if isinstance(v, float) else
+                          repr(v) if isinstance(v, (dict, list)) else v)
+                       for k, v in row.items()})
+
+    return counted
+
+
+def check_loop_artifacts(data, shared, n):
+    """tests/test_pvo_loop.py's contracts on the loop's files, scaled to
+    ``n`` frames: the trajectory (n finite rows), n-1 finite flow and
+    depth exports, the val slice's fused maps, the VPQ report, and the
+    fused maps fed back into the clone view's panFPN_segm."""
+    traj = np.loadtxt(osp.join(shared, "traj", "Scene02", "15-deg-left",
+                               "pvo_traj.txt"))
+    if traj.shape != (n, 12) or not np.isfinite(traj).all():
+        raise AssertionError(f"trajectory {traj.shape}, finite "
+                             f"{np.isfinite(traj).all()}")
+    for kind in ("full_flow", "depth"):
+        files = sorted(glob.glob(osp.join(shared, kind, "Scene02_*.npy")))
+        if len(files) != n - 1 or not all(np.isfinite(np.load(f)).all()
+                                          for f in files):
+            raise AssertionError(f"{kind}: {len(files)} files, or not finite")
+    with open(osp.join(data, "Scene02", "clone", "split_511.json")) as f:
+        val = json.load(f)["val"]
+    pans = sorted(glob.glob(osp.join(shared, "panoptic_segm_fusion",
+                                     "inference", "pan_seg",
+                                     "Scene02_*.png")))
+    names = [f"rgb_{k:05d}.png" for k in val]
+    if [osp.basename(p).split("_", 1)[1] for p in pans] != names:
+        raise AssertionError(f"fused maps {pans}, val slice {val}")
+    with open(osp.join(shared, "vpq", "Scene02", "vpq-final.txt")) as f:
+        rep = json.load(f)
+    if not {"vpq_all", "vpq_thing", "vpq_stuff"} <= set(rep):
+        raise AssertionError(f"vpq report {rep}")
+    fed = osp.join(data, "Scene02", "clone", "panFPN_segm")
+    for p, name in zip(pans, names):
+        with open(p, "rb") as a, open(osp.join(fed, name), "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"{name} was not fed back")
+    return rep
+
+
+def run_loop():
+    """Phase 9: the PVO loop (scripts/run_pvo_loop.py) at full size, two
+    iterations, on a synthetic scene written and prepared by the port.
+    Returns the corr kernels' launches inside the loop (LOOP_ROWS)."""
+    t0 = time.perf_counter()
+    n = LOOP_FRAMES
+    with tempfile.TemporaryDirectory() as root:
+        data, shared = osp.join(root, "vkitti"), osp.join(root, "shared_data")
+        write_synth_scene(data, n_frames=n, workers=LOOP_WORKERS)
+        t_scene = time.perf_counter() - t0
+        # one thread a view: the views are prepared independently
+        with ThreadPoolExecutor(len(LOOP_VIEWS)) as pool:
+            list(pool.map(lambda view: prepare_vkitti.main(
+                ["--datapath", data, "--scenes", "Scene02", "--views", view,
+                 "--device", "cuda"]), LOOP_VIEWS))
+        vo, vps = loop_checkpoints(root)
+        log("loop", frames=n, views=",".join(LOOP_VIEWS),
+            scene_s=f"{t_scene:.2f}",
+            prepared_s=f"{time.perf_counter() - t0 - t_scene:.2f}",
+            head_scale=LOOP_HEAD_SCALE, mask_bias=LOOP_MASK_BIAS)
+        rows = []
+        with patched(run_pvo_loop, "run_stage", loop_stage_counter(rows)):
+            run_pvo_loop.main(["--datapath", data, "--scenes", "Scene02",
+                               "--iters", str(LOOP_ITERS), "--shared_data",
+                               shared, "--weights_vo", vo, "--weights_vps",
+                               vps, "--device", "cuda"])
+        rep = check_loop_artifacts(data, shared, n)
+    total = {k: sum(r["launches"][k] for r in rows) for k in LOOP_ROWS}
+    export = [r["launches"] for r in rows if r["stage"] == "test_vo2"]
+    per_export = {"build_volumes": 0, "corr_extract": 0, "corr_lookup": 0,
+                  "build_volumes_f32": 0,
+                  "corr_lookup_f32": (n - 1) * EXPORT_ITERS}
+    log("loop", iterations=LOOP_ITERS, launches=repr(total),
+        vo2_launches=repr(export), vpq=repr({k: round(rep[k], 4) for k in
+                                             ("vpq_all", "vpq_thing",
+                                              "vpq_stuff")}),
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    missing = [k for k in LOOP_ROWS if k != "build_volumes_f32"
+               and total[k] == 0]
+    if missing or export != [per_export] * LOOP_ITERS:
+        raise AssertionError(f"loop launches {total}, never launched "
+                             f"{missing}; test_vo2 {export}")
+    return total
+
+
 PHASES = {"kernels": check_kernels, "packed": check_packed,
           "reference": check_reference, "main": run_main_path,
-          "harness": run_harnesses, "export": run_export, "vps": run_vps}
+          "harness": run_harnesses, "export": run_export, "vps": run_vps,
+          "loop": run_loop}
 
 
 def main():
@@ -1408,6 +1615,7 @@ def main():
     harness = run_harnesses()
     export = run_export()
     run_vps()
+    loop = run_loop()
 
     # K1 and K3 have a row for each feature type. A bf16 row's launches
     # are phase 5's (the video's features); an f32 row's are the timed
@@ -1430,6 +1638,7 @@ def main():
         elif k not in F32_ROWS:
             extra = {f"launches_export_{tag}": per[k]
                      for tag, per in export.items()}
+        extra["launches_loop"] = loop[row]
         kernels.append({
             "name": row, "route": "cuda",
             "source": "pvo_tpu_torch/csrc/corr.cu", "replaces": REPLACES[k],

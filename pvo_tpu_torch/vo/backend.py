@@ -3,7 +3,8 @@
 Normalize the video, build a fresh full-history factor graph from
 proximity factors, and run the low-memory update loop: beyond
 ``edge_chunk`` edges the update streams over edge chunks with the fused
-correlation kernel (K3) and keeps the hidden state in bf16.
+correlation kernel (K3) and keeps the hidden state in bf16. Its
+update's profiler ranges are ``vo.backend.{volume,update,dba}``.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ class Backend:
             self.video, self.update, max_edges=self.max_edges,
             max_inactive=1, edge_chunk=self.edge_chunk,
             net_dtype=torch.bfloat16)
+        graph.layer = "vo.backend"
         # add_proximity_factors counts 2 entries per (i, j) pair, so
         # max_edges // 2 admits exactly max_edges edges
         graph.add_proximity_factors(

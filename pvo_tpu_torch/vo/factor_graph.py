@@ -18,6 +18,14 @@ path:
   keyframe is kept, next-keyframe seeding and the window distance
   matrix, returned to the caller as one host packet.
 
+Each update call names its layers with ``record_function`` ranges under
+the graph's ``layer`` (``vo.frontend``, set to ``vo.backend`` and
+``vo.filler`` by their owners): ``<layer>.volume`` (the correlation
+operands built once per call: K1's volumes or K3's pooled pyramid),
+``<layer>.update`` (correlation, update operator, heads, GraphAgg) and
+``<layer>.dba``. The ctypes-launched corr kernels are attributed to no
+range; a profile reads them from their own kernel rows.
+
 On the card the updates use the CUDA kernels: for narrow streams
 (:func:`cuda_corr.volume_cache_ok`, the JAX accelerator path's test) K1
 builds the volumes of the edges once per call and K2 reads them every
@@ -36,6 +44,7 @@ from collections import Counter
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from pvo_tpu_torch.geom import projective
 from pvo_tpu_torch.geom.distance import (frame_distance,
@@ -99,6 +108,8 @@ def gru_ctx_pre(w_ctx, ctx):
 
 class FactorGraph:
     STATE = ("net", "target", "weight", "raw_mask", "delta_dy", "full_flow")
+    # prefix of the update's profiler ranges (module docstring)
+    layer = "vo.frontend"
 
     def __init__(self, video, update, max_edges=96, max_inactive=96,
                  max_factors=-1, beta=0.3, edge_chunk=None,
@@ -416,44 +427,27 @@ class FactorGraph:
                                     n > self.edge_chunk) else None
         cdt = next(self.update_op.parameters()).dtype
         core = dict(ii=ii, jj=jj, valid=valid, w0=w0, K=K)
-        if chunk is None:
-            # loop invariants of this call: on the card the correlation
-            # volumes (K1) of narrow streams, else the gathered features
-            # that K3 correlates on every step; the context gate terms and
-            # the edge segments
-            if dev.type == "cuda" and cuda_corr.volume_cache_ok(self.h,
-                                                                self.w):
-                vols = cuda_corr.build_volumes(v.fmaps[ii], v.fmaps[jj])
-                core["corr_fn"] = lambda c1: cuda_corr.corr_extract(vols,
-                                                                    c1)
-            elif dev.type == "cuda":
-                frames = self._lookup_frames()
-                core["corr_fn"] = lambda c1: cuda_corr.corr_lookup_indexed(
-                    *frames, c1)
-            else:
-                core["corr_fn"] = lambda c1: corr_ops.chunked_corr_lookup(
-                    v.fmaps, ii, jj, c1, chunk=CORR_CHUNK)
-            core["ctx_pre"] = gru_ctx_pre(self.gru_ctx, v.inps[ii].to(cdt))
-            core["segms_e"] = v.segms[ii]
-        elif dev.type == "cuda":
-            core["frames"] = self._lookup_frames()
+        with record_function(f"{self.layer}.volume"):
+            self._loop_invariants(core, chunk, cdt)
 
         def one_step():
-            if chunk is None:
-                eta, has_edge = self._update_core(**core)
-            else:
-                eta, has_edge = self._update_core_chunked(chunk=chunk,
-                                                          **core)
-            krows = torch.arange(K, device=dev) + w0
-            v.damping[krows] = torch.where(has_edge[:, None, None], eta,
-                                           v.damping[krows])
-            eta_k = damp_fac * v.damping[krows] + EP
-            v.poses, v.disps = dba_mod.dba(
-                v.poses, v.disps, intrinsics,
-                torch.cat([extra_target, self.target]),
-                torch.cat([extra_weight, self.weight]), eta_k, *ba_args,
-                t0, t1, w0, P=P, K=K, iters=itrs, motion_only=motion_only,
-                ep=ep, lm=lm)
+            with record_function(f"{self.layer}.update"):
+                if chunk is None:
+                    eta, has_edge = self._update_core(**core)
+                else:
+                    eta, has_edge = self._update_core_chunked(chunk=chunk,
+                                                              **core)
+                krows = torch.arange(K, device=dev) + w0
+                v.damping[krows] = torch.where(has_edge[:, None, None], eta,
+                                               v.damping[krows])
+                eta_k = damp_fac * v.damping[krows] + EP
+            with record_function(f"{self.layer}.dba"):
+                v.poses, v.disps = dba_mod.dba(
+                    v.poses, v.disps, intrinsics,
+                    torch.cat([extra_target, self.target]),
+                    torch.cat([extra_weight, self.weight]), eta_k, *ba_args,
+                    t0, t1, w0, P=P, K=K, iters=itrs,
+                    motion_only=motion_only, ep=ep, lm=lm)
 
         for _ in range(steps):
             one_step()
@@ -480,6 +474,31 @@ class FactorGraph:
                                           dmat_window, self.beta)
             return np.concatenate([d, dmat.reshape(-1).cpu().numpy()])
         return d
+
+    def _loop_invariants(self, core, chunk, cdt):
+        """Add this call's loop invariants to ``core``: on the card the
+        correlation volumes (K1) of narrow streams, else the frames and
+        pyramid that K3 reads on every step; the context gate terms and
+        the edge segments. The chunked update takes only K3's frames."""
+        v = self.video
+        dev = v.device
+        ii, jj = core["ii"], core["jj"]
+        if chunk is not None:
+            if dev.type == "cuda":
+                core["frames"] = self._lookup_frames()
+            return
+        if dev.type == "cuda" and cuda_corr.volume_cache_ok(self.h, self.w):
+            vols = cuda_corr.build_volumes(v.fmaps[ii], v.fmaps[jj])
+            core["corr_fn"] = lambda c1: cuda_corr.corr_extract(vols, c1)
+        elif dev.type == "cuda":
+            frames = self._lookup_frames()
+            core["corr_fn"] = lambda c1: cuda_corr.corr_lookup_indexed(
+                *frames, c1)
+        else:
+            core["corr_fn"] = lambda c1: corr_ops.chunked_corr_lookup(
+                v.fmaps, ii, jj, c1, chunk=CORR_CHUNK)
+        core["ctx_pre"] = gru_ctx_pre(self.gru_ctx, v.inps[ii].to(cdt))
+        core["segms_e"] = v.segms[ii]
 
     def _lookup_frames(self):
         """K3's operands for this call's edges: the features of the

@@ -8,13 +8,16 @@ encode, and 6 motion-only updates against both bracketing keyframes
 refine it. Tail batches are padded to the full width by repeating the
 last frame; padded rows are dropped at readback. The JAX package's
 one-deep pipelining of batches is not ported: it hides relay round
-trips, and the poses do not depend on it.
+trips, and the poses do not depend on it. Profiler ranges:
+``vo.filler.fnet`` and the refinement graph's
+``vo.filler.{volume,update,dba}``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from pvo_tpu_torch.lie import se3
 from pvo_tpu_torch.vo.factor_graph import FactorGraph
@@ -61,7 +64,8 @@ class TrajectoryFiller:
 
         x = torch.as_tensor(np.stack([np.asarray(im, np.uint8)
                                       for im in images]), device=dev)
-        gmaps = self.net.fnet(normalize_images(x))
+        with record_function("vo.filler.fnet"):
+            gmaps = self.net.fnet(normalize_images(x))
         intr8 = torch.as_tensor(np.stack([np.asarray(i, np.float32)
                                           for i in intrinsics]),
                                 device=dev) / 8.0
@@ -81,6 +85,7 @@ class TrajectoryFiller:
             self._graph = FactorGraph(v, self.update,
                                       max_edges=2 * self.batch + 2,
                                       max_inactive=1)
+            self._graph.layer = "vo.filler"
         graph = self._graph
         kk = np.arange(N, N + B)
         graph.add_factors(t0, kk)

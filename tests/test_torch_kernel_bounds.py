@@ -179,6 +179,21 @@ def test_import_walk_covers_the_vps_slice(rel):
                 (base / "__init__.py").exists(), (rel, m)
 
 
+LOOP_SLICE = ("utils/tracing.py", "data/synth_scene.py",
+              "pipeline/preparing.py", "lie/sim3.py", "geom/depth_filter.py",
+              "scripts/bench_track.py", "scripts/bench_terminate.py",
+              "scripts/prepare_vkitti.py", "scripts/run_pvo_loop.py",
+              "scripts/loop_weights.py")
+
+
+@pytest.mark.parametrize("rel", LOOP_SLICE)
+def test_import_walk_covers_the_loop_slice(rel):
+    """The walks above read each of the loop slice's files (no JAX, no
+    module-level cv2 or PIL); their imports of the port's own modules
+    resolve to files of the port."""
+    test_import_walk_covers_the_vps_slice(rel)
+
+
 def test_port_config_equals_the_jax_package_config():
     ours = [(f.name, f.type, f.default) for f in dataclasses.fields(VOConfig)]
     theirs = [(f.name, f.type, f.default)

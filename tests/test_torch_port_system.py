@@ -5,8 +5,8 @@
     tests/test_decision_trace.py), exact match.
 (b) Numeric run: JAX VOSystem vs port VOSystem on the same weights and
     stream (64x96, 8 frames, segment filter on) and terminate, with the
-    backend's edges whole or in 8-edge chunks, and with the trajectory
-    filler (terminate(image_stream)); counters
+    backend's edges whole or in 8-edge chunks, with the trajectory
+    filler (terminate(image_stream)), and with keyframe removal; counters
     and edge sets exact, poses within 1e-3 abs, disparities within 1e-2
     relative (plus 1e-4 abs next to the 0.001 disparity floor), and
     get_depth / get_flow against the JAX accessors.
@@ -44,6 +44,7 @@ from pvo_tpu_torch.vo.system import VOSystem
 
 from ref_host_logic import RefHostOracle
 from test_decision_trace import _streams, dist_f
+from torch_one_thread import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -239,25 +240,40 @@ def tame_params(params, scale=0.01):
     return params
 
 
+# keyframe_thresh of the removal case (test_port_system_matches_jax)
+KF_REMOVAL = 0.3
+
+
 def edge_set(g):
     return sorted(zip(g.ii.tolist(), g.jj.tolist()))
 
 
-@pytest.mark.parametrize("backend_chunk, fill", [(None, False), (8, False),
-                                                 (None, True)],
+@pytest.mark.parametrize("backend_chunk, fill, kf_thresh",
+                         [(None, False, 0.0), (8, False, 0.0),
+                          (None, True, 0.0), (None, True, KF_REMOVAL)],
                          ids=["backend-whole", "backend-chunked",
-                              "backend-whole-filler"])
-def test_port_system_matches_jax(monkeypatch, backend_chunk, fill):
+                              "backend-whole-filler", "keyframe-removal"])
+def test_port_system_matches_jax(monkeypatch, backend_chunk, fill,
+                                 kf_thresh):
     """``backend-chunked`` streams terminate's global updates over 8-edge
     chunks on both sides (``_update_core_chunked``, the path of graphs
     beyond 256 edges). ``filler`` passes the stream to terminate, which
     then returns every frame's pose from the trajectory filler (8 frames
     staged as one batch padded to 16, 32 edges, 6 motion-only
-    updates)."""
+    updates). ``keyframe-removal`` sets ``keyframe_thresh`` to 0.3, away
+    from the stream's keyframe distances (0.25, 0.36, 0.11 in the port),
+    so the frontend removes two keyframes on both sides: one while
+    tracking, one in terminate's flush."""
     monkeypatch.setattr(jsys, "NET_STORE_DTYPE", jnp.float32)
     cfg = VOConfig(image_size=(H, W), warmup=5, filter_thresh=-1.0,
-                   keyframe_thresh=0.0, segm_filter=True, pipeline=False,
-                   yuv420_upload=False, max_edges=48, frontend_window=8)
+                   keyframe_thresh=kf_thresh, segm_filter=True,
+                   pipeline=False, yuv420_upload=False, max_edges=48,
+                   frontend_window=8)
+    removed = []
+    rm_keyframe = Frontend.rm_keyframe_deferred
+    monkeypatch.setattr(Frontend, "rm_keyframe_deferred",
+                        lambda fe, ix: removed.append(ix) or
+                        rm_keyframe(fe, ix))
     params = tame_params(jsys.init_params(jsys.make_modules(),
                                           image_size=(H, W), seed=0))
     jx = jsys.VOSystem(cfg, params=jax.tree.map(jnp.asarray, params))
@@ -273,7 +289,8 @@ def test_port_system_matches_jax(monkeypatch, backend_chunk, fill):
         assert edge_set(gp) == edge_set(gj)
         assert sorted(zip(gp.ii_inac.tolist(), gp.jj_inac.tolist())) == \
             sorted(zip(gj.ii_inac.tolist(), gj.jj_inac.tolist()))
-    assert pt.frontend.is_initialized and pt.video.counter == 7
+    tracked = len(removed)
+    assert pt.frontend.is_initialized and pt.video.counter == 7 - tracked
     np.testing.assert_allclose(pt.get_traj(), jx.get_traj(), rtol=0,
                                atol=1e-3)
 
@@ -290,7 +307,8 @@ def test_port_system_matches_jax(monkeypatch, backend_chunk, fill):
     assert chunked == ([backend_chunk] * 2 if backend_chunk else [])
     # the filler ran: its graph exists and was cleared after the batch
     assert (pt.traj_filler._graph is not None) == fill
-    assert pt.video.counter == jx.video.counter == 8
+    assert pt.video.counter == jx.video.counter == 8 - len(removed)
+    assert (len(removed) > 0) == (kf_thresh > 0)
     assert traj_p.shape == traj_j.shape == (8, 7)
     np.testing.assert_allclose(traj_p, traj_j, rtol=0, atol=1e-3)
     n = pt.video.counter

@@ -3,8 +3,8 @@
     python3 chip_smoke.py            the whole run
     python3 chip_smoke.py main       only the named phases (kernels,
                                      packed, reference, main, harness,
-                                     export, vps, loop), without the
-                                     result lines
+                                     export, vps, loop, train), without
+                                     the result lines
 
 Phases, one line each (any failure exits non-zero):
   1. device   - requires CUDA; prints the card's name and power limit;
@@ -123,11 +123,38 @@ Phases, one line each (any failure exits non-zero):
                 scaled to 64 frames; K1, K2, K3 bf16 and K3 f32 each
                 launched in the loop, and each test_vo2 stage 0/0/15
                 launches a pair (K3 f32 only).
+ 10. train    - VO training (parallel/data_parallel.py, f32, TF32 off,
+                the plain differentiable lookup). (a) one restart pass
+                (sup, 48x64, F=4, 2 iterations, tame_net(0,
+                mask_bias=-2)) on the CPU and on the card: loss within
+                1e-4 relative; every weight tensor's gradient above 1e-4
+                of the total norm within 1e-3 relative L2 with cuDNN
+                off, and with cuDNN on (what training runs; its
+                convolution backward moves fnet's first layers 3e-3 to
+                5e-3) at cos > 0.99 and a norm ratio of 0.95-1.05; (b)
+                bench_train_vo's default protocol (sup, 4 iterations,
+                48x64, F=4, 200 steps on one batch, random weights):
+                finite losses, a checkpoint round trip bit-equal, the
+                canary on the dynamic-mask BCE (gt_l: the mean of its
+                last tenth below half its first tenth's; the total
+                loss's curve is chaotic on random weights and its ratio
+                is printed, not held);
+                steps/s, the loss ratio, peak memory; (c) the reference
+                recipe at full size (semisup, 15 iterations, 6 frames,
+                200x400 crop, restart loop, remat) on a synthetic scene
+                for 10 outer steps: finite losses and gradients, s/step,
+                grad passes/s, peak memory; one more step timed and
+                under torch.profiler (kernel ms, busy share, five
+                costliest kernels), its peak memory with remat off, and
+                the plain lookup's forward and backward alone at the
+                recipe's shapes; (d) K1-K3, P1 and P2 launched 0 times
+                in (b) and (c) ("launches_train" in the kernels line).
 Then the whole run's seconds, one JSON line of kernel results, the card's
 name and power limit, and the contract line {"ok": true, "device": {...}}.
 """
 
 import contextlib
+import copy
 import glob
 import importlib
 import json
@@ -141,10 +168,12 @@ import numpy as np
 import torch
 
 from pvo_tpu_torch.data.synth_scene import write_synth_scene
+from pvo_tpu_torch.parallel import data_parallel as dp
 from pvo_tpu_torch.geom.depth_filter import depth_consistency_count
-from pvo_tpu_torch.scripts import (bench_vo2_export, kbench, prepare_vkitti,
-                                   run_pvo_loop)
-from pvo_tpu_torch.scripts.bench_track import (corr_rows, profiled,
+from pvo_tpu_torch.scripts import (bench_train_vo, bench_vo2_export, kbench,
+                                   prepare_vkitti, run_pvo_loop, train_vo)
+from pvo_tpu_torch.scripts.bench_track import (RANGE_PREFIXES, corr_rows,
+                                               kernel_rows, profiled,
                                                synth_stream, tame_net,
                                                vo_counters)
 from pvo_tpu_torch.scripts.benchmark_vps import tamed_model, timed_pass
@@ -155,6 +184,7 @@ from pvo_tpu_torch.scripts.test_vo2 import export_pair
 from pvo_tpu_torch.utils.config import VOConfig
 from pvo_tpu_torch.utils.tracing import range_device_ms
 from pvo_tpu_torch.vo.factor_graph import FactorGraph
+from pvo_tpu_torch.vo.net import corr as corr_plain
 from pvo_tpu_torch.vo.net import cuda_corr
 from pvo_tpu_torch.vo.net import cuda_corr_exp
 from pvo_tpu_torch.vo.system import VOSystem
@@ -234,6 +264,11 @@ LOOP_ROWS = ("build_volumes", "corr_extract", "corr_lookup",
 # its mask bias, so that test_vo at VOConfig's thresholds (the JAX
 # driver passes none) admits and removes keyframes and stays finite
 LOOP_HEAD_SCALE, LOOP_MASK_BIAS = 0.2, -2.0
+# phase 10: the card's training pass against the CPU's (loss relative,
+# gradient relative L2 a tensor with cuDNN off), the default protocol's
+# steps, the recipe's outer steps
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
+TRAIN_DEFAULT_STEPS, TRAIN_RECIPE_STEPS = 200, 10
 P2_VARIANTS = (
     (dict(), ("X2", "X3", "X4", "X5")),
     (dict(weights="bf16"), ("X2",)),
@@ -1576,10 +1611,244 @@ def run_loop():
     return total
 
 
+def corr_launches():
+    """Every corr kernel's launch count by row of the kernels line: K1
+    and K3 split by feature type, K2, P1 and P2."""
+    out = dict(cuda_corr.LAUNCHES)
+    for k in cuda_corr.F32_KERNELS:
+        out[F32_ROWS[k]] = cuda_corr.F32_LAUNCHES[k]
+        out[k] -= cuda_corr.F32_LAUNCHES[k]
+    out.update(cuda_corr_exp.LAUNCHES)
+    return out
+
+
+def reset_corr_launches():
+    cuda_corr.reset_launches()
+    cuda_corr_exp.reset_launches()
+
+
+def train_card_against_cpu():
+    """Phase 10 (a): one restart pass (sup, 48x64, F=4, 2 iterations) on
+    the same weights and batch on the CPU and on the card, there with
+    cuDNN off (PyTorch's own CUDA convolutions) and on (what training
+    runs). Every weight tensor's gradient above 1e-4 of the total norm:
+    with cuDNN off within TRAIN_GRAD_TOL relative L2 of the CPU's; with
+    cuDNN on by direction and norm (cos > 0.99, norm ratio 0.95-1.05,
+    tests/test_nets.py's criterion): cuDNN's own convolution backward
+    puts fnet's first layers' gradients 3e-3 to 5e-3 from the CPU's, the
+    same with cudnn.deterministic or cudnn.benchmark. The loss within
+    TRAIN_LOSS_TOL relative either way."""
+    F, H, W = 4, 48, 64
+    ii, jj = dp.losses.ring_graph(F)
+    batch = dp.make_synthetic_batch(1, F=F, H=H, W=W, seed=0)
+
+    def one_pass(dev):
+        net = tame_net(0, mask_bias=-2.0).to(dev).train()
+        tx = dp.make_optimizer(net.parameters(), total_steps=100)
+        pass_fn, _, _ = dp.make_restart_step(net, tx, ii, jj, num_steps=2,
+                                             mode="sup")
+        b = dp.to_device(batch, dev)
+        loss, _, grads, _ = pass_fn(b, b["poses_init"], b["disps_init"])
+        return float(loss), {k: g.double().cpu() for k, g in grads.items()}
+
+    lp, gp = one_pass("cpu")
+    total = float(torch.sqrt(sum((g ** 2).sum() for g in gp.values())))
+    with patched(torch.backends.cudnn, "enabled", False):
+        native = one_pass("cuda")
+    ok = True
+    for tag, (lc, gc) in (("cudnn_off", native), ("cudnn_on", one_pass("cuda"))):
+        worst, worst_cos, n = 0.0, 1.0, 0
+        for k, g in gp.items():
+            a, na, nb = gc[k], float(gc[k].norm()), float(g.norm())
+            if max(na, nb) < 1e-4 * total:
+                continue
+            n += 1
+            worst = max(worst, float((a - g).norm()) / nb)
+            cos = float((a * g).sum()) / (na * nb)
+            worst_cos = min(worst_cos, cos)
+            if tag == "cudnn_on" and not (cos > 0.99 and
+                                          0.95 < na / nb < 1.05):
+                ok = False
+        loss_rel = abs(lc - lp) / abs(lp)
+        log("train", check=f"card_vs_cpu_{tag}", loss_cuda=f"{lc:.6f}",
+            loss_cpu=f"{lp:.6f}", loss_rel_err=f"{loss_rel:.3g}",
+            tensors=n, grad_worst_rel_l2=f"{worst:.3g}",
+            grad_worst_cos=f"{worst_cos:.6f}")
+        ok &= loss_rel <= TRAIN_LOSS_TOL and n >= 60
+        if tag == "cudnn_off":
+            ok &= worst <= TRAIN_GRAD_TOL
+    if not ok:
+        raise AssertionError("the card's gradients disagree with the CPU's")
+
+
+def train_default():
+    """Phase 10 (b): bench_train_vo's default protocol (sup, 4
+    iterations, 48x64, F=4, TRAIN_DEFAULT_STEPS steps on one batch,
+    random weights from seed 0). Finite losses, a bit-equal checkpoint
+    round trip, and the canary on the dynamic-mask BCE (gt_l, which the
+    model can fit): its last tenth below half its first tenth. The total
+    loss's ratio is printed, not held: on these weights the curve is
+    chaotic and the JAX bench's canary a coin toss, in the JAX package
+    too (bench_train_vo's docstring)."""
+    res = bench_train_vo.default_protocol(steps=TRAIN_DEFAULT_STEPS,
+                                          device="cuda")
+    finite = bool(np.isfinite(res["loss_curve"]).all())
+    learned = res["gt_l_last10pct"] < 0.5 * res["gt_l_first10pct"]
+    log("train", protocol="default", steps=TRAIN_DEFAULT_STEPS,
+        steps_per_sec=f"{res['steps_per_sec']:.3f}",
+        first_step_s=f"{res['first_step_s']:.2f}",
+        loss_first10pct=f"{res['loss_first10pct']:.4f}",
+        loss_last10pct=f"{res['loss_last10pct']:.4f}",
+        vo_train_loss_ratio=f"{res['value']:.4f}",
+        gt_l_first10pct=f"{res['gt_l_first10pct']:.4g}",
+        gt_l_last10pct=f"{res['gt_l_last10pct']:.4g}",
+        peak_mem_gib=f"{res['peak_mem_gib']:.3f}",
+        ckpt_roundtrip_ok=res["ckpt_roundtrip_ok"], finite=finite)
+    if not (finite and learned and res["ckpt_roundtrip_ok"]):
+        raise AssertionError(f"default protocol: finite {finite}, gt_l "
+                             f"learned {learned}, checkpoint "
+                             f"{res['ckpt_roundtrip_ok']}")
+
+
+def lookup_fwd_bwd_ms(F=6, h=25, w=50, iters=15, reps=3):
+    """The plain correlation lookup as a recipe pass runs it, alone:
+    the pyramid of the ring's edges, ``iters`` lookups and their
+    backward, f32, CUDA events; the mean of ``reps`` runs in ms."""
+    ii, jj = train_vo.ring_edges(F)
+    rng = np.random.RandomState(0)
+    fmaps = torch.tensor(rng.randn(F, h, w, C), dtype=torch.float32,
+                         device="cuda", requires_grad=True)
+    grid = torch.stack(torch.meshgrid(
+        torch.arange(w, device="cuda", dtype=torch.float32),
+        torch.arange(h, device="cuda", dtype=torch.float32),
+        indexing="xy"), -1)
+    coords = grid + torch.tensor(rng.randn(len(ii), h, w, 2),
+                                 dtype=torch.float32, device="cuda")
+    ii_t = torch.as_tensor(ii, device="cuda")
+    jj_t = torch.as_tensor(jj, device="cuda")
+
+    def run():
+        pyr = corr_plain.build_pyramid(fmaps[ii_t], fmaps[jj_t])
+        out = sum(corr_plain.lookup(pyr, coords).square().mean()
+                  for _ in range(iters))
+        out.backward()
+
+    run()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def train_profile(trainer, batch, remat_off):
+    """Phase 10 (c): one pass + optimizer step of the recipe on
+    ``batch``, timed (wall, synchronized), then under torch.profiler
+    (kernel ms, busy share, top kernels), its peak memory, and the same
+    pass's peak memory with remat off (``remat_off``: a trainer of the
+    same weights)."""
+    _, pass_fn, apply_fn, _, state = trainer
+    b = dp.to_device(batch, "cuda")
+
+    def one():
+        _, _, grads, _ = pass_fn(b, b["poses_init"], b["disps_init"])
+        apply_fn(state, grads)
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() / 2 ** 30
+
+    peak_remat = peak(one)
+    t0 = time.perf_counter()
+    one()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    with profiled() as prof:
+        one()
+        torch.cuda.synchronize()
+    kernel_ms, n_kernels = kernel_rows(prof)
+    rows = sorted((r for r in prof.key_averages()
+                   if r.device_type == torch.autograd.DeviceType.CUDA
+                   and not r.key.startswith(RANGE_PREFIXES)),
+                  key=lambda r: -r.self_device_time_total)[:5]
+    _, pass_off, _, _, _ = remat_off
+    peak_off = peak(lambda: pass_off(b, b["poses_init"], b["disps_init"]))
+    lookup_ms = lookup_fwd_bwd_ms()
+    log("train", step="profiled", wall_ms=f"{wall_ms:.1f}",
+        kernel_ms=f"{kernel_ms:.1f}", kernels=n_kernels,
+        busy_share=f"{kernel_ms / wall_ms:.3f}",
+        peak_mem_gib_remat=f"{peak_remat:.3f}",
+        peak_mem_gib_no_remat=f"{peak_off:.3f}",
+        plain_lookup_fwd_bwd_ms=f"{lookup_ms:.1f}",
+        plain_lookup_share_of_kernel_ms=f"{lookup_ms / kernel_ms:.3f}")
+    for r in rows:
+        log("train", top_kernel=repr(r.key[:90]),
+            ms=f"{r.self_device_time_total / 1e3:.2f}", count=r.count)
+
+
+def train_recipe():
+    """Phase 10 (c): the reference recipe at full size (semisup, 15
+    iterations, 6 frames, 200x400 crop, the restart loop, remat) on the
+    synthetic scene, TRAIN_RECIPE_STEPS outer steps: finite losses and
+    gradients; s/step, grad passes/s, peak memory; then one profiled
+    step (train_profile)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = bench_train_vo.synth_dataset_root(osp.join(tmp, "recipe"))
+        t_scene = time.perf_counter() - t0
+        db = bench_train_vo.recipe_db(root)
+        dev = torch.device("cuda")
+        trainer = bench_train_vo.recipe_trainer(dev)
+        torch.cuda.reset_peak_memory_stats()
+        with bench_train_vo.clip_feeder(db) as next_batch:
+            curves, passes, t_first, t_rest = bench_train_vo.run_recipe(
+                next_batch, trainer, TRAIN_RECIPE_STEPS, dev,
+                np.random.default_rng(7), check_grads=True, log_every=0)
+            peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+            batch = next_batch()
+        losses = np.asarray(curves["loss"])
+        steps = TRAIN_RECIPE_STEPS - 1
+        log("train", protocol="recipe", steps=TRAIN_RECIPE_STEPS,
+            scene_s=f"{t_scene:.1f}", first_step_s=f"{t_first:.2f}",
+            s_per_step=f"{t_rest / steps:.3f}",
+            grad_passes_per_sec=f"{sum(passes[1:]) / t_rest:.3f}",
+            grad_passes=sum(passes), peak_mem_gib=f"{peak_gib:.3f}",
+            loss_first=f"{losses[0]:.3f}", loss_last=f"{losses[-1]:.3f}",
+            res_first=f"{curves['res'][0]:.3f}",
+            res_last=f"{curves['res'][-1]:.3f}")
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"recipe losses not finite: {losses}")
+        off = bench_train_vo.recipe_trainer(
+            dev, remat=False, model=copy.deepcopy(trainer[0]))
+        train_profile(trainer, batch, off)
+
+
+def run_train():
+    """Phase 10: VO training on the card. Returns the corr kernels'
+    launches in (b) and (c), which must all be 0: training runs the
+    plain lookup, the kernels have no backward."""
+    train_card_against_cpu()
+    reset_corr_launches()
+    train_default()
+    train_recipe()
+    launches = corr_launches()
+    log("train", launches=repr(launches))
+    if any(launches.values()):
+        raise AssertionError(f"training launched corr kernels: {launches}")
+    return launches
+
+
 PHASES = {"kernels": check_kernels, "packed": check_packed,
           "reference": check_reference, "main": run_main_path,
           "harness": run_harnesses, "export": run_export, "vps": run_vps,
-          "loop": run_loop}
+          "loop": run_loop, "train": run_train}
 
 
 def main():
@@ -1616,6 +1885,7 @@ def main():
     export = run_export()
     run_vps()
     loop = run_loop()
+    train = run_train()
 
     # K1 and K3 have a row for each feature type. A bf16 row's launches
     # are phase 5's (the video's features); an f32 row's are the timed
@@ -1639,6 +1909,7 @@ def main():
             extra = {f"launches_export_{tag}": per[k]
                      for tag, per in export.items()}
         extra["launches_loop"] = loop[row]
+        extra["launches_train"] = train[row]
         kernels.append({
             "name": row, "route": "cuda",
             "source": "pvo_tpu_torch/csrc/corr.cu", "replaces": REPLACES[k],
@@ -1667,7 +1938,8 @@ def main():
             "source": "pvo_tpu_torch/csrc/corr_exp.cu", "replaces": site,
             "launches": n, "max_abs_err": max(err, packed[x]), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound["ms"],
-            "bound_by": bound["bound_by"], "library_ms": None, **extra})
+            "bound_by": bound["bound_by"], "library_ms": None,
+            "launches_train": train[kernel], **extra})
     log("run", seconds=f"{time.perf_counter() - start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(card)

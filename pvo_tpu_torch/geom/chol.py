@@ -1,11 +1,14 @@
-"""Damped Cholesky / Schur-complement solves, forward only.
+"""Damped Cholesky / Schur-complement solves with the implicit backward.
 
-Port of the forward of :func:`pvo_tpu.geom.chol.solve_psd`,
+Port of :func:`pvo_tpu.geom.chol.solve_psd`,
 :func:`pvo_tpu.geom.chol.block_solve` and
-:func:`pvo_tpu.geom.chol.schur_solve` (inference needs no backward; the
-ops are differentiable torch ops, without the JAX module's implicit
-backward). As there, a failed factorization yields a zero solution
-instead of an error.
+:func:`pvo_tpu.geom.chol.schur_solve`. As there, a failed factorization
+yields a zero solution instead of an error, and :func:`solve_psd` has
+the implicit backward ``dz = (L L^T)^-1 g``, ``dH = -x dz^T``,
+``db = dz``, with dz zero where the factorization failed. Autograd
+through the factorization and the masking ``where`` would not do: the
+untaken branch holds the failed solve's non-finite values, and its
+backward sends ``0 * inf = NaN`` into ``H``.
 """
 
 from __future__ import annotations
@@ -13,15 +16,35 @@ from __future__ import annotations
 import torch
 
 
+def _cho_solve(L, b):
+    """(L L^T) x = b for lower-triangular L."""
+    y = torch.linalg.solve_triangular(L, b, upper=False)
+    return torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)
+
+
+class _SolvePSD(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, H, b):
+        L, info = torch.linalg.cholesky_ex(H)
+        x = _cho_solve(L, b)
+        ok = (info == 0)[..., None, None] & torch.isfinite(x).all(
+            dim=-1, keepdim=True).all(dim=-2, keepdim=True)
+        x = torch.where(ok, x, torch.zeros_like(x))
+        ctx.save_for_backward(L, x, ok)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        L, x, ok = ctx.saved_tensors
+        dz = torch.where(ok, _cho_solve(L, g), torch.zeros_like(g))
+        return -torch.matmul(x, dz.transpose(-1, -2)), dz
+
+
 def solve_psd(H, b):
     """Solve H x = b for PSD H, batched: H (..., M, M), b (..., M, K).
     Returns zeros for a batch entry whose factorization failed."""
-    L, info = torch.linalg.cholesky_ex(H)
-    y = torch.linalg.solve_triangular(L, b, upper=False)
-    x = torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)
-    ok = (info == 0)[..., None, None] & \
-        torch.isfinite(x).all(dim=-1, keepdim=True).all(dim=-2, keepdim=True)
-    return torch.where(ok, x, torch.zeros_like(x))
+    return _SolvePSD.apply(H, b)
 
 
 def block_solve(H, b, ep=0.1, lm=1e-4):

@@ -50,16 +50,18 @@ def iproj(disps, intrinsics):
     return torch.stack([X, Y, torch.ones_like(d), d], dim=-1)
 
 
-def proj(Xs, intrinsics, jacobian=False):
+def proj(Xs, intrinsics, jacobian=False, return_depth=False):
     """Pinhole projection of homogeneous points -> coords (B,N,H,W,2)
-    and, if ``jacobian``, the 2x4 projection Jacobian."""
+    (with ``return_depth`` a third channel, the inverse depth) and, if
+    ``jacobian``, the 2x4 projection Jacobian."""
     fx, fy, cx, cy = _split_intrinsics(intrinsics)
     X, Y, Z = Xs[..., 0], Xs[..., 1], Xs[..., 2]
     Z = torch.where(Z < 0.5 * MIN_DEPTH, torch.ones_like(Z), Z)
     d = 1.0 / Z
     x = fx * (X * d) + cx
     y = fy * (Y * d) + cy
-    coords = torch.stack([x, y], dim=-1)
+    coords = torch.stack([x, y] + ([Xs[..., 3] * d] if return_depth
+                                   else []), dim=-1)
     if not jacobian:
         return coords, None
     fx, fy = fx.expand_as(d), fy.expand_as(d)
@@ -88,11 +90,14 @@ def act_se3(Gij, X0, jacobian=False):
     return X1, Ja
 
 
-def projective_transform(poses, disps, intrinsics, ii, jj, jacobian=False):
+def projective_transform(poses, disps, intrinsics, ii, jj, jacobian=False,
+                         return_depth=False):
     """Map pixels of frames ``ii`` into frames ``jj``.
 
     poses (B,P,7), disps (B,P,H,W), intrinsics (B,P,4), ii/jj (N,).
-    Returns coords (B,N,H,W,2), valid (B,N,H,W,1) and, with
+    Returns coords (B,N,H,W,2) (with ``return_depth`` (B,N,H,W,3), the
+    third channel the inverse depth in frame jj), valid (B,N,H,W,1) and,
+    with
     ``jacobian``, (Ji, Jj, Jz) of shapes (B,N,H,W,2,6) x2, (B,N,H,W,2,1).
     """
     ii = _as_index(ii, disps.device)
@@ -100,7 +105,8 @@ def projective_transform(poses, disps, intrinsics, ii, jj, jacobian=False):
     X0 = iproj(disps[:, ii], intrinsics[:, ii])
     Gij = se3.mul(poses[:, jj], se3.inv(poses[:, ii]))
     X1, Ja = act_se3(Gij, X0, jacobian=jacobian)
-    x1, Jp = proj(X1, intrinsics[:, jj], jacobian=jacobian)
+    x1, Jp = proj(X1, intrinsics[:, jj], jacobian=jacobian,
+                  return_depth=return_depth)
 
     valid = ((X1[..., 2] > MIN_DEPTH) & (X0[..., 2] > MIN_DEPTH))
     valid = valid.to(x1.dtype)[..., None]

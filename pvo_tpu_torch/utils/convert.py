@@ -4,7 +4,9 @@ The port's modules carry the reference state-dict names, so a reference
 ``.pth`` loads with ``load_state_dict``; :func:`params_from_jax` is the
 exact inverse of :func:`pvo_tpu.utils.convert.convert_droidnet`: the JAX
 4-tree param dict (numpy leaves, HWIO kernels, unexpanded corr
-weights) becomes that state dict (OIHW kernels).
+weights) becomes that state dict (OIHW kernels). Every mapping is a
+linear re-layout, so the same function carries a JAX gradient tree to
+the port's gradients under the port's names.
 """
 
 from __future__ import annotations
@@ -55,6 +57,13 @@ def params_from_jax(params) -> Dict[str, torch.Tensor]:
     for g in ("convz", "convr", "convq", "w", "convz_glo", "convr_glo",
               "convq_glo"):
         _conv(up["gru"], g, f"update.gru.{g}", sd)
+    if "aff_conv" in up:
+        _conv(up, "aff_conv", "update.global_avg_pool.0", sd)
+        lin = up["aff_linear"]
+        sd["update.param_linear.0.weight"] = torch.from_numpy(
+            np.ascontiguousarray(np.asarray(lin["kernel"], np.float32).T))
+        sd["update.param_linear.0.bias"] = torch.from_numpy(
+            np.asarray(lin["bias"], np.float32).copy())
     agg = params["agg"]["params"]
     _conv(agg, "conv1", "update.agg.conv1", sd)
     _conv(agg, "conv2", "update.agg.conv2", sd)
@@ -64,7 +73,7 @@ def params_from_jax(params) -> Dict[str, torch.Tensor]:
 
 
 def droidnet_from_jax(params) -> DroidNet:
-    net = DroidNet()
+    net = DroidNet("aff_conv" in params["update"]["params"])
     net.load_state_dict(params_from_jax(params))
     return net
 
@@ -76,30 +85,29 @@ def droidnet_from_jax(params) -> DroidNet:
 # its module here.
 IGNORED_KEY_PREFIXES = ()
 # The affine-brightness head of a ``use_aff_bri`` checkpoint
-# (pvo_tpu/utils/convert.py:74-79), which the port does not model yet
+# (pvo_tpu/utils/convert.py:74-79): a checkpoint with these keys loads
+# into ``DroidNet(use_aff_bri=True)``
 AFF_BRI_PREFIXES = ("update.global_avg_pool.", "update.param_linear.")
 
 
 def load_droidnet_torch(path: str) -> DroidNet:
     """Load a reference DroidNet checkpoint (DDP ``module.`` prefixes
-    stripped). A key the port needs and the checkpoint lacks is an
-    error, and so is a key of the checkpoint that the port does not
-    model, unless it starts with one of :data:`IGNORED_KEY_PREFIXES`
-    (none so far). The weights of the affine-brightness head are such
-    keys until the head is ported with VO training (ROADMAP.md Queue 1
-    item 5)."""
+    stripped). A checkpoint with the affine-brightness head's keys gives
+    a ``DroidNet(use_aff_bri=True)``. A key the port needs and the
+    checkpoint lacks is an error, and so is a key of the checkpoint that
+    the port does not model, unless it starts with one of
+    :data:`IGNORED_KEY_PREFIXES` (none so far)."""
     sd = torch.load(path, map_location="cpu")
     sd = {k.replace("module.", ""): v for k, v in sd.items()}
-    net = DroidNet()
-    missing, unexpected = net.load_state_dict(sd, strict=False)
+    net = DroidNet(any(k.startswith(AFF_BRI_PREFIXES) for k in sd))
+    own = net.state_dict()
+    missing = [k for k in own if k not in sd]
     if missing:
         raise KeyError(f"checkpoint lacks {missing}")
-    unexpected = [k for k in unexpected
-                  if not k.startswith(IGNORED_KEY_PREFIXES)]
+    unexpected = [k for k in sd if k not in own
+                  and not k.startswith(IGNORED_KEY_PREFIXES)]
     if unexpected:
-        aff = [k for k in unexpected if k.startswith(AFF_BRI_PREFIXES)]
-        hint = (" (the affine-brightness head of a use_aff_bri checkpoint: "
-                "not ported yet, ROADMAP.md Queue 1 item 5)") if aff else ""
         raise KeyError(f"checkpoint has keys the port does not model: "
-                       f"{unexpected}{hint}")
+                       f"{unexpected}")
+    net.load_state_dict({k: sd[k] for k in own})
     return net

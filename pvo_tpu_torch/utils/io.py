@@ -71,9 +71,10 @@ def load_vkitti_extrinsics(path, camera=0):
 
 def vkitti_poses_tq(path, camera=0, depth_scale=VKITTI_DEPTH_SCALE):
     """extrinsic.txt -> (T, 7) [t, q] w2c with translation scaled by
-    1/DEPTH_SCALE (the reference's rot/trans balancing)."""
+    1/DEPTH_SCALE (the reference's rot/trans balancing); computed in
+    float64, rounded to float32 at the end."""
     mats = load_vkitti_extrinsics(path, camera)
-    g = se3.from_matrix(torch.from_numpy(mats).float()).numpy()
+    g = se3.from_matrix(torch.from_numpy(mats)).numpy()
     g[:, :3] /= depth_scale
     return g.astype(np.float32)
 

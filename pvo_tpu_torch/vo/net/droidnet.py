@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from pvo_tpu_torch.geom import projective
 from pvo_tpu_torch.geom.ba import bundle_adjust
@@ -47,18 +48,27 @@ def normalize_images(images_u8_rgb):
 
 
 class DroidNet(nn.Module):
-    def __init__(self):
+    def __init__(self, use_aff_bri=False):
         super().__init__()
+        self.use_aff_bri = use_aff_bri
         self.fnet = BasicEncoder(output_dim=128, norm_fn="instance")
         self.cnet = BasicEncoder(output_dim=256, norm_fn="none")
-        self.update = DynamicUpdateModule()
+        self.update = DynamicUpdateModule(use_aff_bri)
 
     @classmethod
-    def from_seed(cls, seed=0):
-        """Random weights (kaiming-normal convs, zero biases) drawn from a
-        ``torch.Generator`` seeded with ``seed``."""
-        net = cls()
-        init_conv_weights(net, torch.Generator().manual_seed(seed))
+    def from_seed(cls, seed=0, use_aff_bri=False):
+        """Random weights (kaiming-normal convs, zero biases; the
+        affine-brightness head's linear layer keeps torch's default
+        init) drawn from a ``torch.Generator`` seeded with ``seed``."""
+        net = cls(use_aff_bri)
+        gen = torch.Generator().manual_seed(seed)
+        init_conv_weights(net, gen)
+        if use_aff_bri:
+            lin = net.update.param_linear[0]
+            bound = lin.in_features ** -0.5
+            with torch.no_grad():
+                lin.weight.uniform_(-bound, bound, generator=gen)
+                lin.bias.uniform_(-bound, bound, generator=gen)
         return net
 
     def extract_features(self, images, dtype=None):
@@ -81,9 +91,19 @@ class DroidNet(nn.Module):
         geometry (:func:`cuda_corr.volume_cache_ok`) builds the volumes
         once (K1) and extracts per step (K2); a wide one takes the fused
         lookup (K3) on every step, on a pyramid pooled once. On the CPU,
-        or with ``corr_impl="plain"``, the plain pyramid."""
+        or with ``corr_impl="plain"``, the plain pyramid.
+
+        The kernels have no backward, so ``corr_impl="cuda"`` is refused
+        when a gradient would have to pass the lookup (grad mode on and
+        ``fmaps`` requiring grad): fnet would get none, and nothing would
+        say so. Training passes ``"plain"``."""
         if corr_impl not in ("cuda", "plain"):
             raise ValueError(f"corr_impl={corr_impl!r}: 'cuda' or 'plain'")
+        if corr_impl == "cuda" and torch.is_grad_enabled() and \
+                fmaps.requires_grad:
+            raise RuntimeError(
+                "corr_impl='cuda' under grad: the corr kernels have no "
+                "backward; pass corr_impl='plain' to train")
         h, w = fmaps.shape[1:3]
         if corr_impl == "plain" or fmaps.device.type != "cuda":
             pyramid = corr_ops.build_pyramid(fmaps[ii], fmaps[jj])
@@ -101,7 +121,8 @@ class DroidNet(nn.Module):
 
     def forward(self, poses, images, disps, intrinsics, ii, jj,
                 num_steps=12, fixedp=2, ret_flow=False, downsample=False,
-                final_only=False, corr_impl="cuda", compute_dtype=None):
+                remat=False, final_only=False, corr_impl="cuda",
+                compute_dtype=None):
         """The iterative forward on one sample.
 
         Args:
@@ -110,20 +131,26 @@ class DroidNet(nn.Module):
           disps: (1, F, h, w) initial inverse depth (1/8 res).
           intrinsics: (1, F, 4) at 1/8 resolution.
           ii, jj: host edge lists (the frame graph is static).
+          remat: recompute each step's activations in the backward
+            (``torch.utils.checkpoint``): a 15-step unroll at the 200x400
+            crop holds 15 steps of GRU/BA activations otherwise. The
+            values and gradients are those of ``remat=False``.
           final_only: compute the upsampled outputs (disps_up, masks_up,
             flows) only for the last step. They are functions of the
             step's state with no feedback into the recurrence, so the
             last entries equal those of ``final_only=False`` exactly.
           corr_impl: "cuda" (the hand-written kernels for tensors on the
-            card; inference only) or "plain" (the plain pyramid,
-            differentiable). Tensors on the CPU take the plain pyramid.
+            card; inference only: refused under grad) or "plain" (the
+            plain pyramid, differentiable). Tensors on the CPU take the
+            plain pyramid.
           compute_dtype: run the encoders and the update operator in
             this dtype (``torch.bfloat16`` on a module converted with
             ``.to(torch.bfloat16)``); everything the BA consumes is cast
             back to f32.
         Returns a dict of per-step lists: poses, disps_up, residuals,
-        masks_up and (with ``ret_flow``) flows: at 1/8 res with
-        ``downsample``, else upsampled x8 in full-res pixels.
+        masks_up, (with ``ret_flow``) flows: at 1/8 res with
+        ``downsample``, else upsampled x8 in full-res pixels, and (with
+        ``use_aff_bri``) aff_params (1, E, 2).
         """
         ii = np.asarray(ii).reshape(-1)
         jj = np.asarray(jj).reshape(-1)
@@ -150,14 +177,8 @@ class DroidNet(nn.Module):
         delta_dy = torch.zeros_like(coords1)
         raw_mask = coords1.new_zeros(coords1.shape[:-1] + (MASK_NUM,))
 
-        out = {k: [] for k in ("poses", "disps_up", "residuals",
-                               "masks_up", "flows")}
-        for it in range(num_steps):
-            poses, disps, coords1, target_cam, delta_dy, raw_mask = (
-                t.detach() for t in (poses, disps, coords1, target_cam,
-                                     delta_dy, raw_mask))
-            want_up = (not final_only) or (it == num_steps - 1)
-
+        def one_step(net, poses, disps, coords1, target_cam, delta_dy,
+                     raw_mask, want_up):
             corr = corr_fn(coords1[0])
             cam_flow = coords1 - coords0
             motion = torch.cat([cam_flow, cam_flow + delta_dy,
@@ -188,13 +209,34 @@ class DroidNet(nn.Module):
                 poses, disps, intrinsics, ii_t, jj_t)
             residual = (target_cam - coords1) * valid
             delta_dy = upd["delta_dy"][None].float() * (1 - bin_mask)
+            disps_up = (cvx_upsample(disps[0, kx, :, :, None],
+                                     upmask[kx].float())[None, ..., 0]
+                        if want_up else None)
+            aff = upd["aff_params"][None] if self.use_aff_bri else None
+            return (net, poses, disps, coords1, target_cam, delta_dy,
+                    raw_mask, residual, mask, disps_up, aff)
+
+        out = {k: [] for k in ("poses", "disps_up", "residuals",
+                               "masks_up", "flows", "aff_params")}
+        for it in range(num_steps):
+            poses, disps, coords1, target_cam, delta_dy, raw_mask = (
+                t.detach() for t in (poses, disps, coords1, target_cam,
+                                     delta_dy, raw_mask))
+            want_up = (not final_only) or (it == num_steps - 1)
+            args = (net, poses, disps, coords1, target_cam, delta_dy,
+                    raw_mask, want_up)
+            (net, poses, disps, coords1, target_cam, delta_dy, raw_mask,
+             residual, mask, disps_up, aff) = (
+                checkpoint(one_step, *args, use_reentrant=False) if remat
+                else one_step(*args))
 
             out["poses"].append(poses)
             out["residuals"].append(residual)
+            if self.use_aff_bri:
+                out["aff_params"].append(aff)
             if not want_up:
                 continue
-            out["disps_up"].append(cvx_upsample(
-                disps[0, kx, :, :, None], upmask[kx].float())[None, ..., 0])
+            out["disps_up"].append(disps_up)
             out["masks_up"].append(upsample_inter(mask))
             if ret_flow:
                 flow = coords1 + delta_dy - coords0

@@ -1,4 +1,4 @@
-"""Shared layers: instance norm, the gradient-clip marker, conv init.
+"""Shared layers: instance norm, gradient clipping, conv init.
 
 Port of :mod:`pvo_tpu.vo.net.layers`. The modules of this package keep
 the JAX package's channels-last (NHWC) layout at their public
@@ -46,13 +46,37 @@ def make_norm(norm_fn: str) -> nn.Module:
     raise NotImplementedError(f"norm_fn={norm_fn!r}")
 
 
+class _ClipGrad(torch.autograd.Function):
+    """Identity forward; the backward zeroes gradient entries with
+    |g| > clip or NaN (reference modules/clipping.py:7-24)."""
+
+    @staticmethod
+    def forward(ctx, x, clip):
+        ctx.clip = clip
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        bad = torch.isnan(g) | (torch.abs(g) > ctx.clip)
+        return torch.where(bad, torch.zeros_like(g), g), None
+
+
+def grad_clip(x, clip=0.01):
+    """The JAX module's ``grad_clip``: identity, clipped backward."""
+    return _ClipGrad.apply(x, clip)
+
+
 class GradientClip(nn.Module):
-    """Identity in the forward pass (the reference's GradientClip marks
-    where gradients are clipped in training; that backward is not ported
-    yet)."""
+    """The reference's GradientClip: identity in the forward pass; in the
+    backward, gradient entries above ``clip`` in magnitude or NaN are
+    zeroed."""
+
+    def __init__(self, clip=0.01):
+        super().__init__()
+        self.clip = clip
 
     def forward(self, x):
-        return x
+        return grad_clip(x, self.clip)
 
 
 def init_conv_weights(module: nn.Module, generator: torch.Generator):

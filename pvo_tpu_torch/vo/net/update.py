@@ -8,6 +8,10 @@ hidden states over edges sharing a source frame (scatter-mean with f32
 accumulation via ``index_add_``) and produces per-frame BA damping.
 Edges are a flat leading dim (E, H, W, C); module names follow the
 reference state dict (``update.corr_encoder.0``, ``update.agg.eta.0``).
+With ``use_aff_bri`` the operator also predicts per-edge affine
+brightness parameters (``update.global_avg_pool.0``,
+``update.param_linear.0``), which the photometric training loss applies
+to the warped image.
 """
 
 from __future__ import annotations
@@ -83,8 +87,9 @@ class DynamicUpdateModule(nn.Module):
     HEADS = (("delta", "delta"), ("delta_dy", "delta_dy"),
              ("weight_logits", "weight"), ("delta_mask", "delta_mask"))
 
-    def __init__(self):
+    def __init__(self, use_aff_bri=False):
         super().__init__()
+        self.use_aff_bri = use_aff_bri
         self.corr_encoder = nn.Sequential(
             nn.Conv2d(CORR_PLANES, 128, 1), nn.ReLU(),
             nn.Conv2d(128, 128, 3, padding=1), nn.ReLU())
@@ -97,6 +102,13 @@ class DynamicUpdateModule(nn.Module):
         self.weight = _head(2)
         self.delta_mask = _head(MASK_NUM)
         self.agg = GraphAgg()
+        if use_aff_bri:
+            # conv, ReLU, spatial mean, clipped gradient; then (a, b)
+            self.global_avg_pool = nn.Sequential(
+                nn.Conv2d(128, 128, 3, padding=1), nn.ReLU(),
+                nn.AdaptiveAvgPool2d(1), nn.Flatten(), GradientClip())
+            self.param_linear = nn.Sequential(nn.Linear(128, 2),
+                                              nn.Sigmoid())
 
     def forward_nchw(self, net, inp, corr, motion, ctx_pre=None,
                      gru_nc=None):
@@ -110,6 +122,8 @@ class DynamicUpdateModule(nn.Module):
         out = {"net": net}
         for key, name in self.HEADS:
             out[key] = getattr(self, name)(net)
+        if self.use_aff_bri:
+            out["aff_params"] = self.param_linear(self.global_avg_pool(net))
         return out
 
     def forward(self, net, inp, corr, motion, ctx_pre=None, gru_nc=None):
@@ -117,9 +131,11 @@ class DynamicUpdateModule(nn.Module):
         corr 196, motion 8. With ``ctx_pre`` (NHWC gate contributions of
         the context features, see factor_graph.gru_ctx_pre) ``inp`` is
         ignored and ``gru_nc`` holds the ctx-sliced gate kernels.
-        Returns dict: net, delta, delta_dy, weight_logits, delta_mask."""
+        Returns dict: net, delta, delta_dy, weight_logits, delta_mask and,
+        with ``use_aff_bri``, aff_params (E, 2)."""
         p = (lambda t: None if t is None else t.permute(0, 3, 1, 2))
         pre = None if ctx_pre is None else tuple(p(t) for t in ctx_pre)
         out = self.forward_nchw(p(net), p(inp), p(corr), p(motion),
                                 ctx_pre=pre, gru_nc=gru_nc)
-        return {k: v.permute(0, 2, 3, 1) for k, v in out.items()}
+        return {k: v.permute(0, 2, 3, 1) if v.dim() == 4 else v
+                for k, v in out.items()}

@@ -13,12 +13,13 @@ the per-edge hidden state are stored bf16, the encoders, the motion
 filter's probe, geometry and DBA run in f32. TF32 is switched off for
 matmuls and cuDNN convolutions when the system is built.
 
+``cfg.use_aff_bri`` builds the update operator with its
+affine-brightness head, as the JAX system does; tracking computes the
+head's output and does not use it (the photometric training loss does).
+
 Not ported yet: the device-resident planner (``cfg.pipeline`` is
-ignored: the port always runs the classic host loop), the YUV upload
-packing (``cfg.yuv420_upload`` is ignored) and the update operator's
-affine-brightness head: ``cfg.use_aff_bri=True`` raises, since the
-port's ``DynamicUpdateModule`` has no such head yet (it comes with VO
-training, ROADMAP.md Queue 1 item 5).
+ignored: the port always runs the classic host loop) and the YUV upload
+packing (``cfg.yuv420_upload`` is ignored).
 """
 
 from __future__ import annotations
@@ -55,17 +56,15 @@ class VOSystem:
         tests pin f32)."""
         self.device = open_device(device)
         self.cfg = cfg or VOConfig()
-        if self.cfg.use_aff_bri:
-            raise NotImplementedError(
-                "cfg.use_aff_bri=True: the port's update operator has no "
-                "affine-brightness head yet; it comes with VO training "
-                "(ROADMAP.md Queue 1 item 5)")
 
         if net is None and weights_path is not None:
             from pvo_tpu_torch.utils.convert import load_droidnet_torch
             net = load_droidnet_torch(weights_path)
         if net is None:
-            net = DroidNet.from_seed(seed)
+            net = DroidNet.from_seed(seed, use_aff_bri=self.cfg.use_aff_bri)
+        if self.cfg.use_aff_bri and not net.use_aff_bri:
+            raise ValueError("cfg.use_aff_bri=True, but the weights lack "
+                             "the affine-brightness head")
         self.net = net.to(self.device).eval()
 
         # bf16 recurrent operator on the card (the reference autocasts

@@ -194,6 +194,21 @@ def test_import_walk_covers_the_loop_slice(rel):
     test_import_walk_covers_the_vps_slice(rel)
 
 
+TRAIN_SLICE = ("vo/losses.py", "data/graph_utils.py", "data/augmentation.py",
+               "data/vkitti2.py", "data/tartan.py",
+               "parallel/data_parallel.py", "utils/checkpoint.py",
+               "utils/logger.py", "scripts/train_vo.py",
+               "scripts/bench_train_vo.py")
+
+
+@pytest.mark.parametrize("rel", TRAIN_SLICE)
+def test_import_walk_covers_the_train_slice(rel):
+    """The walks above read each of the VO training slice's files (no
+    JAX, no module-level cv2 or PIL); their imports of the port's own
+    modules resolve to files of the port."""
+    test_import_walk_covers_the_vps_slice(rel)
+
+
 def test_port_config_equals_the_jax_package_config():
     ours = [(f.name, f.type, f.default) for f in dataclasses.fields(VOConfig)]
     theirs = [(f.name, f.type, f.default)

@@ -1,5 +1,6 @@
 """The f32 route of the port's correlation kernels, held on the CPU, and
-two repairs of what the port dropped without a word.
+two repairs of what the port dropped without a word (the second now
+holds the affine-brightness head, ported with VO training).
 
 K1 and K3 hand f32 features to the tensor cores in two TF32 parts each
 (``cuda_corr.tf32_split``) and form a product in three passes. The
@@ -173,12 +174,18 @@ def test_f32_kernels_state_the_widths_they_take():
 # ---- what the port dropped without a word
 
 def test_vosystem_raises_on_use_aff_bri():
-    """The port's update operator has no affine-brightness head: a
-    configuration that asks for it is refused, not run without it."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        VOSystem(VOConfig(image_size=(64, 96), use_aff_bri=True),
+    """``use_aff_bri`` builds the update operator's affine-brightness
+    head (it was refused before the head was ported); weights without
+    the head are refused for such a configuration, not run without it."""
+    s = VOSystem(VOConfig(image_size=(64, 96), buffer=8, use_aff_bri=True),
                  device="cpu")
-    VOSystem(VOConfig(image_size=(64, 96), buffer=8), device="cpu")
+    assert s.net.use_aff_bri and s.update.use_aff_bri
+    assert s.net.update.param_linear[0].weight.shape == (2, 128)
+    with pytest.raises(ValueError, match="affine-brightness"):
+        VOSystem(VOConfig(image_size=(64, 96), use_aff_bri=True),
+                 net=DroidNet.from_seed(0), device="cpu")
+    s = VOSystem(VOConfig(image_size=(64, 96), buffer=8), device="cpu")
+    assert not s.net.use_aff_bri
 
 
 @pytest.mark.parametrize("key, ignore, raises", [
@@ -189,14 +196,21 @@ def test_vosystem_raises_on_use_aff_bri():
     (None, (), False)])
 def test_checkpoint_keys_the_port_does_not_model_raise(tmp_path, monkeypatch,
                                                        key, ignore, raises):
+    """A key the port does not model raises. A key of the
+    affine-brightness head makes the loader build the head, so a lone
+    one raises for the head's other keys, which the checkpoint lacks (a
+    whole head loads: tests/test_torch_port_train_step.py)."""
     monkeypatch.setattr(convert, "IGNORED_KEY_PREFIXES", ignore)
     sd = DroidNet.from_seed(0).state_dict()
     if key is not None:
         sd[key] = torch.zeros(2, 2)
     path = str(tmp_path / "droid.pth")
     torch.save(sd, path)
+    aff = key is not None and \
+        key.replace("module.", "").startswith(convert.AFF_BRI_PREFIXES)
     if raises:
-        with pytest.raises(KeyError, match="does not model"):
+        with pytest.raises(KeyError,
+                           match="lacks" if aff else "does not model"):
             convert.load_droidnet_torch(path)
     else:
         net = convert.load_droidnet_torch(path)

@@ -3,8 +3,9 @@
     python3 chip_smoke.py            the whole run
     python3 chip_smoke.py main       only the named phases (kernels,
                                      packed, reference, main, harness,
-                                     export, vps, loop, train), without
-                                     the result lines
+                                     export, vps, loop, train,
+                                     vps_train), without the result
+                                     lines
 
 Phases, one line each (any failure exits non-zero):
   1. device   - requires CUDA; prints the card's name and power limit;
@@ -122,16 +123,17 @@ Phases, one line each (any failure exits non-zero):
                 seconds. The artifacts of tests/test_pvo_loop.py
                 scaled to 64 frames; K1, K2, K3 bf16 and K3 f32 each
                 launched in the loop, and each test_vo2 stage 0/0/15
-                launches a pair (K3 f32 only).
+                launches a pair (K3 f32 only); whether the two
+                iterations' test_vo (equal inputs, J2) make the same
+                keyframe decisions is printed (B5).
  10. train    - VO training (parallel/data_parallel.py, f32, TF32 off,
                 the plain differentiable lookup). (a) one restart pass
                 (sup, 48x64, F=4, 2 iterations, tame_net(0,
                 mask_bias=-2)) on the CPU and on the card: loss within
                 1e-4 relative; every weight tensor's gradient above 1e-4
-                of the total norm within 1e-3 relative L2 with cuDNN
-                off, and with cuDNN on (what training runs; its
-                convolution backward moves fnet's first layers 3e-3 to
-                5e-3) at cos > 0.99 and a norm ratio of 0.95-1.05; (b)
+                of the total norm within 5e-4 relative L2 with cuDNN on
+                (what training runs) and off (B4: TF32 off through
+                PyTorch's newer precision API too, utils/device.py); (b)
                 bench_train_vo's default protocol (sup, 4 iterations,
                 48x64, F=4, 200 steps on one batch, random weights):
                 finite losses, a checkpoint round trip bit-equal, the
@@ -149,6 +151,20 @@ Phases, one line each (any failure exits non-zero):
                 the plain lookup's forward and backward alone at the
                 recipe's shapes; (d) K1-K3, P1 and P2 launched 0 times
                 in (b) and (c) ("launches_train" in the kernels line).
+ 11. vps_train- VPS training (vps/train.py, f32, TF32 off). (a) the full
+                and the fusion loss at 64x96 on the R-50 (random weights
+                from seed 0, fixed RPN priorities), card against CPU with
+                cuDNN on and off: loss within 1e-4 relative, every
+                tensor's gradient above 1e-4 of the total norm within
+                VPS_GRAD_TOL relative L2; (b) bench_train_vps's fusion
+                finetune (64x96, 150 steps: the last loss below 0.9 of
+                the first) and bench_vps_train's full model (R-50 at
+                384x1248, tamed weights, 60 steps: finite losses that
+                fall), steps/s and peak memory; (c) one full step at
+                384x1248 timed and under torch.profiler: kernel ms,
+                launches, busy share, the five costliest kernels; (d)
+                K1-K3, P1 and P2 launched 0 times in (b) and (c)
+                ("launches_vps_train" in the kernels line).
 Then the whole run's seconds, one JSON line of kernel results, the card's
 name and power limit, and the contract line {"ok": true, "device": {...}}.
 """
@@ -170,8 +186,10 @@ import torch
 from pvo_tpu_torch.data.synth_scene import write_synth_scene
 from pvo_tpu_torch.parallel import data_parallel as dp
 from pvo_tpu_torch.geom.depth_filter import depth_consistency_count
-from pvo_tpu_torch.scripts import (bench_train_vo, bench_vo2_export, kbench,
-                                   prepare_vkitti, run_pvo_loop, train_vo)
+from pvo_tpu_torch.scripts import (bench_train_vo, bench_train_vps,
+                                   bench_vo2_export, bench_vps_train,
+                                   fault_probe, kbench, prepare_vkitti,
+                                   run_pvo_loop, train_vo)
 from pvo_tpu_torch.scripts.bench_track import (RANGE_PREFIXES, corr_rows,
                                                kernel_rows, profiled,
                                                synth_stream, tame_net,
@@ -265,10 +283,16 @@ LOOP_ROWS = ("build_volumes", "corr_extract", "corr_lookup",
 # driver passes none) admits and removes keyframes and stays finite
 LOOP_HEAD_SCALE, LOOP_MASK_BIAS = 0.2, -2.0
 # phase 10: the card's training pass against the CPU's (loss relative,
-# gradient relative L2 a tensor with cuDNN off), the default protocol's
-# steps, the recipe's outer steps
-TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
+# gradient relative L2 a tensor, cuDNN on and off), the default
+# protocol's steps, the recipe's outer steps
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-4, 5e-4
 TRAIN_DEFAULT_STEPS, TRAIN_RECIPE_STEPS = 200, 10
+# phase 11: the card's VPS training loss and gradients against the CPU's
+# (relative; relative L2 a tensor: cuDNN's f32 convolution gradients,
+# 3e-7-8e-6 relative an op, put the R-50's 5.1e-5 from the CPU's at
+# worst, fault_probe b4ops and vps), and the full bench's steps
+VPS_LOSS_TOL, VPS_GRAD_TOL = 1e-4, 2e-4
+VPS_FULL_STEPS = 60
 P2_VARIANTS = (
     (dict(), ("X2", "X3", "X4", "X5")),
     (dict(weights="bf16"), ("X2",)),
@@ -1520,7 +1544,8 @@ def loop_stage_counter(rows):
                    launches={k: after[k] - before[k] for k in after})
         if script == "test_vo":
             row.update(admitted=kf[0] + len(removed), removed=len(removed),
-                       keyframes=kf[0], backend_edges=list(edges))
+                       keyframes=kf[0], backend_edges=list(edges),
+                       removed_ix=list(removed))
         if stitch:
             row.update(stitched_frames=len(stitch), stitch_s=sum(stitch))
         rows.append(row)
@@ -1608,6 +1633,12 @@ def run_loop():
     if missing or export != [per_export] * LOOP_ITERS:
         raise AssertionError(f"loop launches {total}, never launched "
                              f"{missing}; test_vo2 {export}")
+    # B5: the iterations' test_vo run on equal inputs (J2); index_add_'s
+    # atomics let their keyframe decisions differ (printed, not held)
+    vo_runs = [{k: r[k] for k in ("admitted", "removed_ix", "keyframes",
+                                  "backend_edges")}
+               for r in rows if r["stage"] == "test_vo"]
+    log("loop", check="test_vo_repeats", equal=vo_runs[0] == vo_runs[1])
     return total
 
 
@@ -1630,53 +1661,30 @@ def reset_corr_launches():
 def train_card_against_cpu():
     """Phase 10 (a): one restart pass (sup, 48x64, F=4, 2 iterations) on
     the same weights and batch on the CPU and on the card, there with
-    cuDNN off (PyTorch's own CUDA convolutions) and on (what training
-    runs). Every weight tensor's gradient above 1e-4 of the total norm:
-    with cuDNN off within TRAIN_GRAD_TOL relative L2 of the CPU's; with
-    cuDNN on by direction and norm (cos > 0.99, norm ratio 0.95-1.05,
-    tests/test_nets.py's criterion): cuDNN's own convolution backward
-    puts fnet's first layers' gradients 3e-3 to 5e-3 from the CPU's, the
-    same with cudnn.deterministic or cudnn.benchmark. The loss within
-    TRAIN_LOSS_TOL relative either way."""
-    F, H, W = 4, 48, 64
-    ii, jj = dp.losses.ring_graph(F)
-    batch = dp.make_synthetic_batch(1, F=F, H=H, W=W, seed=0)
-
-    def one_pass(dev):
-        net = tame_net(0, mask_bias=-2.0).to(dev).train()
-        tx = dp.make_optimizer(net.parameters(), total_steps=100)
-        pass_fn, _, _ = dp.make_restart_step(net, tx, ii, jj, num_steps=2,
-                                             mode="sup")
-        b = dp.to_device(batch, dev)
-        loss, _, grads, _ = pass_fn(b, b["poses_init"], b["disps_init"])
-        return float(loss), {k: g.double().cpu() for k, g in grads.items()}
-
-    lp, gp = one_pass("cpu")
+    cuDNN on (what training runs) and off (PyTorch's own CUDA
+    convolutions): the loss within TRAIN_LOSS_TOL relative, every weight
+    tensor's gradient above 1e-4 of the total norm within TRAIN_GRAD_TOL
+    relative L2 of the CPU's. With cuDNN's weight gradients in fnet's
+    instance-normed convolutions (before B4's fix, vo/net/layers.py
+    NormedConv2d) fnet's first residual layers read 4.45e-3."""
+    batch = dp.make_synthetic_batch(1, F=4, H=48, W=64, seed=0)
+    lp, gp = fault_probe.vo_pass(tame_net(0, mask_bias=-2.0).train(), "cpu",
+                                 batch)
     total = float(torch.sqrt(sum((g ** 2).sum() for g in gp.values())))
-    with patched(torch.backends.cudnn, "enabled", False):
-        native = one_pass("cuda")
+    net = tame_net(0, mask_bias=-2.0).cuda().train()
     ok = True
-    for tag, (lc, gc) in (("cudnn_off", native), ("cudnn_on", one_pass("cuda"))):
-        worst, worst_cos, n = 0.0, 1.0, 0
-        for k, g in gp.items():
-            a, na, nb = gc[k], float(gc[k].norm()), float(g.norm())
-            if max(na, nb) < 1e-4 * total:
-                continue
-            n += 1
-            worst = max(worst, float((a - g).norm()) / nb)
-            cos = float((a * g).sum()) / (na * nb)
-            worst_cos = min(worst_cos, cos)
-            if tag == "cudnn_on" and not (cos > 0.99 and
-                                          0.95 < na / nb < 1.05):
-                ok = False
+    for tag, cudnn in (("cudnn_on", True), ("cudnn_off", False)):
+        with patched(torch.backends.cudnn, "enabled", cudnn):
+            lc, gc = fault_probe.vo_pass(net, "cuda", batch)
+        errs = fault_probe.rel_errors(gc, gp, total)
+        worst = max(errs, key=errs.get)
         loss_rel = abs(lc - lp) / abs(lp)
         log("train", check=f"card_vs_cpu_{tag}", loss_cuda=f"{lc:.6f}",
             loss_cpu=f"{lp:.6f}", loss_rel_err=f"{loss_rel:.3g}",
-            tensors=n, grad_worst_rel_l2=f"{worst:.3g}",
-            grad_worst_cos=f"{worst_cos:.6f}")
-        ok &= loss_rel <= TRAIN_LOSS_TOL and n >= 60
-        if tag == "cudnn_off":
-            ok &= worst <= TRAIN_GRAD_TOL
+            tensors=len(errs), grad_worst_rel_l2=f"{errs[worst]:.3g}",
+            worst=worst)
+        ok &= (loss_rel <= TRAIN_LOSS_TOL and len(errs) >= 60
+               and errs[worst] <= TRAIN_GRAD_TOL)
     if not ok:
         raise AssertionError("the card's gradients disagree with the CPU's")
 
@@ -1693,7 +1701,7 @@ def train_default():
     res = bench_train_vo.default_protocol(steps=TRAIN_DEFAULT_STEPS,
                                           device="cuda")
     finite = bool(np.isfinite(res["loss_curve"]).all())
-    learned = res["gt_l_last10pct"] < 0.5 * res["gt_l_first10pct"]
+    learned = res["canary_ok"]
     log("train", protocol="default", steps=TRAIN_DEFAULT_STEPS,
         steps_per_sec=f"{res['steps_per_sec']:.3f}",
         first_step_s=f"{res['first_step_s']:.2f}",
@@ -1845,10 +1853,105 @@ def run_train():
     return launches
 
 
+def vps_train_card_against_cpu():
+    """Phase 11 (a): the full and the fusion loss of vps/train.py at 64x96
+    on the R-50 Panoptic FPN (random weights from seed 0, the RPN
+    subsample on fixed priorities), card against CPU, with cuDNN on (what
+    training runs) and off: the loss within VPS_LOSS_TOL relative, every
+    tensor's gradient above 1e-4 of the total norm within VPS_GRAD_TOL
+    relative L2 (fault_probe.vps_card_errors)."""
+    ok = True
+    for mode in ("full", "fusion"):
+        for cudnn, (loss_rel, errs) in fault_probe.vps_card_errors(
+                mode).items():
+            worst = max(errs, key=errs.get)
+            log("vps_train", check=f"card_vs_cpu_{mode}", cudnn=cudnn,
+                loss_rel_err=f"{loss_rel:.3g}", tensors=len(errs),
+                grad_worst_rel_l2=f"{errs[worst]:.3g}", worst=worst)
+            ok &= (loss_rel <= VPS_LOSS_TOL and len(errs) >= 60
+                   and errs[worst] <= VPS_GRAD_TOL)
+    if not ok:
+        raise AssertionError("the card's VPS gradients disagree with the "
+                             "CPU's")
+
+
+def vps_train_benches():
+    """Phase 11 (b): bench_train_vps's fusion finetune (64x96, 150
+    steps; the last loss below 0.9 of the first) and bench_vps_train's
+    full model (R-50 at 384x1248, VPS_FULL_STEPS steps; finite losses
+    that fall), with steps/s and peak memory."""
+    fus = bench_train_vps.fusion_protocol(device="cuda")
+    log("vps_train", protocol="fusion", steps=150,
+        vps_fusion_train_loss_ratio=f"{fus['value']:.4f}",
+        loss_initial=f"{fus['loss_initial']:.3f}",
+        loss_final=f"{fus['loss_final']:.3f}",
+        steps_per_sec=f"{fus['steps_per_sec']:.3f}",
+        first_step_s=f"{fus['first_step_s']:.2f}",
+        peak_mem_gib=f"{fus['peak_mem_gib']:.3f}")
+    full = bench_vps_train.full_protocol(VPS_FULL_STEPS, "cuda")
+    log("vps_train", protocol="full", steps=VPS_FULL_STEPS,
+        vps_train_steps_per_sec=f"{full['value']:.3f}",
+        ms_per_step=f"{full['ms_per_step']:.1f}",
+        init_s=f"{full['init_s']:.2f}",
+        first_step_s=f"{full['first_step_s']:.2f}",
+        first_step_loss=f"{full['first_step_loss']:.3f}",
+        loss_first=f"{full['loss_first']:.3f}",
+        loss_last=f"{full['loss_last']:.3f}",
+        peak_mem_gib=f"{full['peak_mem_gib']:.3f}")
+    if not fus["loss_final"] < 0.9 * fus["loss_initial"]:
+        raise AssertionError(f"fusion finetune: {fus['loss_curve']}")
+    bench_vps_train.check(full)
+
+
+def vps_train_profile():
+    """Phase 11 (c): one full step at 384x1248 timed (wall, synchronized)
+    and under torch.profiler: kernel ms, launches, busy share, the five
+    costliest kernels."""
+    step, state, batch, _ = bench_vps_train.full_setup("cuda")
+    for _ in range(2):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    with profiled() as prof:
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    kernel_ms, n_kernels = kernel_rows(prof)
+    log("vps_train", step="profiled", wall_ms=f"{wall_ms:.1f}",
+        kernel_ms=f"{kernel_ms:.1f}", kernels=n_kernels,
+        busy_share=f"{kernel_ms / wall_ms:.3f}")
+    rows = sorted((r for r in prof.key_averages()
+                   if r.device_type == torch.autograd.DeviceType.CUDA
+                   and not r.key.startswith(RANGE_PREFIXES)),
+                  key=lambda r: -r.self_device_time_total)[:5]
+    for r in rows:
+        log("vps_train", top_kernel=repr(r.key[:90]),
+            ms=f"{r.self_device_time_total / 1e3:.2f}", count=r.count)
+
+
+def run_vps_train():
+    """Phase 11: VPS training on the card. Returns the corr kernels'
+    launches in (b) and (c), which must all be 0: VPS reaches none."""
+    t0 = time.perf_counter()
+    vps_train_card_against_cpu()
+    reset_corr_launches()
+    vps_train_benches()
+    vps_train_profile()
+    launches = corr_launches()
+    log("vps_train", launches=repr(launches),
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    if any(launches.values()):
+        raise AssertionError(f"VPS training launched corr kernels: "
+                             f"{launches}")
+    return launches
+
+
 PHASES = {"kernels": check_kernels, "packed": check_packed,
           "reference": check_reference, "main": run_main_path,
           "harness": run_harnesses, "export": run_export, "vps": run_vps,
-          "loop": run_loop, "train": run_train}
+          "loop": run_loop, "train": run_train, "vps_train": run_vps_train}
 
 
 def main():
@@ -1886,6 +1989,7 @@ def main():
     run_vps()
     loop = run_loop()
     train = run_train()
+    vps_train = run_vps_train()
 
     # K1 and K3 have a row for each feature type. A bf16 row's launches
     # are phase 5's (the video's features); an f32 row's are the timed
@@ -1910,6 +2014,7 @@ def main():
                      for tag, per in export.items()}
         extra["launches_loop"] = loop[row]
         extra["launches_train"] = train[row]
+        extra["launches_vps_train"] = vps_train[row]
         kernels.append({
             "name": row, "route": "cuda",
             "source": "pvo_tpu_torch/csrc/corr.cu", "replaces": REPLACES[k],
@@ -1939,7 +2044,8 @@ def main():
             "launches": n, "max_abs_err": max(err, packed[x]), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound["ms"],
             "bound_by": bound["bound_by"], "library_ms": None,
-            "launches_train": train[kernel], **extra})
+            "launches_train": train[kernel],
+            "launches_vps_train": vps_train[kernel], **extra})
     log("run", seconds=f"{time.perf_counter() - start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(card)

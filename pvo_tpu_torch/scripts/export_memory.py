@@ -16,7 +16,8 @@ Then, with ``torch.backends.cudnn.benchmark`` off and then on: the peak
 and the largest cuDNN workspace (an allocation made under a C++ frame
 that names cuDNN) of one exported pair at 240x808 and of one fused VPS
 frame (f32, full R-50, 375x1242 padded to 384x1248, tamed random
-weights).
+weights). Last, the narrow route in three memory layouts of the
+encoders' convolutions (:func:`layout_effect`, B3).
 """
 
 import sys
@@ -106,6 +107,53 @@ def cudnn_benchmark_effect(net):
     torch.backends.cudnn.benchmark = False
 
 
+# chip_smoke.py's tolerance for the export's outputs (EXPORT_TOL): max |d|
+# of the 1/8-res flow and of the sampled disparity
+LAYOUT_TOL = 1e-3
+
+
+def layout_effect():
+    """B3: the export's narrow route (240x808, 15 iterations, weights of
+    ``tame_net(0, mask_bias=-2)``) with the encoders' convolutions in
+    three memory layouts: their input the channels-last view of the NHWC
+    images (the port before B3), NCHW-contiguous (the port since), and the
+    view with the encoders' weights channels-last too. For each: the peak,
+    the largest cuDNN workspace, and max |d| of the outputs against the
+    contiguous layout."""
+    from pvo_tpu_torch.scripts.bench_track import tame_net
+    from pvo_tpu_torch.vo.net import extractor
+
+    net = tame_net(0, mask_bias=-2.0).cuda().eval()
+    inputs = bench_vo2_export.bench_inputs((240, 808))
+    contiguous = extractor.conv_input
+
+    def weights_channels_last():
+        for enc in (net.fnet, net.cnet):
+            enc.to(memory_format=torch.channels_last)
+
+    variants = (("nchw_contiguous", contiguous, None),
+                ("channels_last_view", extractor.nchw, None),
+                ("channels_last_weights", extractor.nchw,
+                 weights_channels_last))
+    ref = None
+    for tag, conv_input, change in variants:
+        extractor.conv_input = conv_input
+        if change is not None:
+            change()
+        try:
+            run = lambda: export_pair(net, *inputs, iters=15)
+            out = run()
+            peak, ws = recorded(run)
+        finally:
+            extractor.conv_input = contiguous
+        ref = ref or out
+        err = max(float(np.abs(a - b).max()) for a, b in zip(out, ref))
+        ws = "not identified" if ws is None else f"{ws:.1f} MiB"
+        print(f"b3 layout={tag} peak {peak:.3f} GiB, largest cuDNN "
+              f"workspace {ws}, max |d| against nchw_contiguous {err:.3g} "
+              f"(tolerance {LAYOUT_TOL})", flush=True)
+
+
 def main(argv=None):
     require_cuda()
     args = [int(v) for v in (sys.argv[1:] if argv is None else argv)]
@@ -130,6 +178,7 @@ def main(argv=None):
         for mib, site in largest_allocations(snapshot):
             print(f"  {mib:9.1f} MiB  {site}")
     cudnn_benchmark_effect(net)
+    layout_effect()
     print(gpu_line())
 
 

@@ -27,22 +27,92 @@ def _t(a):
     return torch.from_numpy(np.array(a, np.float32))
 
 
-def _conv(node, name, sd):
-    node = node["Conv_0"]
-    sd[f"{name}.weight"] = _t(np.transpose(np.asarray(node["kernel"]),
-                                           (3, 2, 0, 1)))
-    if "bias" in node:
-        sd[f"{name}.bias"] = _t(node["bias"])
+def _oihw(k):
+    return np.transpose(k, (3, 2, 0, 1))
 
 
-def _frozen_bn(node, name, sd):
-    for k in ("weight", "bias", "running_mean", "running_var"):
-        sd[f"{name}.{k}"] = _t(node[k])
+def _fc1(k):
+    """fc1's kernel (7*7*C, out) over the (y, x, c) flattening -> the
+    (out, C*7*7) weight over the (c, y, x) one (fault J1)."""
+    C = k.shape[0] // 49
+    return k.reshape(7, 7, C, -1).transpose(3, 2, 0, 1).reshape(k.shape[1], -1)
 
 
-def _dense(node, name, sd):
-    sd[f"{name}.weight"] = _t(np.transpose(np.asarray(node["kernel"])))
-    sd[f"{name}.bias"] = _t(node["bias"])
+def _deconv(k):
+    # flax's ConvTranspose convolves with the flipped kernel
+    # (pvo_tpu/utils/convert_vps.py:94-98): flip back, HWIO -> IOHW
+    return np.transpose(k[::-1, ::-1], (2, 3, 0, 1))
+
+
+def _same(a):
+    return a
+
+
+def _leaves(p):
+    """(JAX path, port state-dict name, numpy transform) of every leaf of
+    a JAX ``PanopticFPN``'s ``params`` tree."""
+    out = []
+
+    def conv(path, name):
+        out.append((path + ("Conv_0", "kernel"), f"{name}.weight", _oihw))
+        if "bias" in _at(p, path + ("Conv_0",)):
+            out.append((path + ("Conv_0", "bias"), f"{name}.bias", _same))
+
+    def frozen_bn(path, name):
+        for k in ("weight", "bias", "running_mean", "running_var"):
+            out.append((path + (k,), f"{name}.{k}", _same))
+
+    def dense(path, name, kernel=np.transpose):
+        out.append((path + ("kernel",), f"{name}.weight", kernel))
+        out.append((path + ("bias",), f"{name}.bias", _same))
+
+    bu = "backbone.bottom_up"
+    conv(("backbone", "stem_conv1"), f"{bu}.stem.conv1")
+    frozen_bn(("backbone", "stem_conv1_norm"), f"{bu}.stem.conv1.norm")
+    for key, blk in p["backbone"].items():
+        m = re.fullmatch(r"res(\d)_(\d+)", key)
+        if not m:
+            continue
+        base = f"{bu}.res{m.group(1)}.{m.group(2)}"
+        for cv in ("conv1", "conv2", "conv3", "shortcut"):
+            if cv in blk:
+                conv(("backbone", key, cv), f"{base}.{cv}")
+                frozen_bn(("backbone", key, f"{cv}_norm"),
+                          f"{base}.{cv}.norm")
+    for lvl in (2, 3, 4, 5):
+        conv(("fpn", f"lateral{lvl}"), f"backbone.fpn_lateral{lvl}")
+        conv(("fpn", f"output{lvl}"), f"backbone.fpn_output{lvl}")
+    rb = "proposal_generator.rpn_head"
+    conv(("rpn_head", "conv"), f"{rb}.conv")
+    conv(("rpn_head", "objectness"), f"{rb}.objectness_logits")
+    conv(("rpn_head", "anchor_deltas"), f"{rb}.anchor_deltas")
+
+    bh = ("roi_heads", "box_head")
+    dense(bh + ("fc1",), "roi_heads.box_head.fc1", _fc1)
+    dense(bh + ("fc2",), "roi_heads.box_head.fc2")
+    dense(bh + ("cls_score",), "roi_heads.box_predictor.cls_score")
+    dense(bh + ("bbox_pred",), "roi_heads.box_predictor.bbox_pred")
+    mh = ("roi_heads", "mask_head")
+    for i in range(1, 5):
+        conv(mh + (f"mask_fcn{i}",), f"roi_heads.mask_head.mask_fcn{i}")
+    out.append((mh + ("deconv", "kernel"), "roi_heads.mask_head.deconv.weight",
+                _deconv))
+    out.append((mh + ("deconv", "bias"), "roi_heads.mask_head.deconv.bias",
+                _same))
+    conv(mh + ("predictor",), "roi_heads.mask_head.predictor")
+
+    for lvl, k in zip(("p2", "p3", "p4", "p5"), (1, 1, 2, 3)):
+        for i in range(k):
+            t = f"sem_seg_head.{lvl}.{2 * i}"
+            conv(("sem_seg_head", f"{lvl}_conv{i}"), t)
+            out.append((("sem_seg_head", f"{lvl}_norm{i}", "scale"),
+                        f"{t}.norm.weight", _same))
+            out.append((("sem_seg_head", f"{lvl}_norm{i}", "bias"),
+                        f"{t}.norm.bias", _same))
+    conv(("sem_seg_head", "predictor"), "sem_seg_head.predictor")
+    if "fusion_conv1" in p:
+        conv(("fusion_conv1",), "fusion_conv1")
+    return out
 
 
 def stage_blocks_of(names):
@@ -57,61 +127,29 @@ def stage_blocks_of(names):
     return tuple(blocks)
 
 
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def jax_param_names(params) -> Dict[str, str]:
+    """{JAX leaf path ``"backbone/res2_0/conv1/Conv_0/kernel"``: the
+    port's state-dict name} for a JAX ``PanopticFPN``'s variables. The
+    JAX ``FrozenBN`` leaves map to the port's buffers (fault J5)."""
+    return {"/".join(path): name for path, name, _ in
+            _leaves(params["params"])}
+
+
 def state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
-    """JAX ``PanopticFPN`` variables -> the port's state dict."""
+    """JAX ``PanopticFPN`` variables -> the port's state dict. Every
+    transform is a permutation of entries, so the same call maps a
+    gradient tree (``jax.grad`` of the variables) to the port's
+    gradients by name, fc1's columns (J1) and the deconv's flip
+    included."""
     p = params["params"]
-    sd: Dict[str, torch.Tensor] = {}
-    bb, bu = p["backbone"], "backbone.bottom_up"
-    _conv(bb["stem_conv1"], f"{bu}.stem.conv1", sd)
-    _frozen_bn(bb["stem_conv1_norm"], f"{bu}.stem.conv1.norm", sd)
-    for key, blk in bb.items():
-        m = re.fullmatch(r"res(\d)_(\d+)", key)
-        if not m:
-            continue
-        base = f"{bu}.res{m.group(1)}.{m.group(2)}"
-        for cv in ("conv1", "conv2", "conv3", "shortcut"):
-            if cv in blk:
-                _conv(blk[cv], f"{base}.{cv}", sd)
-                _frozen_bn(blk[f"{cv}_norm"], f"{base}.{cv}.norm", sd)
-    for lvl in (2, 3, 4, 5):
-        _conv(p["fpn"][f"lateral{lvl}"], f"backbone.fpn_lateral{lvl}", sd)
-        _conv(p["fpn"][f"output{lvl}"], f"backbone.fpn_output{lvl}", sd)
-    rpn, rb = p["rpn_head"], "proposal_generator.rpn_head"
-    _conv(rpn["conv"], f"{rb}.conv", sd)
-    _conv(rpn["objectness"], f"{rb}.objectness_logits", sd)
-    _conv(rpn["anchor_deltas"], f"{rb}.anchor_deltas", sd)
-
-    bh = p["roi_heads"]["box_head"]
-    k1 = np.asarray(bh["fc1"]["kernel"])            # (7*7*C, out), (y, x, c)
-    C = k1.shape[0] // 49
-    sd["roi_heads.box_head.fc1.weight"] = _t(
-        k1.reshape(7, 7, C, -1).transpose(3, 2, 0, 1).reshape(k1.shape[1], -1))
-    sd["roi_heads.box_head.fc1.bias"] = _t(bh["fc1"]["bias"])
-    _dense(bh["fc2"], "roi_heads.box_head.fc2", sd)
-    _dense(bh["cls_score"], "roi_heads.box_predictor.cls_score", sd)
-    _dense(bh["bbox_pred"], "roi_heads.box_predictor.bbox_pred", sd)
-    mh = p["roi_heads"]["mask_head"]
-    for i in range(1, 5):
-        _conv(mh[f"mask_fcn{i}"], f"roi_heads.mask_head.mask_fcn{i}", sd)
-    # flax's ConvTranspose convolves with the flipped kernel
-    # (pvo_tpu/utils/convert_vps.py:94-98): flip back, HWIO -> IOHW
-    dk = np.asarray(mh["deconv"]["kernel"])[::-1, ::-1]
-    sd["roi_heads.mask_head.deconv.weight"] = _t(np.transpose(dk,
-                                                              (2, 3, 0, 1)))
-    sd["roi_heads.mask_head.deconv.bias"] = _t(mh["deconv"]["bias"])
-    _conv(mh["predictor"], "roi_heads.mask_head.predictor", sd)
-
-    ss = p["sem_seg_head"]
-    for lvl, k in zip(("p2", "p3", "p4", "p5"), (1, 1, 2, 3)):
-        for i in range(k):
-            t = f"sem_seg_head.{lvl}.{2 * i}"
-            _conv(ss[f"{lvl}_conv{i}"], t, sd)
-            sd[f"{t}.norm.weight"] = _t(ss[f"{lvl}_norm{i}"]["scale"])
-            sd[f"{t}.norm.bias"] = _t(ss[f"{lvl}_norm{i}"]["bias"])
-    _conv(ss["predictor"], "sem_seg_head.predictor", sd)
-    if "fusion_conv1" in p:
-        _conv(p["fusion_conv1"], "fusion_conv1", sd)
-    return sd
+    return {name: _t(fn(np.asarray(_at(p, path))))
+            for path, name, fn in _leaves(p)}
 
 
 def panoptic_fpn_from_jax(params, **model_kwargs) -> PanopticFPN:

@@ -1,4 +1,6 @@
-"""Shared layers: instance norm, gradient clipping, conv init.
+"""Shared layers: instance norm, gradient clipping, conv init, and the
+convolution in front of an instance norm (without cuDNN under grad on
+the card, B4).
 
 Port of :mod:`pvo_tpu.vo.net.layers`. The modules of this package keep
 the JAX package's channels-last (NHWC) layout at their public
@@ -8,6 +10,8 @@ channels-last memory format, so no copy is made).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch import nn
@@ -36,6 +40,65 @@ class InstanceNorm(nn.Module):
         mean = x.mean(dim=(-2, -1), keepdim=True)
         var = torch.square(x - mean).mean(dim=(-2, -1), keepdim=True)
         return (x - mean) * torch.rsqrt(var + self.eps)
+
+
+@contextlib.contextmanager
+def cudnn_enabled(flag):
+    """``torch.backends.cudnn.enabled`` for the block, and nothing else
+    (``torch.backends.cudnn.flags()`` would also switch TF32 on: its
+    ``allow_tf32`` defaults to True)."""
+    saved = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = flag
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = saved
+
+
+class NativeConv(torch.autograd.Function):
+    """A module's convolution without cuDNN in its forward and in its
+    backward: PyTorch's own CUDA convolution (the backward reads the
+    cuDNN flag when it runs, so the gradients are recomputed under it)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, module):
+        ctx.module = module
+        ctx.save_for_backward(x, w, b)
+        with cudnn_enabled(False):
+            return module._conv_forward(x, w, b)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w, b = ctx.saved_tensors
+        with torch.enable_grad(), cudnn_enabled(False):
+            x, w = (t.detach().requires_grad_() for t in (x, w))
+            b = None if b is None else b.detach().requires_grad_()
+            leaves = [t for t in (x, w, b) if t is not None]
+            grads = list(torch.autograd.grad(
+                ctx.module._conv_forward(x, w, b), leaves, gy))
+        return grads[0], grads[1], (grads[2] if b is not None else None), \
+            None
+
+
+class NormedConv2d(nn.Conv2d):
+    """A convolution that an instance norm follows. Where gradients flow
+    on the card it runs without cuDNN (:class:`NativeConv`; fault B4):
+    the norm's backward makes the output gradient sum to zero over each
+    channel, so the weight gradient is a small difference of large sums,
+    and cuDNN's f32 weight-gradient kernels (2.6e-6-4e-6 relative on
+    random data, PyTorch's own 1.5e-7) put fnet's first residual layers
+    4.45e-3 from the CPU's gradient. Inference keeps cuDNN."""
+
+    def forward(self, x):
+        if x.is_cuda and torch.is_grad_enabled() and self.weight.requires_grad:
+            return NativeConv.apply(x, self.weight, self.bias, self)
+        return super().forward(x)
+
+
+def make_conv(norm_fn: str, *args, **kwargs) -> nn.Conv2d:
+    """The convolution in front of a ``make_norm(norm_fn)``."""
+    cls = NormedConv2d if norm_fn == "instance" else nn.Conv2d
+    return cls(*args, **kwargs)
 
 
 def make_norm(norm_fn: str) -> nn.Module:

@@ -209,6 +209,19 @@ def test_import_walk_covers_the_train_slice(rel):
     test_import_walk_covers_the_vps_slice(rel)
 
 
+VPS_TRAIN_SLICE = ("vps/config.py", "vps/datasets.py", "vps/losses.py",
+                   "vps/train.py", "scripts/train_vps.py",
+                   "scripts/bench_train_vps.py", "scripts/bench_vps_train.py")
+
+
+@pytest.mark.parametrize("rel", VPS_TRAIN_SLICE)
+def test_import_walk_covers_the_vps_train_slice(rel):
+    """The walks above read each of the VPS training slice's files (no
+    JAX, no module-level cv2 or PIL); their imports of the port's own
+    modules resolve to files of the port."""
+    test_import_walk_covers_the_vps_slice(rel)
+
+
 def test_port_config_equals_the_jax_package_config():
     ours = [(f.name, f.type, f.default) for f in dataclasses.fields(VOConfig)]
     theirs = [(f.name, f.type, f.default)

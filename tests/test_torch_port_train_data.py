@@ -310,6 +310,26 @@ def test_bench_train_vo_cli_on_the_cpu(tmp_path):
     assert not os.listdir(tmp_path)
 
 
+def test_default_protocol_asserts_its_canary(monkeypatch, capsys):
+    """B6: the default protocol's canary is the dynamic-mask BCE (gt_l:
+    its last tenth below half its first), which falls in both packages
+    where the total loss's ratio wanders; at its checked length (20
+    steps) the twin asserts it, and a canary that fails ends the run."""
+    from pvo_tpu_torch.scripts import bench_train_vo
+    steps = str(bench_train_vo.MIN_DEFAULT_CHECKED_STEPS)
+    res = bench_train_vo.main(["--device", "cpu", "--steps", steps])
+    assert res["canary_ok"] is True and res["gt_l_ratio"] < 0.5
+    assert np.isfinite(res["loss_curve"]).all()
+    failing = dict(res, canary_ok=False)
+    monkeypatch.setattr(bench_train_vo, "default_protocol",
+                        lambda *a, **kw: failing)
+    with pytest.raises(SystemExit, match="dynamic-mask BCE did not fall"):
+        bench_train_vo.main(["--device", "cpu", "--steps", steps])
+    # shorter runs report the canary without asserting it
+    bench_train_vo.main(["--device", "cpu", "--steps", "3"])
+    capsys.readouterr()
+
+
 def test_training_entry_points_raise_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present")

@@ -2,15 +2,15 @@
 
     python3 chip_smoke.py            the whole run
     python3 chip_smoke.py main       only the named phases (kernels,
-                                     packed, reference, main, harness,
-                                     export, vps, loop, train,
+                                     packed, reference, main, planner,
+                                     harness, export, vps, loop, train,
                                      vps_train), without the result
                                      lines
 
 Phases, one line each (any failure exits non-zero):
   1. device   - requires CUDA; prints the card's name and power limit;
-  2. build    - compiles pvo_tpu_torch/csrc/corr.cu and corr_exp.cu
-                (nvcc, sm_90a), both at once;
+  2. build    - compiles pvo_tpu_torch/csrc/corr.cu, corr_exp.cu,
+                segsum.cu and cond.cu (nvcc, sm_90a), all at once;
   3. kernels  - each CUDA kernel against its plain PyTorch version on the
                 same inputs, C=128. K1 and K2 at 30x101, E in {1, 24, 48}:
                 <= 2e-2 (bf16 volume); K1 (the bf16 kernel, also at a
@@ -44,18 +44,26 @@ Phases, one line each (any failure exits non-zero):
                 NaN/huge ones, at a ragged 3x17x45 and where the last
                 level is pooled away to nothing, its (block, level)
                 pairs within and above the bounding-box cap equal to
-                the numpy model's (smooth: none above);
+                the numpy model's (smooth: none above). The segment sum
+                (segsum.cu, B5) bit-equal to the CPU's index_add_ at
+                the planner's full-width shapes (GraphAgg, the DBA's
+                Hessian, edge x depth and pair sums), with its time
+                beside the card's index_add_ and its bound;
   4. reference- the port's loop with the kernels against the same loop
                 with their plain versions, on the card: 64x96, 8 frames
                 + terminate(image_stream), same weights (mask logits
                 biased away from the threshold), all 8 poses within
                 1e-3;
-  5. main     - VOSystem at 240x808 (the bench.py configuration, weights
-                of tame_net(0)), 40 frames tracked, then
+  5. main     - VOSystem at 240x808 (the bench.py configuration, the
+                default one: the planner engages at frame 13 and its
+                frames replay one CUDA graph; weights of tame_net(0)),
+                40 frames tracked, then
                 terminate(image_stream, backend_steps=(7, 12)), with
-                every kernel launch counted, and whether the frontend
-                caches K1's volume (narrow stream); fps and ms/frame
-                over the steady state after initialization (t=13..39);
+                every kernel launch counted (a graph's per replay), the
+                segment sum's too, and whether the frontend caches K1's
+                volume (narrow stream); fps and ms/frame over the
+                steady state after initialization (t=13..39), and fps
+                over the replayed frames after the capture;
                 terminate_s (last update + backend) apart from filler_s;
                 the backend's wall time apart from the rest of
                 terminate_s, K3's time inside it (wrapper and kernel
@@ -125,7 +133,7 @@ Phases, one line each (any failure exits non-zero):
                 launched in the loop, and each test_vo2 stage 0/0/15
                 launches a pair (K3 f32 only); whether the two
                 iterations' test_vo (equal inputs, J2) make the same
-                keyframe decisions is printed (B5).
+                keyframe decisions is held (B5).
  10. train    - VO training (parallel/data_parallel.py, f32, TF32 off,
                 the plain differentiable lookup). (a) one restart pass
                 (sup, 48x64, F=4, 2 iterations, tame_net(0,
@@ -165,8 +173,22 @@ Phases, one line each (any failure exits non-zero):
                 launches, busy share, the five costliest kernels; (d)
                 K1-K3, P1 and P2 launched 0 times in (b) and (c)
                 ("launches_vps_train" in the kernels line).
-Then the whole run's seconds, one JSON line of kernel results, the card's
-name and power limit, and the contract line {"ok": true, "device": {...}}.
+ 12. planner  - (run after phase 5) the planner at 240x808 over 40
+                frames of bench_track's stream: classic, planner graph,
+                planner graph, classic, in turns; the eager planner on
+                the card;
+                classic and planner graph under an oracle update core.
+                Held: engage at frame 13; graph replay bit-equal to the
+                eager planner (poses, disparities, decision records);
+                each path's two runs bit-equal (B5); under the oracle
+                core the planner's decisions equal the classic path's,
+                poses within 1e-3; capture fails on any host read.
+                Printed: ms and frames/s a run, device ms, kernels, host
+                CUDA API calls and busy share a frame, capture seconds,
+                the graph's launches a frame.
+Then the whole run's seconds, one JSON line of kernel results (the
+segment sum's row too), the card's name and power limit, and the
+contract line {"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -185,26 +207,31 @@ import torch
 
 from pvo_tpu_torch.data.synth_scene import write_synth_scene
 from pvo_tpu_torch.parallel import data_parallel as dp
+from pvo_tpu_torch.geom import projective
 from pvo_tpu_torch.geom.depth_filter import depth_consistency_count
+from pvo_tpu_torch.lie import se3
 from pvo_tpu_torch.scripts import (bench_train_vo, bench_train_vps,
                                    bench_vo2_export, bench_vps_train,
                                    fault_probe, kbench, prepare_vkitti,
                                    run_pvo_loop, train_vo)
-from pvo_tpu_torch.scripts.bench_track import (RANGE_PREFIXES, corr_rows,
+from pvo_tpu_torch.scripts.bench_track import (RANGE_PREFIXES, api_calls,
+                                               bench_system, corr_rows,
                                                kernel_rows, profiled,
                                                synth_stream, tame_net,
                                                vo_counters)
 from pvo_tpu_torch.scripts.benchmark_vps import tamed_model, timed_pass
 from pvo_tpu_torch.scripts.harness import harness_inputs
 from pvo_tpu_torch.scripts.kbench import (device_time_ms, gpu_line,
-                                          kernel_bound)
+                                          kernel_bound, segsum_bound)
 from pvo_tpu_torch.scripts.test_vo2 import export_pair
 from pvo_tpu_torch.utils.config import VOConfig
 from pvo_tpu_torch.utils.tracing import range_device_ms
+from pvo_tpu_torch.vo import factor_graph, graph_capture
 from pvo_tpu_torch.vo.factor_graph import FactorGraph
 from pvo_tpu_torch.vo.net import corr as corr_plain
 from pvo_tpu_torch.vo.net import cuda_corr
 from pvo_tpu_torch.vo.net import cuda_corr_exp
+from pvo_tpu_torch.vo.net import cuda_segsum
 from pvo_tpu_torch.vo.system import VOSystem
 from pvo_tpu_torch.vps import panoptic_fpn as pfpn
 
@@ -260,6 +287,21 @@ HARNESS = {
 }
 # P2's output-defining variants (X2's rounding, X3's modes) and the X
 # kernels each one stands for
+# the segment sum's checks (rows, segments, row shape) at the planner's
+# full-width shapes at 240x808 (30x101 features): GraphAgg's sum (48
+# edges into the 32-frame window), the DBA's Hessian (4 x 144 BA edges
+# into 32 x 32 blocks and the overflow block), its edge x depth term
+# (144 edges into 32 frames) and the edge x edge pairs (2048 into the
+# blocks)
+SEGSUM_CASES = {"graph_agg": (48, 32, (128, 30, 101)),
+                "dba_hessian": (576, 1025, (6, 6)),
+                "dba_ei": (144, 32, (6, 3030)),
+                "dba_pairs": (2048, 1025, (6, 6))}
+# phase 12: the planner's runs (bench_track's system at 240x808), the
+# frames tracked, the first of the timed steady ones (past the engage at
+# 13, two eager frames and the capture) and the profiled ones after them
+PLANNER_SIZE, PLANNER_FRAMES, PLANNER_STEADY, PLANNER_PROF = \
+    (240, 808), 40, 20, 2
 # phase 5's split of terminate: the ranges read, and those that must
 # hold kernels
 TAIL_RANGES = ("vo.backend.", "vo.filler.")
@@ -464,7 +506,54 @@ def check_kernels():
                features="bf16" if dtype == torch.bfloat16 else "f32",
                entry="gathered")
         torch.cuda.empty_cache()
+    res["segsum"] = check_segsum()
     return res
+
+
+def check_segsum():
+    """Phase 3, the segment sum (csrc/segsum.cu, B5): the kernel against
+    the CPU's index_add_ (the plain version) at the planner's full-width
+    shapes (SEGSUM_CASES), bit for bit, about a tenth of the rows out of
+    range; its time beside the plain version on the card (an overflow
+    row and the card's index_add_), the card's index_add_ alone (the
+    library call, float atomics) and its bound. Returns the kernel row's
+    numbers at the GraphAgg shape, with the largest |kernel - CPU| of
+    all the shapes."""
+    row, worst = {}, 0.0
+    for name, (n, n_out, shape) in SEGSUM_CASES.items():
+        g = torch.Generator().manual_seed(n)
+        x = torch.randn((n,) + shape, generator=g)
+        idx = torch.randint(-1, n_out + 1, (n,), generator=g)
+        out = torch.randn((n_out,) + shape, generator=g)
+        want = cuda_segsum.index_add(out.clone(), idx, x)
+        xd, idd, od = x.cuda(), idx.cuda(), out.cuda()
+        got = cuda_segsum.index_add(od.clone(), idd, xd).cpu()
+        equal = torch.equal(got, want)
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        ok = (idx >= 0) & (idx < n_out)
+        xin, iin = xd[ok.cuda()], idd[ok.cuda()]
+        work = od.clone()
+        ms = device_time_ms(lambda: cuda_segsum.index_add(work, idd, xd))
+        plain_ms = device_time_ms(
+            lambda: cuda_segsum.index_add_plain(work, idd, xd))
+        library_ms = device_time_ms(lambda: work.index_add_(0, iin, xin))
+        D = int(np.prod(shape))
+        bound = segsum_bound(int(ok.sum()), n, n_out, D)
+        log("kernel", name="segsum", case=name, rows=n, segments=n_out,
+            row_values=D, bit_equal_cpu=equal, max_abs_err=f"{err:.3g}",
+            ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            library_ms=f"{library_ms:.4f}", bound_ms=f"{bound['ms']:.4f}",
+            bound_by=bound["bound_by"],
+            share_of_bound=f"{bound['ms'] / ms:.4f}")
+        if not equal:
+            raise AssertionError(f"segsum {name}: not the CPU's index_add_")
+        if name == "graph_agg":
+            row = {"ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound["ms"], "bound_by": bound["bound_by"],
+                   "library_ms": library_ms}
+    row["err"] = worst
+    return row
 
 
 def check_lookup(shape, dtype, record):
@@ -840,7 +929,10 @@ def check_reference():
 def run_main_path():
     """Phase 5: returns the kernel launch counts of the run, K1's and
     K3's split by feature type (F32_ROWS: the motion filter's probe is
-    the run's f32 K3; the video's features are bf16, so no f32 K1)."""
+    the run's f32 K3; the video's features are bf16, so no f32 K1), and
+    the segment sum's ("segsum"). The configuration is bench.py's, the
+    default one: the planner engages after initialization and its frames
+    replay one CUDA graph, whose launches are counted per replay."""
     H, W, n_frames = 240, 808, 40
     cfg = VOConfig(image_size=(H, W), buffer=128, filter_thresh=0.01,
                    keyframe_thresh=0.0, warmup=12, segm_filter=True)
@@ -880,14 +972,21 @@ def run_main_path():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_corr.reset_launches()
+    cuda_segsum.reset_launches()
 
-    times = []
+    times, engaged_at = [], None
     for t, img, intr, segm in frames:
         f0 = time.perf_counter()
         sysm.track(t, img, intr, segments=segm)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - f0)
-    tracked = dict(cuda_corr.LAUNCHES)
+        if engaged_at is None and sysm.planner.engaged:
+            engaged_at = t
+    # every decision record resolved, so every replay counted
+    planner = sysm.planner
+    replays = planner.frame_graph.replays if planner.frame_graph else 0
+    planner.disengage()
+    tracked = dict(cuda_corr.LAUNCHES, **cuda_segsum.LAUNCHES)
     cuda_corr.reset_routes()
     with contextlib.ExitStack() as stack:
         for entry in ("corr_lookup", "corr_lookup_indexed"):
@@ -905,13 +1004,20 @@ def run_main_path():
     # terminate_s: the last frontend update and the backend, as measured
     # before terminate filled every frame; filler_s: the filler
     term_s = time.perf_counter() - t0 - filler_s[0]
-    launches = dict(cuda_corr.LAUNCHES)
+    launches = dict(cuda_corr.LAUNCHES, **cuda_segsum.LAUNCHES)
     f32_launches = dict(cuda_corr.F32_LAUNCHES)
 
     # the frontend initializes at t=12 (warmup 12, admission committed
-    # one frame late); steady state is t=13..39
+    # one frame late); steady state is t=13..39; the planner engages at
+    # t=13, runs eager frames, captures and then replays
     meas = times[13:]
-    log("main", image=f"{H}x{W}", frames=n_frames,
+    replayed = times[n_frames - replays + 1:] if replays > 1 else []
+    if engaged_at != 13 or len(replayed) < 10:
+        raise AssertionError(f"planner engaged at {engaged_at}, "
+                             f"{replays} replays")
+    log("main", image=f"{H}x{W}", frames=n_frames, engaged_at=engaged_at,
+        graph_replays=replays,
+        fps_replayed=f"{len(replayed) / sum(replayed):.3f}",
         keyframes=sysm.video.counter,
         volume_cached=cuda_corr.volume_cache_ok(sysm.video.h, sysm.video.w),
         fps=f"{len(meas) / sum(meas):.3f}",
@@ -970,6 +1076,214 @@ def run_main_path():
         raise AssertionError(f"launches on the main path: {launches}; never "
                              f"launched: {missing}")
     return launches
+
+
+def oracle_core(n):
+    """An update core that sets every edge's target to the reprojection
+    by a fixed smooth trajectory of ``n`` frames at unit disparity, with
+    full weight and fixed damping (tests/test_torch_port_planner.py's
+    oracle): bit-stable outputs, so that the planner's decisions can be
+    held against the classic path's while its padded widths reorder f32
+    sums."""
+    tang = torch.zeros(n, 6)
+    tang[:, 0] = 0.04 * torch.arange(n)
+    tang[:, 4] = 0.01 * torch.arange(n)
+    gt = {}
+
+    def core(graph, net, target, raw, dy, ii, jj, valid, w0, K, corr_fn,
+             ctx_pre, segms_e):
+        v = graph.video
+        F = v.poses.shape[0]
+        if "poses" not in gt:     # made once, on the first (eager) frame
+            gt["poses"] = se3.exp(tang.to(v.poses.device))
+        gt_poses = gt["poses"]
+        gp = torch.cat([gt_poses, gt_poses[-1:].expand(F - n, 7)])[None]
+        gd = torch.ones((1, F) + v.disps.shape[1:], device=v.disps.device)
+        coords, vm = projective.projective_transform(
+            gp, gd, v.intrinsics[0].expand(1, F, 4), ii, jj)
+        target = coords[0]
+        weight = (valid[:, None, None, None].float() *
+                  vm[0].float()).expand_as(target).clone()
+        eta = 1e-4 * torch.ones((K,) + target.shape[1:3], device=ii.device)
+        m = torch.where(valid, ii - w0, torch.full_like(ii, K))
+        has_edge = cuda_segsum.segment_sum(valid.float(), m, K) > 0
+        flow = target - projective.coords_grid(*target.shape[1:3],
+                                               device=ii.device)
+        return net, target, weight, raw, dy, flow, eta, has_edge
+
+    return core
+
+
+def planner_run(path, frames, oracle=False, prof_frames=True):
+    """One run of bench_track's system (240x808, tame_net(0), every frame
+    a keyframe, the segment filter on) over ``frames`` on ``path``:
+    "classic" (pipeline=False), "graph" (the planner, replayed as a CUDA
+    graph) or "eager" (the planner's program run eagerly on the card, the
+    reference the graph is held against). The first PLANNER_FRAMES frames
+    are tracked, the steady ones among them (from PLANNER_STEADY) timed
+    as one block with one synchronize at the end (bench.py's protocol);
+    the rest under torch.profiler. Returns the run's decisions, state and
+    numbers."""
+    sysm = bench_system(PLANNER_SIZE, 128, "cuda",
+                        pipeline=path != "classic")
+    drv = sysm.planner
+    drv.use_graph = path == "graph"
+    records, replayed = [], []
+    resolve = drv._resolve_one
+
+    def resolve_one():
+        replayed.append(drv._records[0][2])
+        records.append(resolve().tolist())
+        return records[-1]
+
+    drv._resolve_one = resolve_one
+    engaged_at = None
+    with patched(factor_graph, "update_core",
+                 oracle_core(len(frames)) if oracle
+                 else factor_graph.update_core):
+        for t, img, intr, segm in frames[:PLANNER_FRAMES]:
+            if t == PLANNER_STEADY:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            sysm.track(t, img, intr, segments=segm)
+            if engaged_at is None and drv.engaged:
+                engaged_at = t
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / (PLANNER_FRAMES - PLANNER_STEADY)
+        with profiled() if prof_frames else contextlib.nullcontext() as prof:
+            for t, img, intr, segm in frames[PLANNER_FRAMES:]:
+                sysm.track(t, img, intr, segments=segm)
+            torch.cuda.synchronize()
+    n_prof = len(frames) - PLANNER_FRAMES
+    device_ms, kernels = ((v / n_prof for v in kernel_rows(prof))
+                          if prof_frames else (None, None))
+    capture_s = drv.frame_graph.capture_s if drv.frame_graph else None
+    launches = (drv.frame_graph.per_replay(drv.sections(records[-1]))
+                if drv.frame_graph else None)
+    drv.disengage()
+    if drv.frame_graph and prof_frames:
+        check_replay_counts(drv, records[-n_prof:], replayed[-n_prof:],
+                            prof)
+    if sysm._pending_adm is not None:
+        sysm.filterx.resolve_track(sysm._pending_adm)
+        sysm._pending_adm = None
+    sysm.frontend.resolve()
+    g, v = sysm.frontend.graph, sysm.video
+    n = v.counter
+    return {
+        "engaged_at": engaged_at, "records": records,
+        "decisions": (n, sysm.frontend.t1,
+                      sorted(zip(g.ii.tolist(), g.jj.tolist(),
+                                 g.age.tolist())),
+                      sorted(zip(g.ii_inac.tolist(), g.jj_inac.tolist())),
+                      v.tstamp[:n].tolist()),
+        "poses": v.poses[:n].cpu(), "disps": v.disps[:n].cpu(),
+        "ms": 1e3 * wall, "device_ms": device_ms, "kernels": kernels,
+        "api_calls": api_calls(prof) / n_prof if prof_frames else None,
+        "busy": device_ms / (1e3 * wall) if prof_frames else None,
+        "capture_s": capture_s,
+        "launches_per_replay": launches}
+
+
+def check_replay_counts(drv, records, replayed, prof):
+    """Holds the launches that FrameGraph.count adds for the profiled
+    replays (per_replay of the sections each frame's record names)
+    against the kernel rows of their profile: K1, K2, K3 and the segment
+    sum."""
+    if not all(replayed):
+        raise AssertionError(f"profiled frames not all replays: {replayed}")
+    derived = {}
+    for rec in records:
+        for k, v in drv.frame_graph.per_replay(drv.sections(rec)).items():
+            derived[k] = derived.get(k, 0) + v
+    rows = {k: n for k, (_, n) in corr_rows(prof).items()}
+    seen = {"build_volumes": rows["K1"], "corr_extract": rows["K2"],
+            "corr_lookup": rows["K3_bf16"] + rows["K3_f32"],
+            "segsum": sum(r.count for r in prof.key_averages()
+                          if r.device_type == torch.autograd.DeviceType.CUDA
+                          and "segsum_kernel" in r.key)}
+    log("planner", replays_profiled=len(records),
+        launches_counted=repr(derived), launches_profiled=repr(seen))
+    if {k: derived.get(k, 0) for k in seen} != seen:
+        raise AssertionError(f"replayed launches counted {derived}, "
+                             f"profiled {seen}")
+
+
+def run_planner():
+    """Phase 12: the planner (vo/planner.py) at 240x808 over 40 frames of
+    bench_track's stream, in one process. Four runs in turns: classic,
+    planner graph, planner graph, classic; then the planner's program run
+    eagerly on the card, and classic and planner graph under an oracle
+    update core (oracle_core). (fault_probe b5 runs the classic path
+    with the card's atomic index_add_ beside the kernel.) Held: the planner
+    engages at frame 13; the graph-replayed planner equals the eager one
+    bit for bit (poses, disparities, decisions, every decision record);
+    each path's two runs are bit-equal (B5); under the oracle core the
+    planner's decisions (keyframes, t1, edges with their ages, inactive
+    edges, timestamps) equal the classic path's and its poses are within
+    1e-3 (with the network, its padded widths reorder f32 sums and the
+    difference is printed). Capture fails on any host read inside the
+    captured frame, and the run with it. Each run's ms a frame (the
+    steady frames, one synchronize), device ms, kernels and host CUDA API
+    calls a frame and the busy share (torch.profiler, PLANNER_PROF more
+    frames), and the graph's launches of each kernel a frame, those
+    counted for the profiled replays held against their profile
+    (check_replay_counts)."""
+    t_phase = time.perf_counter()
+    H, W = PLANNER_SIZE
+    frames = list(synth_stream(PLANNER_FRAMES + PLANNER_PROF, H, W))
+    by = {}
+    fmt = (lambda v, f: None if v is None else format(v, f))
+    for path in ("classic", "graph", "graph", "classic"):
+        r = planner_run(path, frames)
+        by.setdefault(path, []).append(r)
+        log("planner", path=path, engaged_at=r["engaged_at"],
+            keyframes=r["decisions"][0], ms_per_frame=f"{r['ms']:.2f}",
+            fps=f"{1e3 / r['ms']:.3f}",
+            device_ms_per_frame=fmt(r["device_ms"], ".2f"),
+            busy_share=fmt(r["busy"], ".3f"),
+            kernels_per_frame=fmt(r["kernels"], ".0f"),
+            host_api_calls_per_frame=fmt(r["api_calls"], ".1f"),
+            capture_s=fmt(r["capture_s"], ".2f"),
+            graph_launches_per_frame=r["launches_per_replay"])
+    eager = planner_run("eager", frames, prof_frames=False)
+    oracle = {path: planner_run(path, frames, oracle=True, prof_frames=False)
+              for path in ("classic", "graph")}
+    c1, c2 = by["classic"]
+    p1, p2 = by["graph"]
+
+    def same(a, b):
+        return (a["decisions"] == b["decisions"] and
+                torch.equal(a["poses"], b["poses"]) and
+                torch.equal(a["disps"], b["disps"]))
+
+    def against_classic(p, c):
+        diff = (float((p["poses"] - c["poses"]).abs().max())
+                if p["poses"].shape == c["poses"].shape else float("inf"))
+        return p["decisions"] == c["decisions"], diff
+
+    graph_eager = same(p1, eager) and p1["records"] == eager["records"]
+    b5 = {"classic": same(c1, c2), "planner": same(p1, p2)}
+    net_equal, net_diff = against_classic(p1, c1)
+    decisions, pose_diff = against_classic(oracle["graph"], oracle["classic"])
+    log("planner", engaged_at=p1["engaged_at"],
+        graph_equals_eager=graph_eager, repeats_b5=b5,
+        oracle_decisions_equal_classic=decisions,
+        oracle_max_pose_diff_classic=f"{pose_diff:.3g}",
+        network_decisions_equal_classic=net_equal,
+        network_max_pose_diff_classic=f"{net_diff:.3g}",
+        seconds=f"{time.perf_counter() - t_phase:.1f}")
+    if not (p1["engaged_at"] == p2["engaged_at"] ==
+            oracle["graph"]["engaged_at"] == 13 and c1["engaged_at"] is None):
+        raise AssertionError("the planner did not engage at frame 13")
+    if not graph_eager:
+        raise AssertionError("graph replay differs from the eager planner")
+    if not (b5["classic"] and b5["planner"]):
+        raise AssertionError(f"tracking does not repeat itself: {b5}")
+    if not decisions or not pose_diff < 1e-3:
+        raise AssertionError(f"planner against classic (oracle core): "
+                             f"decisions equal {decisions}, poses "
+                             f"{pose_diff}")
 
 
 def terminate_split(sysm, frames):
@@ -1506,7 +1820,8 @@ def loop_checkpoints(root):
 def loop_stage_counter(rows):
     """run_pvo_loop.run_stage that appends one row a stage to ``rows``:
     iteration (0: the initial segmentation), stage, seconds, peak GiB,
-    the corr kernels' launches inside it (LOOP_ROWS), for test_vo the
+    the corr kernels' launches inside it (LOOP_ROWS) and the segment
+    sum's, for test_vo the
     keyframes admitted and removed and the backend's edges, for the VPS
     stages the frames stitched and the host seconds of the stitch."""
     run_stage = run_pvo_loop.run_stage
@@ -1523,7 +1838,8 @@ def loop_stage_counter(rows):
         f32 = cuda_corr.F32_LAUNCHES
         n = {k: cuda_corr.LAUNCHES[k] - f32.get(k, 0)
              for k in cuda_corr.KERNELS}
-        return {**n, **{F32_ROWS[k]: v for k, v in f32.items()}}
+        return {**n, **{F32_ROWS[k]: v for k, v in f32.items()},
+                **cuda_segsum.LAUNCHES}
 
     def counted(script, args_list):
         it = sum(r["stage"] == "test_vo" for r in rows) + \
@@ -1594,7 +1910,8 @@ def check_loop_artifacts(data, shared, n):
 def run_loop():
     """Phase 9: the PVO loop (scripts/run_pvo_loop.py) at full size, two
     iterations, on a synthetic scene written and prepared by the port.
-    Returns the corr kernels' launches inside the loop (LOOP_ROWS)."""
+    Returns the corr kernels' launches inside the loop (LOOP_ROWS) and
+    the segment sum's."""
     t0 = time.perf_counter()
     n = LOOP_FRAMES
     with tempfile.TemporaryDirectory() as root:
@@ -1618,8 +1935,10 @@ def run_loop():
                                shared, "--weights_vo", vo, "--weights_vps",
                                vps, "--device", "cuda"])
         rep = check_loop_artifacts(data, shared, n)
-    total = {k: sum(r["launches"][k] for r in rows) for k in LOOP_ROWS}
-    export = [r["launches"] for r in rows if r["stage"] == "test_vo2"]
+    total = {k: sum(r["launches"][k] for r in rows)
+             for k in (*LOOP_ROWS, "segsum")}
+    export = [{k: r["launches"][k] for k in LOOP_ROWS}
+              for r in rows if r["stage"] == "test_vo2"]
     per_export = {"build_volumes": 0, "corr_extract": 0, "corr_lookup": 0,
                   "build_volumes_f32": 0,
                   "corr_lookup_f32": (n - 1) * EXPORT_ITERS}
@@ -1633,12 +1952,14 @@ def run_loop():
     if missing or export != [per_export] * LOOP_ITERS:
         raise AssertionError(f"loop launches {total}, never launched "
                              f"{missing}; test_vo2 {export}")
-    # B5: the iterations' test_vo run on equal inputs (J2); index_add_'s
-    # atomics let their keyframe decisions differ (printed, not held)
+    # B5: the iterations' test_vo run on equal inputs (J2), so with the
+    # fixed-order sums they make the same keyframe decisions
     vo_runs = [{k: r[k] for k in ("admitted", "removed_ix", "keyframes",
                                   "backend_edges")}
                for r in rows if r["stage"] == "test_vo"]
     log("loop", check="test_vo_repeats", equal=vo_runs[0] == vo_runs[1])
+    if vo_runs[0] != vo_runs[1]:
+        raise AssertionError(f"the two test_vo runs differ: {vo_runs}")
     return total
 
 
@@ -1654,8 +1975,10 @@ def corr_launches():
 
 
 def reset_corr_launches():
+    """Sets the corr kernels' counts and the segment sum's to 0."""
     cuda_corr.reset_launches()
     cuda_corr_exp.reset_launches()
+    cuda_segsum.reset_launches()
 
 
 def train_card_against_cpu():
@@ -1839,18 +2162,20 @@ def train_recipe():
 
 
 def run_train():
-    """Phase 10: VO training on the card. Returns the corr kernels'
-    launches in (b) and (c), which must all be 0: training runs the
-    plain lookup, the kernels have no backward."""
+    """Phase 10: VO training on the card. Returns the launches in (b) and
+    (c) of the corr kernels, which must all be 0 (training runs the plain
+    lookup, the kernels have no backward), and of the segment sum
+    (GraphAgg's forward)."""
     train_card_against_cpu()
     reset_corr_launches()
     train_default()
     train_recipe()
     launches = corr_launches()
-    log("train", launches=repr(launches))
+    log("train", launches=repr(launches),
+        segsum_launches=cuda_segsum.LAUNCHES["segsum"])
     if any(launches.values()):
         raise AssertionError(f"training launched corr kernels: {launches}")
-    return launches
+    return dict(launches, **cuda_segsum.LAUNCHES)
 
 
 def vps_train_card_against_cpu():
@@ -1932,8 +2257,9 @@ def vps_train_profile():
 
 
 def run_vps_train():
-    """Phase 11: VPS training on the card. Returns the corr kernels'
-    launches in (b) and (c), which must all be 0: VPS reaches none."""
+    """Phase 11: VPS training on the card. Returns the launches in (b)
+    and (c) of the corr kernels, which must all be 0 (VPS reaches none),
+    and of the segment sum."""
     t0 = time.perf_counter()
     vps_train_card_against_cpu()
     reset_corr_launches()
@@ -1941,17 +2267,19 @@ def run_vps_train():
     vps_train_profile()
     launches = corr_launches()
     log("vps_train", launches=repr(launches),
+        segsum_launches=cuda_segsum.LAUNCHES["segsum"],
         seconds=f"{time.perf_counter() - t0:.1f}")
     if any(launches.values()):
         raise AssertionError(f"VPS training launched corr kernels: "
                              f"{launches}")
-    return launches
+    return dict(launches, **cuda_segsum.LAUNCHES)
 
 
 PHASES = {"kernels": check_kernels, "packed": check_packed,
           "reference": check_reference, "main": run_main_path,
           "harness": run_harnesses, "export": run_export, "vps": run_vps,
-          "loop": run_loop, "train": run_train, "vps_train": run_vps_train}
+          "loop": run_loop, "train": run_train, "vps_train": run_vps_train,
+          "planner": run_planner}
 
 
 def main():
@@ -1966,7 +2294,8 @@ def main():
         cuda=torch.version.cuda, count=torch.cuda.device_count())
 
     t0 = time.perf_counter()
-    sources = (cuda_corr.SOURCE, cuda_corr_exp.SOURCE)
+    sources = (cuda_corr.SOURCE, cuda_corr_exp.SOURCE, cuda_segsum.SOURCE,
+               graph_capture.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(cuda_corr.build, sources))
     log("build", sources=",".join(src.name for src in sources),
@@ -1984,6 +2313,7 @@ def main():
     packed = check_packed()
     check_reference()
     launches = run_main_path()
+    run_planner()
     harness = run_harnesses()
     export = run_export()
     run_vps()
@@ -2025,6 +2355,15 @@ def main():
             "library_ms": res[row]["library_ms"], **extra})
         if n == 0:
             raise AssertionError(f"{row} was never launched on its path")
+    kernels.append({
+        "name": "segsum", "route": "cuda",
+        "source": "pvo_tpu_torch/csrc/segsum.cu",
+        "replaces": "none: the card's Tensor.index_add_ (float atomics)",
+        "launches": launches["segsum"], "max_abs_err": res["segsum"]["err"],
+        **{k: res["segsum"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")},
+        "launches_loop": loop["segsum"], "launches_train": train["segsum"],
+        "launches_vps_train": vps_train["segsum"]})
     for x, (_, kernel, site) in HARNESS.items():
         n, ms, plain_ms, err = harness[x]
         bound = kernel_bound(kernel, HARNESS_E[kernel], 30, 101, C)

@@ -68,11 +68,18 @@ def window_distance_matrix(poses, disps, intrinsics, d0, WD, beta=0.3):
     """Bidirectional (WD, WD) distance matrix over the window
     [d0, d0 + WD): each frame's cloud is back-projected once and
     broadcast over the pair axis. Like ``lax.dynamic_slice``, an origin
-    past ``F - WD`` is clamped so the window stays inside the buffer."""
+    past ``F - WD`` is clamped so the window stays inside the buffer.
+    ``d0`` is an int, or a 0-d device tensor (the planner's: the window's
+    rows are then gathered, and nothing reads the card)."""
     ht, wd = disps.shape[-2:]
-    d0 = max(0, min(int(d0), poses.shape[0] - WD))
-    pw = poses[d0:d0 + WD]
-    dw = disps[d0:d0 + WD]
+    if torch.is_tensor(d0):
+        rows = d0.clamp(0, poses.shape[0] - WD) + torch.arange(
+            WD, device=poses.device)
+        pw, dw = poses[rows], disps[rows]
+    else:
+        d0 = max(0, min(int(d0), poses.shape[0] - WD))
+        pw = poses[d0:d0 + WD]
+        dw = disps[d0:d0 + WD]
     grid = coords_grid(ht, wd, dtype=disps.dtype, device=disps.device)
     X0 = iproj(dw[None], intrinsics.expand(1, WD, 4))[0]
     # Gij[i, j] = pose[j] * inv(pose[i])  (frame i's cloud into j)

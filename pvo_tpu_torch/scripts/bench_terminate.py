@@ -9,9 +9,11 @@ file.
 The protocol of the JAX script: ``n_keyframes`` frames (default 100) of
 ``bench_track``'s stream, every frame a keyframe, in a power-of-two
 buffer of at least ``n_keyframes + 24`` (the filler stages 16-frame
-batches past the keyframes); ``terminate(iter(frames))`` timed on the
-host clock with a synchronize; the keyframe count asserted at least
-0.9 ``n_keyframes``; ``reps`` runs (default 3), the first cold, and the
+batches past the keyframes), tracked with the default configuration's
+planner engaged after initialization, as the JAX script runs;
+``terminate(iter(frames))`` (which disengages the planner first, one
+blocking read) timed on the host clock with a synchronize; the keyframe
+count asserted at least 0.9 ``n_keyframes``; ``reps`` runs (default 3), the first cold, and the
 minimum of the warm ones reported, with the backend's and the filler's
 seconds of that run. One more run with terminate under ``torch.profiler``
 gives the device ms and kernels inside each ``vo.<stage>.<layer>`` range
@@ -50,12 +52,13 @@ def buffer_for(n_kf):
 def run_once(n_kf, image_size, dev, profile_terminate=False):
     """Track ``n_kf`` frames, then time terminate. Returns (keyframes,
     terminate s, backend s, filler s, the backend's edges per call,
-    profile or None)."""
+    whether the planner was engaged, profile or None)."""
     H, W = image_size
     sysm = bench_system(image_size, buffer_for(n_kf), dev)
     frames = list(synth_stream(n_kf, H, W))
     for t, img, intr, segm in frames:
         sysm.track(t, img, intr, segments=segm)
+    engaged = sysm.planner.engaged
 
     # the timers synchronize the device of ``sync`` when it is a card
     timer, sync = StepTimer(), sysm.video.poses
@@ -88,12 +91,12 @@ def run_once(n_kf, image_size, dev, profile_terminate=False):
     if kf < 0.9 * n_kf:
         raise AssertionError(f"keyframe count collapsed: {kf} < 0.9*{n_kf}")
     return (kf, timer.totals["terminate"], timer.totals["backend"],
-            timer.totals["filler"], edges, prof)
+            timer.totals["filler"], edges, engaged, prof)
 
 
 def run(n_kf=100, reps=3, image_size=(240, 808), device="cuda"):
     dev = open_device(device)
-    kf, cold = run_once(n_kf, image_size, dev)[:2]
+    kf, cold, *_, engaged, _ = run_once(n_kf, image_size, dev)
     warms = []
     for _ in range(max(1, reps - 1)):
         warms.append(run_once(n_kf, image_size, dev)[1:5])
@@ -103,8 +106,8 @@ def run(n_kf=100, reps=3, image_size=(240, 808), device="cuda"):
 
     ranges = corr = edges_profiled = None
     if dev.type == "cuda":
-        *_, edges_profiled, prof = run_once(n_kf, image_size, dev,
-                                            profile_terminate=True)
+        *_, edges_profiled, _, prof = run_once(n_kf, image_size, dev,
+                                               profile_terminate=True)
         ranges = {k: {"device_ms": ms, "kernels": n} for k, (ms, n) in
                   sorted(range_device_ms(prof, ("vo.",)).items())}
         corr = {k: {"device_ms": ms, "launches": n}
@@ -124,6 +127,7 @@ def run(n_kf=100, reps=3, image_size=(240, 808), device="cuda"):
         # they differ from run to run, and the backend's time with them
         "backend_edges": edges,
         "backend_edges_profiled": edges_profiled,
+        "planner_engaged": engaged,
         "device_ms_by_range": ranges,
         "device_ms_by_kernel": corr,
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"

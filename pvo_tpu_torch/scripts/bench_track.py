@@ -4,17 +4,21 @@ stream at the vkitti2 eval geometry, printed as ONE JSON line. Writes no
 file.
 
     python -m pvo_tpu_torch.scripts.bench_track [--image_size 240 808]
-        [--frames 40 30] [--device cpu]
+        [--frames 40 30] [--device cpu] [--classic]
 
 The protocol of ``bench.py``: 240x808, ``buffer=128``, every frame a
 keyframe (``filter_thresh=0.01``, ``keyframe_thresh=0.0``), ``warmup=12``,
 the segment filter on with about 90 segments a frame
-(:func:`synth_stream`); 40 warm-up frames, then 30 measured on the host
-clock (``utils.tracing.StepTimer``) with one synchronize at the end;
-then 3 more frames under
-``torch.profiler`` give ``device_ms_per_frame`` (the kernel rows, the
-ctypes-launched corr kernels included) and the card's busy share.
-Weights are random from seed 0, tamed by :func:`tame_net`.
+(:func:`synth_stream`), and the default configuration's planner, which
+engages after initialization (``engaged_at``, frame 13), as ``bench.py``
+runs; ``--classic`` keeps the classic host loop. 40 warm-up frames (on
+the card the planner's eager frames and its capture fall in them), then
+30 measured on the host clock (``utils.tracing.StepTimer``) with one
+synchronize at the end; then 3 more frames under ``torch.profiler``
+give ``device_ms_per_frame`` (the kernel rows, the ctypes-launched corr
+kernels and the kernels a CUDA graph launches included), the card's
+busy share and ``host_api_calls_per_frame`` (the CUDA runtime calls the
+host made). Weights are random from seed 0, tamed by :func:`tame_net`.
 
 ``vs_baseline`` is null: ``bench.py``'s 10 fps envelope is no figure of
 this card. ``mfu_vs_bf16_peak`` is null: the JAX figure comes from XLA's
@@ -111,12 +115,14 @@ def vo_counters(removed, edges, keyframes):
          VOSystem.terminate) = saved
 
 
-def bench_system(image_size, buffer, device):
+def bench_system(image_size, buffer, device, pipeline=True):
     """The benches' VOSystem: every frame a keyframe, segment filter on,
-    weights of :func:`tame_net` (0)."""
+    weights of :func:`tame_net` (0); the planner engaged after
+    initialization (``pipeline``, the default, as ``bench.py`` runs), or
+    the classic host loop."""
     cfg = VOConfig(image_size=tuple(image_size), buffer=buffer,
                    filter_thresh=0.01, keyframe_thresh=0.0, warmup=12,
-                   segm_filter=True)
+                   segm_filter=True, pipeline=pipeline)
     return VOSystem(cfg, net=tame_net(0), device=device)
 
 
@@ -134,6 +140,14 @@ def kernel_rows(prof):
             sum(r.count for r in rows))
 
 
+def api_calls(prof):
+    """The CUDA runtime calls of a finished profile (its host rows whose
+    names start with ``cuda``)."""
+    return sum(r.count for r in prof.key_averages()
+               if r.device_type == torch.autograd.DeviceType.CPU
+               and r.key.startswith("cuda"))
+
+
 def corr_rows(prof):
     """{K1, K2, K3_bf16, K3_f32: (device ms, launches)} of a profile."""
     out = {}
@@ -147,17 +161,21 @@ def corr_rows(prof):
 
 
 def run(image_size=(240, 808), n_warm=40, n_meas=30, n_prof=3,
-        device="cuda"):
+        device="cuda", pipeline=True):
     dev = open_device(device)
     H, W = image_size
-    sysm = bench_system(image_size, 128, dev)
+    sysm = bench_system(image_size, 128, dev, pipeline=pipeline)
     frames = list(synth_stream(n_warm + n_meas + n_prof, H, W))
 
-    # warm-up: initialization at frame 12 and the first retirements
+    # warm-up: initialization at frame 12, the planner's engage, eager
+    # frames and capture, and the first retirements
     timer = StepTimer()
+    engaged_at = None
     with timer.time("warm-up", sync=sysm.video.poses):
         for t, img, intr, segm in frames[:n_warm]:
             sysm.track(t, img, intr, segments=segm)
+            if engaged_at is None and sysm.planner.engaged:
+                engaged_at = t
     # the measured frames, one synchronize at the end (bench.py:94)
     with timer.time("measured", sync=sysm.video.poses):
         for t, img, intr, segm in frames[n_warm:n_warm + n_meas]:
@@ -165,7 +183,7 @@ def run(image_size=(240, 808), n_warm=40, n_meas=30, n_prof=3,
     dt = timer.totals["measured"]
     fps = n_meas / dt
 
-    device_ms = busy = kernels = None
+    device_ms = busy = kernels = api = None
     if dev.type == "cuda":
         with profiled() as prof:
             for t, img, intr, segm in frames[n_warm + n_meas:]:
@@ -174,6 +192,7 @@ def run(image_size=(240, 808), n_warm=40, n_meas=30, n_prof=3,
         ms, n = kernel_rows(prof)
         device_ms = ms / n_prof
         kernels = n / n_prof
+        api = api_calls(prof) / n_prof
         busy = device_ms / (1e3 * dt / n_meas)
     return {
         "metric": "vo_track_frames_per_sec",
@@ -184,8 +203,11 @@ def run(image_size=(240, 808), n_warm=40, n_meas=30, n_prof=3,
         "device_ms_per_frame": device_ms,
         "kernels_per_frame": kernels,
         "device_busy_share": busy,
+        "host_api_calls_per_frame": api,
         "mfu_vs_bf16_peak": None,
-        "keyframes": int(sysm.video.counter),
+        "path": "planner" if pipeline else "classic",
+        "engaged_at": engaged_at,
+        "keyframes": len(sysm.get_traj()),
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
     }
@@ -198,8 +220,11 @@ def main(argv=None):
                    metavar=("WARM", "MEASURED"))
     p.add_argument("--device", default="cuda",
                    help="cuda (default; fails without a card) or cpu")
+    p.add_argument("--classic", action="store_true",
+                   help="the classic host loop (VOConfig.pipeline=False)")
     args = p.parse_args(argv)
-    out = run(tuple(args.image_size), *args.frames, device=args.device)
+    out = run(tuple(args.image_size), *args.frames, device=args.device,
+              pipeline=not args.classic)
     print(json.dumps(out))
     return out
 

@@ -36,11 +36,14 @@ priorities), card against CPU, cuDNN on and off, per tensor relative L2.
 ``bench_track`` stream at 240x808 (``tame_net(0)``, every frame a
 keyframe) tracked twice in one process, keyframe poses compared after
 every frame: the first frame where they differ and by how much, and
-each run's frames/s. Once as the port runs (``Tensor.index_add_``, float
-atomics on the card), once under ``torch.use_deterministic_algorithms(
-True, warn_only=True)`` (the operations PyTorch warns about are
-listed), and once with ``index_add_`` replaced by each order-fixed sum
-of ``SUMS``: PyTorch's sort-based ``index_put_(accumulate=True)``, and a
+each run's frames/s, on the classic path (``pipeline=False``, the path
+B5 was found on). Once as the port runs (``kernel``: the fixed-order
+segment sum of ``csrc/segsum.cu``), and once with the tracker's sums
+(``cuda_segsum.index_add``) replaced by each variant of ``SUMS``: the
+card's ``Tensor.index_add_`` (``atomic``: float atomics, the sums before
+B5's repair), the same under ``torch.use_deterministic_algorithms(True,
+warn_only=True)`` (``deterministic``; the operations PyTorch warns about
+are listed), PyTorch's sort-based ``index_put_(accumulate=True)`` and a
 product with the index's one-hot matrix.
 """
 
@@ -54,6 +57,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pvo_tpu_torch.scripts.kbench import gpu_line, require_cuda
+from pvo_tpu_torch.vo.net import cuda_segsum
 from pvo_tpu_torch.vo.net.layers import NativeConv, NormedConv2d
 
 
@@ -328,7 +332,7 @@ def track_poses(n, H=240, W=808):
     frames/s of the run: host clock, synchronized once at the end)."""
     import time
     from pvo_tpu_torch.scripts.bench_track import bench_system, synth_stream
-    sysm = bench_system((H, W), 128, "cuda")
+    sysm = bench_system((H, W), 128, "cuda", pipeline=False)
     frames = list(synth_stream(n, H, W))
     out = []
     torch.cuda.synchronize()
@@ -350,43 +354,57 @@ def first_difference(a, b):
     return None, 0.0
 
 
-def index_put_sum_(self, dim, index, source, alpha=1):
-    """``index_add_`` through PyTorch's sort-based
-    ``index_put_(accumulate=True)``: an order fixed by the index."""
-    assert alpha == 1
-    self.movedim(dim, 0).index_put_(
-        (index,), source.movedim(dim, 0).to(self.dtype), accumulate=True)
-    return self
+def _with_overflow_row(add):
+    """An ``index_add(out, idx, x)`` of :mod:`cuda_segsum`'s contract
+    (rows out of range dropped) from ``add(buf, idx, x)`` on a buffer
+    with one overflow row."""
+    def index_add(out, idx, x):
+        n = out.shape[0]
+        idx = idx.long()
+        idx = torch.where((idx >= 0) & (idx < n), idx,
+                          torch.full_like(idx, n))
+        buf = torch.cat([out, out.new_zeros((1,) + tuple(out.shape[1:]))])
+        add(buf, idx, x.to(out.dtype))
+        out.copy_(buf[:n])
+        return out
+    return index_add
 
 
-def onehot_sum_(self, dim, index, source, alpha=1):
-    """``index_add_`` as a product with the index's one-hot matrix:
-    cuBLAS reduces in an order fixed by the shapes."""
-    assert alpha == 1
-    out = self.movedim(dim, 0)
-    src = source.movedim(dim, 0).to(self.dtype)
-    rows = torch.arange(out.shape[0], device=out.device)
-    onehot = (index[None, :] == rows[:, None]).to(self.dtype)
-    out.add_((onehot @ src.reshape(src.shape[0], -1)).view(out.shape))
-    return self
+def _onehot_add(buf, idx, x):
+    """A product with the index's one-hot matrix: cuBLAS reduces in an
+    order fixed by the shapes."""
+    rows = torch.arange(buf.shape[0], device=buf.device)
+    onehot = (idx[None, :] == rows[:, None]).to(buf.dtype)
+    buf.add_((onehot @ x.reshape(x.shape[0], -1)).view(buf.shape))
 
 
-SUMS = {"index_put": index_put_sum_, "onehot": onehot_sum_}
+# the tracker's scatter-sums (cuda_segsum.index_add) in place of the
+# kernel: the card's index_add_ (float atomics, B5's cause), PyTorch's
+# sort-based index_put_(accumulate=True) and a one-hot product
+SUMS = {
+    "atomic": _with_overflow_row(lambda b, i, x: b.index_add_(0, i, x)),
+    "index_put": _with_overflow_row(
+        lambda b, i, x: b.index_put_((i,), x, accumulate=True)),
+    "onehot": _with_overflow_row(_onehot_add),
+}
 
 
 @contextlib.contextmanager
 def scatter_sums(variant):
-    """``Tensor.index_add_`` replaced by an order-fixed sum (``SUMS``)."""
-    saved = torch.Tensor.index_add_
-    torch.Tensor.index_add_ = SUMS[variant]
+    """``cuda_segsum.index_add`` replaced by ``SUMS[variant]`` for the
+    block (the kernel itself for ``"kernel"``)."""
+    saved = cuda_segsum.index_add
+    if variant != "kernel":
+        cuda_segsum.index_add = SUMS[variant]
     try:
         yield
     finally:
-        torch.Tensor.index_add_ = saved
+        cuda_segsum.index_add = saved
 
 
 def probe_b5(n):
-    for variant in ("port", "deterministic", "index_put", "onehot"):
+    for variant in ("kernel", "atomic", "deterministic", "index_put",
+                    "onehot"):
         with contextlib.ExitStack() as stack:
             caught = stack.enter_context(warnings.catch_warnings(
                 record=True))
@@ -394,8 +412,8 @@ def probe_b5(n):
             if variant == "deterministic":
                 torch.use_deterministic_algorithms(True, warn_only=True)
                 stack.callback(torch.use_deterministic_algorithms, False)
-            if variant in SUMS:
-                stack.enter_context(scatter_sums(variant))
+            stack.enter_context(scatter_sums(
+                "atomic" if variant == "deterministic" else variant))
             a, fps_a = track_poses(n)
             b, fps_b = track_poses(n)
         t, d = first_difference(a, b)

@@ -189,6 +189,22 @@ def kernel_bound(name, E, H, W, C=128, levels=4, features="bf16",
     return res
 
 
+def segsum_bound(n_in_range, n_rows, n_out, D):
+    """The roofline bound of the segment sum (``csrc/segsum.cu``) adding
+    ``n_in_range`` of ``n_rows`` f32 rows of D values into ``n_out``
+    rows: the rows it adds, the int64 index and the output read once,
+    the output written once, against one f32 add a value. Rows out of
+    range are not read."""
+    b_in = n_in_range * D * 4 + n_rows * 8 + n_out * D * 4
+    b_out = n_out * D * 4
+    flops = n_in_range * D
+    bytes_ms = 1e3 * (b_in + b_out) / HBM_BYTES_S
+    ops_ms = 1e3 * flops / PEAK_FLOP_S["f32"]
+    return {"bytes": b_in + b_out, "flops": flops, "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms, "ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
 def saved_extract_case(E=2, H=30, W=101, seed=1234):
     """K2's fingerprint inputs, from numpy alone: a bf16 volume of
     K1's layout (pad columns 0) and finite coords with windows over

@@ -1,9 +1,11 @@
 """Configuration of the VO system: the port's own copy of the JAX
 package's ``VOConfig`` (same fields, same defaults, held equal by
 ``tests/test_torch_kernel_bounds.py``). The port imports nothing of the
-JAX package. ``yuv420_upload`` and ``pipeline`` are read by nothing in
-the port (no upload packing, no device-resident planner); they stay so
-that one configuration drives both packages.
+JAX package. ``pipeline`` engages the device-resident planner after
+initialization, as in the JAX package (``False``: the classic host loop
+on every frame). ``yuv420_upload`` is read by nothing in the port (no
+upload packing); it stays so that one configuration drives both
+packages.
 """
 
 from __future__ import annotations
@@ -43,8 +45,8 @@ class VOConfig:
     # uploaded as uint8 RGB)
     yuv420_upload: bool = True
 
-    # the JAX package's device-resident planner; ignored here (the port
-    # runs the classic host-topology frontend)
+    # the device-resident planner (vo/planner.py), engaged after
+    # initialization; False keeps the classic host loop
     pipeline: bool = True
 
     # edge-store capacities

@@ -4,9 +4,13 @@ Port of :mod:`pvo_tpu.vo.dba`. The reduced camera system is a dense
 (6P x 6P) matrix solved with a Cholesky factorization; the depth
 (Schur) elimination never forms the (6P x K*HW) E matrix but sums three
 structured terms: self x self per depth frame, self x edge, and
-edge x edge over host-built pairs of edges sharing a source frame.
-Scatter-sums are ``index_add_``; rows whose index is masked go to an
-overflow row that is dropped. Levenberg damping (diag += ep + lm*diag)
+edge x edge over pairs of edges sharing a source frame (built on the
+host by :func:`build_edge_pairs`, or on the device by the planner).
+Scatter-sums are :func:`cuda_segsum.index_add`, which sums in a fixed
+order on the card as on the CPU; rows whose index is masked go to an
+overflow row that is dropped. ``t0``, ``t1`` and ``w0`` may be Python
+ints or 0-d device tensors (the planner's), so nothing here reads the
+card. Levenberg damping (diag += ep + lm*diag)
 and the per-pixel eta damping keep the f32 solve well conditioned.
 """
 
@@ -20,6 +24,7 @@ import torch
 from pvo_tpu_torch.geom.ba import _edge_blocks
 from pvo_tpu_torch.geom.chol import solve_psd
 from pvo_tpu_torch.lie import se3
+from pvo_tpu_torch.vo.net import cuda_segsum
 
 PAIR_CHUNK = 2048
 
@@ -53,9 +58,7 @@ def build_edge_pairs(ii, valid, max_pairs=None):
 def _seg(x, idx, ok, n):
     """Sum rows of x into n segments; rows with ``ok`` False dropped."""
     idx = torch.where(ok, idx, torch.full_like(idx, n))
-    out = x.new_zeros((n + 1,) + tuple(x.shape[1:]))
-    out.index_add_(0, idx, x)
-    return out[:n]
+    return cuda_segsum.segment_sum(x, idx, n)
 
 
 def dba(poses, disps, intrinsics, target, weight, eta, ii, jj, valid,
@@ -109,14 +112,15 @@ def dba(poses, disps, intrinsics, target, weight, eta, ii, jj, valid,
         hidx = torch.cat([sidx(pi, pi, ok_i), sidx(pi, pj, ok_i & ok_j),
                           sidx(pj, pi, ok_i & ok_j), sidx(pj, pj, ok_j)])
         Hs = Hblk.new_zeros((P * P + 1, D, D))
-        Hs.index_add_(0, hidx, torch.cat([
+        cuda_segsum.index_add(Hs, hidx, torch.cat([
             Hblk[:, :6, :6], Hblk[:, :6, 6:], Hblk[:, 6:, :6],
             Hblk[:, 6:, 6:]]))
         H = Hs[:P * P]
         vidx = torch.cat([torch.where(ok_i, pi, torch.full_like(pi, P)),
                           torch.where(ok_j, pj, torch.full_like(pj, P))])
         v = vblk.new_zeros((P + 1, D))
-        v.index_add_(0, vidx, torch.cat([vblk[:, :6], vblk[:, 6:]]))
+        cuda_segsum.index_add(v, vidx, torch.cat([vblk[:, :6],
+                                                  vblk[:, 6:]]))
         v = v[:P]
 
         if motion_only:
@@ -136,7 +140,7 @@ def dba(poses, disps, intrinsics, target, weight, eta, ii, jj, valid,
             SSa, SSb = SS[:K], SS[K:]
             ok_bm = ok_i & ok_j & ok_m
             S_sum = SS.new_zeros((P * P + 1, D, D))
-            S_sum.index_add_(0, torch.cat([
+            cuda_segsum.index_add(S_sum, torch.cat([
                 sidx(pm, pm, ok_pm), sidx(pi, pj, ok_bm),
                 sidx(pj, pi, ok_bm)]),
                 torch.cat([SSa, SSb, SSb.transpose(-1, -2)]))
@@ -152,7 +156,7 @@ def dba(poses, disps, intrinsics, target, weight, eta, ii, jj, valid,
                 pj_a, pj_b = pj[pa_c], pj[pb_c]
                 ok_c = (pairs_valid[o:o + PAIR_CHUNK] & (pj_a >= 0) &
                         (pj_a < P) & (pj_b >= 0) & (pj_b < P))
-                S_sum.index_add_(0, sidx(pj_a, pj_b, ok_c), SSc)
+                cuda_segsum.index_add(S_sum, sidx(pj_a, pj_b, ok_c), SSc)
 
             S = H - S_sum[:P * P]
 
@@ -164,7 +168,7 @@ def dba(poses, disps, intrinsics, target, weight, eta, ii, jj, valid,
                 torch.where(ok_pm, pm, torch.full_like(pm, P)),
                 torch.where(ok_j & ok_m, pj, torch.full_like(pj, P))])
             corr_v = rc.new_zeros((P + 1, D))
-            corr_v.index_add_(0, ridx, rc)
+            cuda_segsum.index_add(corr_v, ridx, rc)
             rhs = v - corr_v[:P]
 
         # damped dense solve

@@ -51,7 +51,7 @@ from pvo_tpu_torch.geom.distance import (frame_distance,
                                          window_distance_matrix)
 from pvo_tpu_torch.vo import dba as dba_mod
 from pvo_tpu_torch.vo.net import corr as corr_ops
-from pvo_tpu_torch.vo.net import cuda_corr
+from pvo_tpu_torch.vo.net import cuda_corr, cuda_segsum
 from pvo_tpu_torch.vo.net.gru import GATES
 
 DY_THRESH = 0.5
@@ -104,6 +104,35 @@ def gru_ctx_pre(w_ctx, ctx):
     x = ctx.permute(0, 3, 1, 2)
     return tuple(F.conv2d(x, w_ctx[g].to(ctx.dtype), padding=1)
                  .permute(0, 2, 3, 1) for g in GATES)
+
+
+def update_core(graph, net, target, raw, dy, ii, jj, valid, w0, K,
+                corr_fn, ctx_pre, segms_e):
+    """One recurrent update over the edges (ii, jj) of ``graph``'s video:
+    correlation, update operator, heads, segment vote and GraphAgg's
+    damping. ``net``/``target``/``raw``/``dy`` (E, h, w, .) are the
+    edges' state; rows with ``valid`` False are padding: their weight is
+    0 and GraphAgg drops them. ``w0`` may be an int or a 0-d device
+    tensor. Returns (net, target, weight, raw, dy, flow, eta (K,h,w),
+    frame_has_edge (K,)); nothing reads the card. Late-bound by its
+    callers (the classic update and the planner), so a test can swap in
+    an oracle core for both."""
+    upd = graph.update_op
+    cdt = next(upd.parameters()).dtype
+    coords0, coords1, motn = graph._coords_motion(ii, jj, target, dy, raw)
+    corr = corr_fn(coords1)
+    out = upd(net.to(cdt), None, corr.to(cdt), motn.to(cdt),
+              ctx_pre=ctx_pre, gru_nc=graph.gru_nc)
+    net_c = out["net"]
+    net, target, weight, raw, dy, flow = graph._heads(
+        out, coords0, coords1, raw, segms_e, valid)
+    weight = weight * valid[:, None, None, None].float()
+
+    m = torch.where(valid, ii - w0, torch.full_like(ii, K))
+    mean, counts = upd.agg.scatter_mean_counts(
+        upd.agg.pre(net_c.permute(0, 3, 1, 2)), m, K)
+    eta, _ = upd.agg.post(mean.to(net_c.dtype), upmask=False)
+    return net, target, weight, raw, dy, flow, eta[:, 0].float(), counts > 0
 
 
 class FactorGraph:
@@ -543,27 +572,15 @@ class FactorGraph:
         return coords0, coords1, motn
 
     def _update_core(self, ii, jj, valid, w0, K, corr_fn, ctx_pre, segms_e):
-        """One recurrent update over all edges; writes the edge state and
-        returns (eta (K,h,w), frame_has_edge (K,))."""
-        upd = self.update_op
-        cdt = next(upd.parameters()).dtype
-        coords0, coords1, motn = self._coords_motion(
-            ii, jj, self.target, self.delta_dy, self.raw_mask)
-        corr = corr_fn(coords1)
-        out = upd(self.net.to(cdt), None, corr.to(cdt), motn.to(cdt),
-                  ctx_pre=ctx_pre, gru_nc=self.gru_nc)
-        net_c = out["net"]
+        """One recurrent update over all edges (:func:`update_core`);
+        writes the edge state and returns (eta (K,h,w), frame_has_edge
+        (K,))."""
         (net, self.target, self.weight, self.raw_mask, self.delta_dy,
-         self.full_flow) = self._heads(out, coords0, coords1,
-                                       self.raw_mask, segms_e, valid)
+         self.full_flow, eta, has_edge) = update_core(
+            self, self.net, self.target, self.raw_mask, self.delta_dy, ii,
+            jj, valid, w0, K, corr_fn, ctx_pre, segms_e)
         self.net = net.to(self.net.dtype)
-
-        m = ii - w0
-        mean = upd.agg.scatter_mean(upd.agg.pre(net_c.permute(0, 3, 1, 2)),
-                                    m, K)
-        eta, _ = upd.agg.post(mean.to(net_c.dtype), upmask=False)
-        has_edge = torch.bincount(m, minlength=K)[:K] > 0
-        return eta[:, 0].float(), has_edge
+        return eta, has_edge
 
     def _update_core_chunked(self, ii, jj, valid, w0, K, chunk,
                              frames=None):
@@ -599,9 +616,9 @@ class FactorGraph:
                 valid_c)
             self.net[sl] = net.to(self.net.dtype)
             m = ii_c - w0
-            sum_acc.index_add_(0, m, upd.agg.pre(
+            cuda_segsum.index_add(sum_acc, m, upd.agg.pre(
                 net_c.permute(0, 3, 1, 2)).float())
-            cnt_acc.index_add_(0, m, valid_c.float())
+            cuda_segsum.index_add(cnt_acc, m, valid_c.float())
         mean = sum_acc[:K] / cnt_acc[:K].clamp(min=1.0)[:, None, None, None]
         eta, _ = upd.agg.post(mean.to(cdt), upmask=False)
         return eta[:, 0].float(), cnt_acc[:K] > 0

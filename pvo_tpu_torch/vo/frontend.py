@@ -41,6 +41,11 @@ class Frontend:
 
     # ---------------- packet protocol ----------------
 
+    def resolve(self):
+        """Apply any pending packet (the planner's engage resolves the
+        classic state first)."""
+        self._resolve_packet()
+
     def _resolve_packet(self):
         if self._packet is None:
             return

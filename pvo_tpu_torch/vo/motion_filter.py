@@ -7,7 +7,8 @@ the mean flow; frames above the threshold become keyframes and get the
 context encoder and a write into the video at slot ``counter``. The
 host learns the decision when the probe is read; the counter is
 committed by :meth:`MotionFilter.resolve_track`, one call later in the
-system's track order (as in the JAX package).
+system's track order (as in the JAX package). The planner's phase B is
+:func:`track_body_device`, which decides on the device.
 """
 
 from __future__ import annotations
@@ -69,6 +70,32 @@ def track_body(net, video, fmap_prev, net_prev, inp_prev, image, intr8,
                                    device=v.poses.device)
         v.disps[ix] = 1.0
     return True, (gmap, hid, inp)
+
+
+def track_body_device(net, video, fmap_prev, net_prev, inp_prev, image,
+                      intr8, segm, ix, thresh):
+    """:func:`track_body` with the decision left on the device (the
+    planner's phase B): the probe's admission is a device bool, slot
+    ``ix`` (a device index) of the video and the filter state
+    (``fmap_prev``, ``net_prev``, ``inp_prev``, written in place) take
+    the frame only where it holds, and nothing reads the card. The
+    context encoder runs on every frame. Returns the admission."""
+    x = normalize_images(image[None])
+    gmap = net.fnet(x)[0]
+    delta = _probe(net.update, fmap_prev, gmap, net_prev, inp_prev)
+    admitted = delta > thresh
+    ctx = net.cnet(x)[0]
+    hid, inp = ctx.split(128, dim=-1)
+    hid, inp = torch.tanh(hid), torch.relu(inp)
+    v = video
+    i = ix.reshape(1)
+    for buf, val in ((v.fmaps, gmap), (v.nets, hid), (v.inps, inp),
+                     (v.segms, segm), (v.images, image),
+                     (v.intrinsics, intr8)):
+        buf[i] = torch.where(admitted, val.to(buf.dtype)[None], buf[i])
+    for buf, val in ((fmap_prev, gmap), (net_prev, hid), (inp_prev, inp)):
+        buf.copy_(torch.where(admitted, val, buf))
+    return admitted
 
 
 class MotionFilter:

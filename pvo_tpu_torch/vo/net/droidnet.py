@@ -39,11 +39,19 @@ RGB_MEAN = (0.485, 0.456, 0.406)
 RGB_STD = (0.229, 0.224, 0.225)
 
 
+# (mean, std) tensors by device, made once: a copy from the host inside
+# a captured CUDA graph would wait for the card
+_RGB_STATS = {}
+
+
 def normalize_images(images_u8_rgb):
     """uint8 RGB (..., H, W, 3) -> normalized float32 (..., H, W, 3)."""
     x = images_u8_rgb.float() / 255.0
-    mean = torch.tensor(RGB_MEAN, dtype=torch.float32, device=x.device)
-    std = torch.tensor(RGB_STD, dtype=torch.float32, device=x.device)
+    if x.device not in _RGB_STATS:
+        _RGB_STATS[x.device] = tuple(
+            torch.tensor(v, dtype=torch.float32, device=x.device)
+            for v in (RGB_MEAN, RGB_STD))
+    mean, std = _RGB_STATS[x.device]
     return (x - mean) / std
 
 

@@ -5,7 +5,8 @@ A ConvGRU updates a per-edge hidden state from correlation + motion
 features; four heads predict camera-flow delta, dynamic-flow delta,
 confidence logits and a dynamic-mask logit delta. GraphAgg mean-pools
 hidden states over edges sharing a source frame (scatter-mean with f32
-accumulation via ``index_add_``) and produces per-frame BA damping.
+accumulation in a fixed order, :func:`cuda_segsum.segment_sum`) and
+produces per-frame BA damping.
 Edges are a flat leading dim (E, H, W, C); module names follow the
 reference state dict (``update.corr_encoder.0``, ``update.agg.eta.0``).
 With ``use_aff_bri`` the operator also predicts per-edge affine
@@ -20,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import cuda_segsum
 from .gru import ConvGRU
 from .layers import GradientClip
 
@@ -30,6 +32,26 @@ MASK_NUM = 2
 def _head(out):
     return nn.Sequential(nn.Conv2d(128, 128, 3, padding=1), nn.ReLU(),
                          nn.Conv2d(128, out, 3, padding=1), GradientClip())
+
+
+class SegmentSum(torch.autograd.Function):
+    """:func:`cuda_segsum.segment_sum` with its backward, a gather of the
+    output gradient (zero for the dropped rows): the training forward
+    runs GraphAgg under grad."""
+
+    @staticmethod
+    def forward(ctx, x, seg_ids, n):
+        ctx.save_for_backward(seg_ids)
+        ctx.n = n
+        return cuda_segsum.segment_sum(x, seg_ids, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        (seg_ids,) = ctx.saved_tensors
+        ok = (seg_ids >= 0) & (seg_ids < ctx.n)
+        gx = g[seg_ids.clamp(0, ctx.n - 1)]
+        ok = ok.reshape((-1,) + (1,) * (g.dim() - 1))
+        return torch.where(ok, gx, torch.zeros_like(gx)), None, None
 
 
 class GraphAgg(nn.Module):
@@ -60,18 +82,22 @@ class GraphAgg(nn.Module):
         return eta, (self.upmask_disp(y) if upmask else None)
 
     @staticmethod
-    def scatter_mean(x, seg_ids, num_frames):
-        """f32 scatter-mean of (E, ...) rows into (num_frames, ...)."""
+    def scatter_mean_counts(x, seg_ids, num_frames):
+        """f32 scatter-mean of (E, ...) rows into (num_frames, ...) and
+        the (num_frames,) f32 count of rows in each; ids outside
+        [0, num_frames) are dropped. The sums take the rows in ascending
+        order on the CPU and on the card alike."""
         E = x.shape[0]
-        summed = torch.zeros((num_frames + 1,) + x.shape[1:],
-                             dtype=torch.float32, device=x.device)
-        summed.index_add_(0, seg_ids, x.float())
-        counts = torch.zeros(num_frames + 1, dtype=torch.float32,
-                             device=x.device)
-        counts.index_add_(0, seg_ids, torch.ones(E, device=x.device))
+        summed = SegmentSum.apply(x.float(), seg_ids, num_frames)
+        counts = cuda_segsum.segment_sum(
+            torch.ones(E, device=x.device), seg_ids, num_frames)
         shape = (num_frames,) + (1,) * (x.dim() - 1)
-        return summed[:num_frames] / counts[:num_frames].clamp(
-            min=1.0).reshape(shape)
+        return summed / counts.clamp(min=1.0).reshape(shape), counts
+
+    @classmethod
+    def scatter_mean(cls, x, seg_ids, num_frames):
+        """The means of :meth:`scatter_mean_counts`."""
+        return cls.scatter_mean_counts(x, seg_ids, num_frames)[0]
 
     def forward(self, net, seg_ids, num_frames):
         """net (E,H,W,128) NHWC -> (eta (F,H,W,1), upmask (F,H,W,576))."""

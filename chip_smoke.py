@@ -4,8 +4,8 @@
     python3 chip_smoke.py main       only the named phases (kernels,
                                      packed, reference, main, planner,
                                      harness, export, vps, loop, train,
-                                     vps_train), without the result
-                                     lines
+                                     vps_train, demo, dp), without the
+                                     result lines
 
 Phases, one line each (any failure exits non-zero):
   1. device   - requires CUDA; prints the card's name and power limit;
@@ -186,6 +186,44 @@ Phases, one line each (any failure exits non-zero):
                 Printed: ms and frames/s a run, device ms, kernels, host
                 CUDA API calls and busy share a frame, capture seconds,
                 the graph's launches a frame.
+ 13. demo     - the image-directory demo (scripts/demo.py) as a user
+                runs it, a subprocess: 72 frames of the synthetic scene
+                at 375x1242 as PNGs with a calib.txt (240x800 after the
+                demo's resize), the loop's tamed weights saved under the
+                reference key names and passed with --weights, --stride
+                1 --vis --live; the viewer's page and state.json fetched
+                while it holds, then its standard input closed. Held:
+                one finite pose a frame, a non-empty cloud, state.json's
+                counter equal to the keyframes, K1, K2, the f32 K3 and
+                the segment sum launched ("launches_demo" in the kernels
+                line: the demo's own counts); the same frames tracked in
+                this process, and consistent_points on the card against
+                the CPU on a copy of the video's buffers (masks >= 99.9%
+                equal, points within 1e-4 where both keep a pixel).
+                Printed: frames/s, terminate s, the cloud's points,
+                LiveViewer.update's ms;
+ 14. dp       - data-parallel training (parallel/data_parallel.py,
+                vps/train.py make_full_train_step_dp). (a) NCCL at world
+                size 1: the VO recipe (semisup, 15 iterations, 6 frames,
+                200x400, restart loop, remat) and the VPS full step (R-50,
+                384x1248, 8 GT instances) through the data-parallel steps
+                and through the one-card steps, the same weights and
+                batches, two optimizer steps, under cuDNN's and
+                PyTorch's deterministic switches, the one-card run
+                repeated: the data-parallel run within DP_FLOOR_FACTOR
+                times the card's own run-to-run difference; (b) two gloo
+                ranks on the one card at the default protocol's size
+                (48x64, F=4, tamed weights), global batch 2, against one
+                process on the same two samples, both under the
+                deterministic switches: the ranks bit-equal, the first
+                step's applied (summed, unclipped) gradient within 1e-6
+                relative L2 of one process's in every tensor (a mean
+                where a sum belongs, or a sum taken twice, is 0.5 or 1
+                apart), at least DP_EQUAL of the parameters within 1e-6
+                and all within 1e-3 after two steps. Printed: s/step of
+                each run
+                ("launches_dp" in the kernels line: this process's and
+                the ranks').
 Then the whole run's seconds, one JSON line of kernel results (the
 segment sum's row too), the card's name and power limit, and the
 contract line {"ok": true, "device": {...}}.
@@ -196,10 +234,13 @@ import copy
 import glob
 import importlib
 import json
+import os
 import os.path as osp
+import subprocess
 import sys
 import tempfile
 import time
+import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -211,7 +252,7 @@ from pvo_tpu_torch.geom import projective
 from pvo_tpu_torch.geom.depth_filter import depth_consistency_count
 from pvo_tpu_torch.lie import se3
 from pvo_tpu_torch.scripts import (bench_train_vo, bench_train_vps,
-                                   bench_vo2_export, bench_vps_train,
+                                   bench_vo2_export, bench_vps_train, demo,
                                    fault_probe, kbench, prepare_vkitti,
                                    run_pvo_loop, train_vo)
 from pvo_tpu_torch.scripts.bench_track import (RANGE_PREFIXES, api_calls,
@@ -232,8 +273,12 @@ from pvo_tpu_torch.vo.net import corr as corr_plain
 from pvo_tpu_torch.vo.net import cuda_corr
 from pvo_tpu_torch.vo.net import cuda_corr_exp
 from pvo_tpu_torch.vo.net import cuda_segsum
+from pvo_tpu_torch.utils.io import VKITTI_INTRINSICS
 from pvo_tpu_torch.vo.system import VOSystem
+from pvo_tpu_torch.vo.video import DepthVideo
+from pvo_tpu_torch.vo.visualization import consistent_points
 from pvo_tpu_torch.vps import panoptic_fpn as pfpn
+from pvo_tpu_torch.vps import train as vps_train_mod
 
 C = 128
 TOL = {"build_volumes": 2e-2, "corr_extract": 2e-2, "corr_lookup": 1e-4}
@@ -335,6 +380,33 @@ TRAIN_DEFAULT_STEPS, TRAIN_RECIPE_STEPS = 200, 10
 # worst, fault_probe b4ops and vps), and the full bench's steps
 VPS_LOSS_TOL, VPS_GRAD_TOL = 1e-4, 2e-4
 VPS_FULL_STEPS = 60
+# phase 13: the demo's scene (frames at 375x1242, resized by the demo to
+# 240x800) and weights (the loop's: at VOConfig's thresholds the motion
+# filter admits frames, and the tracker stays finite); the visualizer's
+# card-against-CPU check: the share of mask entries that must agree and
+# the points' bound where both keep a pixel
+DEMO_FRAMES, DEMO_MASK_EQUAL, DEMO_POINT_TOL = 72, 0.999, 1e-4
+# the kernels the demo's narrow stream (30x100 features) must launch:
+# K1 once a keyframe, K2 every iteration, the f32 K3 in the probe, the
+# segment sum
+DEMO_ROWS = ("build_volumes", "corr_extract", "corr_lookup_f32", "segsum")
+# phase 14: the recipe's scene frames, the optimizer steps compared, and
+# the two gloo ranks' bounds against one process: the first step's
+# applied gradient within DP_GRAD_TOL relative L2 in every tensor (the
+# norm floored at 1e-4 of the whole gradient's, as the CPU test holds
+# it), and after two steps at least DP_EQUAL of the parameters within
+# 1e-6, all within DP_TOL (twice the peak learning rate: Adam moves an
+# entry by about the learning rate whatever its gradient, so an entry
+# whose gradient is near zero can move either way)
+DP_SCENE_FRAMES, DP_STEPS, DP_EQUAL, DP_TOL = 12, 2, 0.999, 1e-3
+DP_GRAD_TOL = 1e-6
+# phase 14 (a): with cuDNN's and PyTorch's deterministic switches off,
+# two one-card runs part by 1.5e-8 in the VPS step and by 5.6e-4 after
+# two Adam steps of the recipe; with them on, both repeat themselves bit
+# for bit. The data-parallel run must be within DP_FLOOR_FACTOR times the
+# card's own run-to-run difference: bit-equal where the card repeats
+# itself
+DP_FLOOR_FACTOR = 4
 P2_VARIANTS = (
     (dict(), ("X2", "X3", "X4", "X5")),
     (dict(weights="bf16"), ("X2",)),
@@ -1492,6 +1564,8 @@ def run_export():
         # one warm-up pair, then the counts from 0 over the timed pairs
         bench_vo2_export.time_pairs(net, size, EXPORT_ITERS, pairs=1)
         torch.cuda.reset_peak_memory_stats()
+        # what earlier phases still hold counts in the peak: read apart
+        held = torch.cuda.memory_allocated()
         cuda_corr.reset_launches()
         s_per_pair, (flow8, disp) = bench_vo2_export.time_pairs(
             net, size, EXPORT_ITERS, pairs=pairs)
@@ -1504,6 +1578,7 @@ def run_export():
         log("export", image=tag, iters=EXPORT_ITERS, pairs=pairs,
             features="f32", vo2_export_s_per_pair=f"{s_per_pair:.4f}",
             peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+            held_before_gib=f"{held / 2**30:.2f}",
             **{f"launches_per_pair_{k}": v for k, v in per_pair[tag].items()},
             gpu=repr(gpu_line()))
         if tuple(launches.values()) != tuple(pairs * n for n in want):
@@ -2275,11 +2350,370 @@ def run_vps_train():
     return dict(launches, **cuda_segsum.LAUNCHES)
 
 
+def demo_inputs(root):
+    """Phase 13's inputs under ``root``: the synthetic scene's frames as
+    PNGs in ``images/``, ``calib.txt`` (vkitti's intrinsics) and the
+    loop's tamed weights under the reference key names."""
+    import cv2
+    write_synth_scene(root, scene="Scene02", views=("clone",),
+                      n_frames=DEMO_FRAMES, workers=LOOP_WORKERS)
+    images = osp.join(root, "images")
+    os.makedirs(images)
+    jpgs = sorted(glob.glob(osp.join(root, "Scene02", "clone", "frames",
+                                     "rgb", "Camera_0", "*.jpg")))
+
+    def to_png(f):
+        name = osp.basename(f)[:-4] + ".png"
+        cv2.imwrite(osp.join(images, name), cv2.imread(f))
+
+    with ThreadPoolExecutor(LOOP_WORKERS) as pool:
+        list(pool.map(to_png, jpgs))
+    calib = osp.join(root, "calib.txt")
+    np.savetxt(calib, VKITTI_INTRINSICS[None], delimiter=" ")
+    weights = osp.join(root, "droid.pth")
+    net = tame_net(0, LOOP_HEAD_SCALE, LOOP_MASK_BIAS)
+    torch.save({f"module.{k}": v for k, v in net.state_dict().items()},
+               weights)
+    return images, calib, weights
+
+
+def fetch(port, path):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/{path}",
+                                timeout=30) as r:
+        return r.read()
+
+
+def demo_subprocess(images, calib, weights, cwd):
+    """The demo CLI as a user runs it (``--stride 1 --vis --live``):
+    the page and ``state.json`` fetched while it holds its final state,
+    then its standard input closed. Returns (its JSON line, the page,
+    the state)."""
+    port = dp.free_port()
+    cmd = [sys.executable, "-m", "pvo_tpu_torch.scripts.demo", "--imagedir",
+           images, "--calib", calib, "--stride", "1", "--vis", "--live",
+           str(port), "--weights", weights]
+    env = dict(os.environ, PYTHONPATH=osp.dirname(osp.abspath(__file__)))
+    out, page, state = None, None, None
+    with open(osp.join(cwd, "demo.stderr"), "w") as err, subprocess.Popen(
+            cmd, cwd=cwd, env=env, stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=err, text=True) as proc:
+        try:
+            for line in proc.stdout:
+                log("demo", stdout=repr(line.strip()[:200]))
+                if line.startswith("{"):
+                    out = json.loads(line)
+                if line.startswith("live viewer holding"):
+                    page = fetch(port, "")
+                    state = json.loads(fetch(port, "state.json"))
+                    proc.stdin.close()
+            rc = proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+    if rc != 0 or out is None or state is None:
+        with open(osp.join(cwd, "demo.stderr")) as f:
+            tail = f.read()[-3000:]
+        raise AssertionError(f"the demo failed (exit {rc}):\n{tail}")
+    return out, page, state
+
+
+def demo_video_card_against_cpu(images, calib, weights):
+    """The demo's path in this process on the same frames (the card),
+    then ``consistent_points`` on the card against the CPU on a copy of
+    the same video buffers: at least DEMO_MASK_EQUAL of the masks equal,
+    the points within DEMO_POINT_TOL where both keep a pixel."""
+    frames = list(demo.image_stream(images, calib, 1))
+    H, W = frames[0][1].shape[:2]
+    sysm = VOSystem(VOConfig(image_size=(H, W)), weights_path=weights)
+    track_s = demo.track(sysm, frames)
+    sysm.terminate(iter(frames))
+    v = sysm.video
+    cpu = DepthVideo(image_size=(v.ht, v.wd), buffer=v.buffer)
+    cpu.counter = v.counter
+    for name in ("poses", "disps", "images", "intrinsics"):
+        getattr(cpu, name).copy_(getattr(v, name).cpu())
+    pts_c, masks_c, _ = consistent_points(v)
+    pts_h, masks_h, _ = consistent_points(cpu)
+    masks_c = masks_c.cpu()
+    equal = float((masks_c == masks_h).float().mean())
+    both = masks_c & masks_h
+    err = float((pts_c.cpu()[both] - pts_h[both]).abs().max()) \
+        if bool(both.any()) else 0.0
+    log("demo", check="pointcloud_card_vs_cpu", keyframes=v.counter,
+        masks_equal=f"{equal:.6f}", kept=int(both.sum()),
+        points_max_abs_err=f"{err:.3g}",
+        in_process_frames_per_sec=f"{len(frames) / track_s:.3f}")
+    if not (equal >= DEMO_MASK_EQUAL and err <= DEMO_POINT_TOL and
+            int(both.sum()) > 0):
+        raise AssertionError(f"filtered_pointcloud: masks {equal}, "
+                             f"points {err}")
+
+
+def run_demo():
+    """Phase 13: the image-directory demo (scripts/demo.py) on 72 frames
+    of the synthetic scene at 375x1242 (240x800 after its resize), weights
+    of tame_net(0, LOOP_HEAD_SCALE, LOOP_MASK_BIAS) passed with --weights,
+    as a subprocess with --stride 1 --vis --live. Held: one finite pose a
+    frame, a non-empty cloud, state.json's counter the keyframe count,
+    the viewer's page; K1, K2, the f32 K3 and the segment sum launched
+    (the demo's own counts); the visualizer's masks and points on the card
+    against the CPU. Returns the demo's launches by kernels-line row."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        images, calib, weights = demo_inputs(tmp)
+        t_inputs = time.perf_counter() - t0
+        run = osp.join(tmp, "run")
+        os.makedirs(run)
+        out, page, state = demo_subprocess(images, calib, weights, run)
+        traj = np.loadtxt(osp.join(run, "demo_traj.txt"))
+        with open(osp.join(run, "viz", "cloud.ply")) as f:
+            vertices = next(int(line.split()[-1]) for line in f
+                            if line.startswith("element vertex"))
+        log("demo", image_size=repr(out["image_size"]),
+            frames=out["frames"], keyframes=out["keyframes"],
+            frames_per_sec=f"{out['frames_per_sec']:.3f}",
+            terminate_s=f"{out['terminate_s']:.3f}",
+            cloud_points=out["cloud_points"], ply_vertices=vertices,
+            viewer_update_ms=f"{out['viewer_update_ms']:.1f}",
+            state_counter=state["counter"], state_points=len(state["points"]),
+            launches=repr(out["launches"]), inputs_s=f"{t_inputs:.1f}")
+        ok = (traj.shape == (DEMO_FRAMES, 7) and np.isfinite(traj).all()
+              and out["cloud_points"] > 0 and vertices > 0
+              and state["counter"] == out["keyframes"]
+              and b"webgl" in page and out["image_size"] == [240, 800])
+        if not ok:
+            raise AssertionError(f"demo artifacts: traj {traj.shape}, "
+                                 f"finite {np.isfinite(traj).all()}, {out}")
+        idle = [k for k in DEMO_ROWS if not out["launches"][k]]
+        if idle:
+            raise AssertionError(f"the demo launched no {idle}")
+        demo_video_card_against_cpu(images, calib, weights)
+    log("demo", seconds=f"{time.perf_counter() - t0:.1f}")
+    return out["launches"]
+
+
+def max_param_diff(a, b):
+    return max(float((x.float() - b[k].float()).abs().max())
+               for k, x in a.items() if x.numel())
+
+
+def two_dp_runs(run_one, run_dp):
+    """The one-card run, the data-parallel run and the one-card run
+    again, each from the same weights: returns the max |d| of the
+    parameters dp vs one card and one card vs itself (the card's own
+    floor), and the s/step of each run."""
+    p1, s1 = run_one()
+    p2, s2 = run_dp()
+    p3, s3 = run_one()
+    return max_param_diff(p2, p1), max_param_diff(p3, p1), (s1, s2, s3)
+
+
+def state_of(model):
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def dp_vo_recipe(mesh):
+    """Phase 14 (a), VO: the recipe (semisup, 15 iterations, 6 frames,
+    200x400, restart loop, remat) for DP_STEPS outer steps on the same
+    clips and restart draws, through the one-card steps and through the
+    data-parallel steps over ``mesh``."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root = bench_train_vo.synth_dataset_root(osp.join(tmp, "recipe"),
+                                                 n_frames=DP_SCENE_FRAMES)
+        db = bench_train_vo.recipe_db(root)
+        batches = [{k: v[None] for k, v in db.sample_clip().items()
+                    if k != "segments"} for _ in range(DP_STEPS)]
+
+    def run(use_mesh):
+        trainer = bench_train_vo.recipe_trainer(mesh.device,
+                                                mesh=use_mesh)
+        rng = (dp.restart_rng(7, use_mesh) if use_mesh
+               else np.random.default_rng(7))
+        it = iter(batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, passes, _, _ = bench_train_vo.run_recipe(
+            lambda: next(it), trainer, DP_STEPS, mesh.device, rng,
+            log_every=0)
+        return state_of(trainer[0]), (time.perf_counter() - t0) / DP_STEPS
+
+    return two_dp_runs(lambda: run(None), lambda: run(mesh))
+
+
+def dp_vps_full(mesh):
+    """Phase 14 (a), VPS: the full step (R-50 at 384x1248, 8 padded GT
+    instances, tamed weights) for DP_STEPS steps through
+    make_full_train_step (the step without a process group) and through
+    make_full_train_step_dp over ``mesh``."""
+    def run(use_mesh):
+        step, state, batch, _ = bench_vps_train.full_setup("cuda")
+        model, tx = state.model, state.tx
+        if use_mesh:
+            step = vps_train_mod.make_full_train_step_dp(model, tx, use_mesh)
+            batch = {k: v[None] for k, v in batch.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DP_STEPS):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        return state_of(model), (time.perf_counter() - t0) / DP_STEPS
+
+    return two_dp_runs(lambda: run(None), lambda: run(mesh))
+
+
+def dp_default_rank(mesh, steps):
+    """Phase 14 (b), in each spawned rank (and in this process with one
+    mesh of its own): bench_train_vo's default protocol (sup, 4
+    iterations, 48x64, F=4) on its slice of a global batch of 2, on
+    tame_net(0, mask_bias=-2) weights, under the deterministic switches.
+    Returns the parameters and the first step's applied gradient (numpy;
+    the gradient as the optimizer takes it: after the all-reduce, before
+    its clip), the per-step times and the kernel launches."""
+    reset_corr_launches()
+    model = tame_net(0, mask_bias=-2.0)
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    seen, apply = [], dp.Optimizer.step
+
+    def recorded(tx):
+        if not seen:
+            seen.append({n: (p.grad if p.grad is not None else
+                             torch.zeros_like(p)).detach().cpu().numpy()
+                         for n, p in zip(names, tx.params)})
+        apply(tx)
+
+    dp.Optimizer.step = recorded
+    try:
+        with deterministic():
+            out = bench_train_vo.default_protocol(
+                steps=steps, device="cuda", model=model, mesh=mesh, batch=2)
+    finally:
+        dp.Optimizer.step = apply
+    return {"params": {k: v.detach().cpu().numpy()
+                       for k, v in model.state_dict().items()},
+            "grads": seen[0],
+            "first_step_s": out["first_step_s"],
+            "steps_per_sec": out["steps_per_sec"],
+            "loss_curve": out["loss_curve"],
+            "launches": dict(corr_launches(), **cuda_segsum.LAUNCHES)}
+
+
+def grad_rel_l2(got, want):
+    """The largest relative L2 distance of ``got``'s tensors from
+    ``want``'s, each tensor's norm floored at 1e-4 of the whole
+    gradient's; returns (distance, its tensor's name)."""
+    if got.keys() != want.keys():
+        return float("inf"), "keys differ"
+    total = np.sqrt(sum((v.astype(np.float64) ** 2).sum()
+                        for v in want.values()))
+    return max((float(np.linalg.norm(got[k].astype(np.float64) - v) /
+                      max(np.linalg.norm(v.astype(np.float64)),
+                          1e-4 * total)), k) for k, v in want.items())
+
+
+@contextlib.contextmanager
+def deterministic():
+    """cuDNN's deterministic algorithms and PyTorch's deterministic
+    implementations (a warning where an op has none), restored after."""
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = flags[0]
+        torch.backends.cudnn.benchmark = flags[1]
+        torch.use_deterministic_algorithms(flags[2], warn_only=flags[3])
+
+
+def run_dp():
+    """Phase 14: data-parallel training (parallel/data_parallel.py,
+    vps/train.py make_full_train_step_dp). (a) NCCL at world size 1 in
+    this process: the VO recipe and the VPS full step through the
+    data-parallel steps against the one-card steps, DP_STEPS optimizer
+    steps from the same weights on the same batches: parameters
+    bit-equal, and the one-card run repeated gives the card's own floor
+    beside it; (b) two gloo ranks on the one card (NCCL refuses two ranks
+    on one card) at the default protocol's size, global batch 2, against
+    one process on the same two samples, both under the deterministic
+    switches: the ranks bit-equal to each other, the first step's
+    applied gradient within DP_GRAD_TOL relative L2 of one process's in
+    every tensor, and after DP_STEPS steps at least DP_EQUAL of the
+    parameters within 1e-6 and all within DP_TOL. Returns the launches (this
+    process's and the ranks')."""
+    t0 = time.perf_counter()
+    reset_corr_launches()
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                      MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(dp.free_port()))
+    try:
+        mesh = dp.make_mesh("cuda")
+        backend = torch.distributed.get_backend()
+        with deterministic():
+            vo = dp_vo_recipe(mesh)
+            vps = dp_vps_full(mesh)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                    "MASTER_PORT"):
+            os.environ.pop(key, None)
+    ok = True
+    for name, (d_dp, d_floor, secs) in (("vo_recipe", vo), ("vps_full", vps)):
+        log("dp", check=f"world1_{name}", backend=backend, steps=DP_STEPS,
+            params_max_abs_dp_vs_one=f"{d_dp:.3g}",
+            params_max_abs_one_vs_one=f"{d_floor:.3g}",
+            s_per_step_one=f"{secs[0]:.3f}", s_per_step_dp=f"{secs[1]:.3f}",
+            s_per_step_one_again=f"{secs[2]:.3f}")
+        ok &= d_dp <= DP_FLOOR_FACTOR * d_floor
+    launches = dict(corr_launches(), **cuda_segsum.LAUNCHES)
+
+    t1 = time.perf_counter()
+    two = dp.spawn(dp_default_rank, 2, (DP_STEPS,), device="cuda",
+                   backend="gloo", share_card=True, timeout=600)
+    t_two = time.perf_counter() - t1
+    one = dp_default_rank(dp.Mesh(device=torch.device("cuda")), DP_STEPS)
+    for r in two:
+        for k, n in r["launches"].items():
+            launches[k] += n
+    launches = {k: v + one["launches"][k] for k, v in launches.items()}
+    ranks_equal = all(np.array_equal(v, two[1]["params"][k])
+                      for k, v in two[0]["params"].items())
+    d = np.concatenate([np.abs(two[0]["params"][k].astype(np.float64) -
+                               v).ravel() for k, v in one["params"].items()])
+    equal_share = float((d <= 1e-6).mean())
+    grad_err, grad_at = grad_rel_l2(two[0]["grads"], one["grads"])
+    log("dp", check="gloo_two_ranks_one_card", steps=DP_STEPS,
+        ranks_bit_equal=ranks_equal,
+        first_grad_rel_l2_max=f"{grad_err:.3g}", first_grad_worst=grad_at,
+        grad_tensors=len(one["grads"]),
+        params_within_1em6=f"{equal_share:.6f}",
+        params_max_abs=f"{d.max():.3g}",
+        loss_two=repr([round(x, 6) for x in two[0]["loss_curve"]]),
+        loss_one=repr([round(x, 6) for x in one["loss_curve"]]),
+        first_step_s_two=f"{two[0]['first_step_s']:.3f}",
+        s_per_step_two=f"{1 / two[0]['steps_per_sec']:.3f}",
+        first_step_s_one=f"{one['first_step_s']:.3f}",
+        s_per_step_one=f"{1 / one['steps_per_sec']:.3f}",
+        spawn_s=f"{t_two:.1f}")
+    log("dp", launches=repr(launches),
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    ok &= (ranks_equal and grad_err <= DP_GRAD_TOL
+           and equal_share >= DP_EQUAL and d.max() <= DP_TOL)
+    if not ok:
+        raise AssertionError("the data-parallel steps disagree with the "
+                             "one-card steps")
+    return launches
+
+
 PHASES = {"kernels": check_kernels, "packed": check_packed,
           "reference": check_reference, "main": run_main_path,
           "harness": run_harnesses, "export": run_export, "vps": run_vps,
           "loop": run_loop, "train": run_train, "vps_train": run_vps_train,
-          "planner": run_planner}
+          "planner": run_planner, "demo": run_demo, "dp": run_dp}
 
 
 def main():
@@ -2320,6 +2754,8 @@ def main():
     loop = run_loop()
     train = run_train()
     vps_train = run_vps_train()
+    demo_launches = run_demo()
+    dp_launches = run_dp()
 
     # K1 and K3 have a row for each feature type. A bf16 row's launches
     # are phase 5's (the video's features); an f32 row's are the timed
@@ -2345,6 +2781,8 @@ def main():
         extra["launches_loop"] = loop[row]
         extra["launches_train"] = train[row]
         extra["launches_vps_train"] = vps_train[row]
+        extra["launches_demo"] = demo_launches[row]
+        extra["launches_dp"] = dp_launches[row]
         kernels.append({
             "name": row, "route": "cuda",
             "source": "pvo_tpu_torch/csrc/corr.cu", "replaces": REPLACES[k],
@@ -2363,7 +2801,9 @@ def main():
         **{k: res["segsum"][k] for k in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
         "launches_loop": loop["segsum"], "launches_train": train["segsum"],
-        "launches_vps_train": vps_train["segsum"]})
+        "launches_vps_train": vps_train["segsum"],
+        "launches_demo": demo_launches["segsum"],
+        "launches_dp": dp_launches["segsum"]})
     for x, (_, kernel, site) in HARNESS.items():
         n, ms, plain_ms, err = harness[x]
         bound = kernel_bound(kernel, HARNESS_E[kernel], 30, 101, C)
@@ -2384,7 +2824,9 @@ def main():
             "plain_ms": plain_ms, "bound_ms": bound["ms"],
             "bound_by": bound["bound_by"], "library_ms": None,
             "launches_train": train[kernel],
-            "launches_vps_train": vps_train[kernel], **extra})
+            "launches_vps_train": vps_train[kernel],
+            "launches_demo": demo_launches[kernel],
+            "launches_dp": dp_launches[kernel], **extra})
     log("run", seconds=f"{time.perf_counter() - start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -2,7 +2,8 @@
 for the port, with numpy fallbacks.
 
 The port's own copy of :mod:`pvo_tpu.native`'s ``pair_counts`` (the PQ/VPQ
-intersection histogram) and ``rgb2id``. The library is built from the
+intersection histogram), ``rgb2id`` and ``id2rgb`` (the panoptic PNG
+codec; :mod:`pvo_tpu_torch.utils.io` holds their plain versions). The library is built from the
 repo's C source with plain ``cc`` into ``pvo_tpu_torch/native_build/``
 (ignored by git), under a name that hashes the source, through a
 temporary file renamed into place: concurrent processes never see half a
@@ -58,6 +59,10 @@ def _load():
                                ctypes.POINTER(ctypes.c_uint32),
                                ctypes.c_long]
         lib.rgb2id.restype = None
+        lib.id2rgb.argtypes = [ctypes.POINTER(ctypes.c_uint32),
+                               ctypes.POINTER(ctypes.c_uint8),
+                               ctypes.c_long]
+        lib.id2rgb.restype = None
         lib.pair_counts.argtypes = [i64p, i64p, ctypes.c_long,
                                     ctypes.c_int64, i64p, i64p,
                                     ctypes.c_long]
@@ -83,6 +88,19 @@ def rgb2id(rgb):
     lib.rgb2id(rgb.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
                out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
                rgb.shape[0] * rgb.shape[1])
+    return out
+
+
+def id2rgb(ids):
+    """uint32 id map -> panoptic RGB (..., 3) uint8."""
+    lib = _load()
+    ids = np.ascontiguousarray(ids, np.uint32)
+    if lib is None:
+        from pvo_tpu_torch.utils.io import id2rgb as np_impl
+        return np_impl(ids)
+    out = np.empty(ids.shape + (3,), np.uint8)
+    lib.id2rgb(ids.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+               out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), ids.size)
     return out
 
 

@@ -1,18 +1,38 @@
-"""VO training steps on one device (port of
-:mod:`pvo_tpu.parallel.data_parallel`).
+"""VO training steps, on one device or data-parallel across processes
+(port of :mod:`pvo_tpu.parallel.data_parallel`).
 
 The JAX module jits one train step over a mesh: the batch sharded over
 the devices, params replicated, the gradient all-reduce inserted by XLA.
-Here the step runs on one device. Its forward takes one sample
-(``DroidNet.forward`` has B=1), so a step loops over the batch's
-samples, takes the mean of their losses and runs one backward and one
-optimizer step. Distributed data parallel across cards, and the JAX
-package's ``multihost``, are not ported yet (ROADMAP.md Queue 1).
+Here the mesh becomes a ``torch.distributed`` process group of one
+process a card (:func:`make_mesh`: ``RANK``, ``WORLD_SIZE`` and
+``LOCAL_RANK`` as ``torchrun`` sets them; NCCL on the card, gloo on the
+CPU). Each rank takes its slice of the global batch (:func:`shard_batch`),
+the parameters start from rank 0's (:func:`replicate`), and one explicit
+all-reduce of the flattened gradients (with the loss and metrics in the
+same buffer: :func:`reduce_step`) runs before each optimizer step, where
+XLA puts its all-reduce. Not
+``DistributedDataParallel``: the restart step sums a step's gradients
+over its restart passes in a dict (``make_restart_step``), and one
+reduce of that sum equals the JAX step's sum of reduced passes, with
+one collective an optimizer step and no bucket hooks in the passes.
+Each rank differentiates its share of the global mean loss (its local
+mean over the world size, :func:`global_share`), and the collective sums
+the shares' gradients (:func:`reduce_step`). The global batch must divide
+by the world size: the shares add up to the global mean only for equal
+local batches (the JAX mesh requires the same). Without a process
+group every collective is a no-op, and the steps are the one-device
+steps.
+
+The forward takes one sample (``DroidNet.forward`` has B=1), so a step
+loops over its rank's samples, takes the mean of their losses and runs
+one backward and one optimizer step. :func:`spawn` runs a function in
+several processes of one host (``torchrun``'s job, for the dry run, the
+tests and ``chip_smoke.py``).
 
 Numerics: training runs in float32 throughout (the JAX trainer's
 ``compute_dtype`` is None), with TF32 off for matmuls and cuDNN
-convolutions (:func:`pvo_tpu_torch.utils.device.open_device`). The
-forward differentiates through the plain correlation lookup
+convolutions in every process (:func:`pvo_tpu_torch.utils.device.open_device`).
+The forward differentiates through the plain correlation lookup
 (``corr_impl="plain"``), as the JAX trainer differentiates through its
 XLA lookup: the hand-written corr kernels have no backward.
 
@@ -29,11 +49,14 @@ from optax's by a step.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+import os
+import socket
+from dataclasses import dataclass, field
 from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pvo_tpu_torch.geom import projective
 from pvo_tpu_torch.lie import se3
@@ -84,6 +107,207 @@ def make_optimizer(params, lr=5e-4, total_steps=20000, clip=2.5,
                    weight_decay=1e-5) -> Optimizer:
     """Adam + OneCycle + grad clipping (reference train.py:95-98,:292)."""
     return Optimizer(params, lr, total_steps, clip, weight_decay)
+
+
+@dataclass
+class Mesh:
+    """This process's place in the data-parallel group: its rank, the
+    world size, its card (``LOCAL_RANK``) and whether a
+    ``torch.distributed`` process group is formed (without one every
+    collective is a no-op)."""
+    rank: int = 0
+    world: int = 1
+    local_rank: int = 0
+    device: torch.device = field(default_factory=lambda: torch.device("cpu"))
+    distributed: bool = False
+
+
+def make_mesh(device="cuda", backend=None) -> Mesh:
+    """The data-parallel group of this process. Reads ``RANK``,
+    ``WORLD_SIZE`` and ``LOCAL_RANK`` as ``torchrun`` sets them (0, 1, 0
+    without), takes card ``LOCAL_RANK`` on ``device="cuda"``, and forms
+    the process group (``backend``: NCCL on the card, gloo on the CPU by
+    default; rendezvous at ``MASTER_ADDR``:``MASTER_PORT``) when
+    ``WORLD_SIZE`` is set. A group that cannot be formed raises; a group
+    formed already is adopted. TF32 goes off in this process
+    (``open_device``)."""
+    from pvo_tpu_torch.utils.device import open_device
+    dev = open_device(device)
+    if dist.is_initialized():
+        rank, world = dist.get_rank(), dist.get_world_size()
+    else:
+        rank = int(os.environ.get("RANK", 0))
+        world = int(os.environ.get("WORLD_SIZE", 1))
+    local_rank = int(os.environ.get("LOCAL_RANK", 0))
+    if dev.type == "cuda":
+        if local_rank >= torch.cuda.device_count():
+            raise RuntimeError(f"LOCAL_RANK {local_rank}, but "
+                               f"{torch.cuda.device_count()} card(s)")
+        dev = torch.device("cuda", local_rank)
+        torch.cuda.set_device(dev)
+    if "WORLD_SIZE" in os.environ and not dist.is_initialized():
+        dist.init_process_group(
+            backend or ("nccl" if dev.type == "cuda" else "gloo"),
+            init_method="env://", rank=rank, world_size=world)
+    return Mesh(rank, world, local_rank, dev, dist.is_initialized())
+
+
+def shard_batch(batch, rank, world):
+    """Rank ``rank``'s slice of the global ``batch`` (leaves with a
+    leading batch axis) over ``world`` ranks; the batch must divide by
+    the world size."""
+    n = len(next(iter(batch.values())))
+    if n % world:
+        raise ValueError(f"global batch {n} does not divide by world size "
+                         f"{world}")
+    k = n // world
+    return {key: v[rank * k:(rank + 1) * k] for key, v in batch.items()}
+
+
+@torch.no_grad()
+def replicate(model, mesh: Mesh):
+    """Broadcast rank 0's parameters and buffers to every rank (in
+    place); returns the model."""
+    if mesh.distributed:
+        for t in model.state_dict().values():
+            dist.broadcast(t, 0)
+    return model
+
+
+@torch.no_grad()
+def reduce_step(grads, metrics, mesh: Mesh):
+    """The one collective of an optimizer step: ``grads`` (a dict of the
+    rank's gradients of its share of the global mean loss, see
+    :func:`global_share`) summed over the ranks and ``metrics`` (a dict
+    of the rank's means) averaged, in one all-reduce of the tensors
+    flattened into one float32 buffer. Returns (grads, metrics), new
+    dicts; without a process group the same tensors."""
+    if not mesh.distributed:
+        return dict(grads), dict(metrics)
+    parts = [*grads.values(), *(v / mesh.world for v in metrics.values())]
+    flat = torch.cat([t.detach().reshape(-1).float() for t in parts])
+    dist.all_reduce(flat)
+    out, i = [], 0
+    for t in parts:
+        out.append(flat[i:i + t.numel()].view(t.shape).to(t.dtype))
+        i += t.numel()
+    return (dict(zip(grads, out[:len(grads)])),
+            dict(zip(metrics, out[len(grads):])))
+
+
+def reduce_model_grads(model, metrics, mesh: Mesh):
+    """:func:`reduce_step` on the model's ``.grad`` fields (zeros where
+    none arrived), written back; returns the averaged metrics."""
+    if not mesh.distributed:
+        return metrics
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    grads, metrics = reduce_step(
+        {n: p.grad if p.grad is not None else torch.zeros_like(p)
+         for n, p in named}, metrics, mesh)
+    for n, p in named:
+        p.grad = grads[n]
+    return metrics
+
+
+def global_share(local_mean, mesh: Mesh):
+    """The rank's share of the global batch's mean loss: its local mean
+    over the world size (local batches of one size). Its gradients,
+    summed over the ranks, are the global mean's, as the JAX step
+    differentiates the mean over its whole sharded batch. Averaging the
+    ranks' gradients of their local means instead is not the same
+    function: ``GradientClip`` zeroes gradient entries above its bound,
+    and it sees the cotangent's scale."""
+    return local_mean / mesh.world
+
+
+def restart_rng(seed, mesh: Mesh):
+    """The generator of the restart draws, seeded with rank 0's ``seed``
+    on every rank: every rank then runs the same restart passes (the
+    JAX trainer draws them once on the host for the whole global
+    batch), so the collectives pair up."""
+    if mesh.distributed:
+        t = torch.tensor([int(seed)], dtype=torch.int64,
+                         device=mesh.device)
+        dist.broadcast(t, 0)
+        seed = int(t.item())
+    return np.random.default_rng(seed)
+
+
+def free_port():
+    """A free localhost TCP port (for a rendezvous or a server)."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(fn, rank, world, port, device, backend, share_card, threads,
+               queue, args):
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK="0" if share_card else str(rank),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    if threads:
+        torch.set_num_threads(threads)
+    try:
+        mesh = make_mesh(device, backend)
+        queue.put((rank, fn(mesh, *args), None))
+    except BaseException as e:  # handed to the launcher, then re-raised
+        import traceback
+        queue.put((rank, None, traceback.format_exc()))
+        raise e
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn(fn, world, args=(), device="cpu", backend=None, share_card=False,
+          threads=None, timeout=900):
+    """Run ``fn(mesh, *args)`` in ``world`` new processes of this host
+    (spawned; ``fn`` a module-level function), each with its
+    ``RANK``/``WORLD_SIZE``/``LOCAL_RANK`` and a free localhost port, as
+    ``torchrun`` would start them; ``share_card``: every rank on card 0
+    (gloo only: NCCL refuses two ranks on one card); ``threads``: torch
+    threads a rank. Returns the ranks' results in rank order; a rank that
+    fails, or a run past ``timeout`` seconds, raises."""
+    import multiprocessing as mp
+    import queue as queue_mod
+    import time
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=_rank_main, args=(
+        fn, r, world, port, device, backend, share_card, threads, q, args))
+        for r in range(world)]
+    for p in procs:
+        p.start()
+    results, errors = {}, {}
+    deadline = time.monotonic() + timeout
+    try:
+        while len(results) + len(errors) < world:
+            try:
+                rank, out, err = q.get(timeout=1.0)
+            except queue_mod.Empty:
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"ranks still running after "
+                                       f"{timeout} s")
+                if any(p.exitcode not in (None, 0) for p in procs) and \
+                        not q.qsize():
+                    dead = [p.exitcode for p in procs]
+                    raise RuntimeError(f"a rank died: exit codes {dead}")
+                continue
+            (errors if err else results)[rank] = err or out
+            if errors:
+                break
+        if errors:
+            raise RuntimeError("rank(s) failed:\n" + "\n".join(
+                f"rank {r}: {e}" for r, e in sorted(errors.items())))
+        for p in procs:
+            p.join(timeout=max(deadline - time.monotonic(), 1.0))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [results[r] for r in range(world)]
 
 
 @dataclass
@@ -211,21 +435,29 @@ def _batch_loss(model, batch, ii, jj, num_steps, weights, mode, ph_loss,
 
 
 def make_train_step(model: DroidNet, tx: Optimizer, ii, jj, num_steps=8,
-                    weights=None, mode="sup", ph_loss=True, remat=False):
+                    weights=None, mode="sup", ph_loss=True, remat=False,
+                    mesh: Optional[Mesh] = None):
     """The train step: ``step(state, batch) -> (state, metrics)`` on a
     batch of tensors whose leaves have a leading batch axis (each sample
-    with leading dim 1, as the JAX step's vmapped leaves)."""
+    with leading dim 1, as the JAX step's vmapped leaves). Under a
+    ``mesh`` the batch is this rank's slice of the global batch: the
+    rank differentiates its share of the global mean loss, and the
+    shares' gradients are summed over the ranks (the loss and metrics
+    averaged) before the optimizer step."""
     weights = weights or {}
     ii = np.asarray(ii)
     jj = np.asarray(jj)
+    mesh = mesh or Mesh()
 
     def step(state: TrainState, batch):
         loss, metrics, _ = _batch_loss(model, batch, ii, jj, num_steps,
                                        weights, mode, ph_loss, remat)
-        loss.backward()
+        global_share(loss, mesh).backward()
+        metrics = reduce_model_grads(model, {"loss": loss.detach(),
+                                             **metrics}, mesh)
         tx.step()
         state.step += 1
-        return state, {"loss": loss.detach(), **metrics}
+        return state, metrics
 
     return step
 
@@ -241,7 +473,8 @@ def _grads(model):
 
 
 def make_restart_step(model: DroidNet, tx: Optimizer, ii, jj, num_steps=8,
-                      weights=None, mode="sup", ph_loss=True, remat=False):
+                      weights=None, mode="sup", ph_loss=True, remat=False,
+                      mesh: Optional[Mesh] = None):
     """The reference's restart semantics (train.py:150-265): each
     restart pass re-runs the model from the LAST pose/disp estimates and
     its loss gradient ACCUMULATES; clip + optimizer step apply once per
@@ -252,23 +485,36 @@ def make_restart_step(model: DroidNet, tx: Optimizer, ii, jj, num_steps=8,
         (loss, metrics, grads, (poses_last, disps8_last)), grads a
         {parameter name: tensor} dict, the estimates detached
       acc_fn(acc_grads, grads) -> summed grads
-      apply_fn(state, grads) -> the state after one optimizer step
+      apply_fn(state, grads, metrics=None) -> the state after one
+        optimizer step
+
+    Under a ``mesh`` the passes see this rank's slice of the global
+    batch and differentiate its share of the global mean
+    (:func:`global_share`; the returned loss is the local mean), and
+    ``apply_fn`` sums the shares' gradients over the ranks first, in one
+    collective with ``metrics`` (a dict of tensors, replaced in place by
+    their means over the ranks); every rank must run the same passes
+    (:func:`restart_rng`).
     """
     weights = weights or {}
     ii = np.asarray(ii)
     jj = np.asarray(jj)
+    mesh = mesh or Mesh()
 
     def pass_fn(batch, poses_init, disps_init):
         loss, metrics, est = _batch_loss(
             model, batch, ii, jj, num_steps, weights, mode, ph_loss,
             remat, inits=(poses_init, disps_init))
-        loss.backward()
+        global_share(loss, mesh).backward()
         return loss.detach(), metrics, _grads(model), est
 
     def acc_fn(acc, grads):
         return {k: acc[k] + grads[k] for k in acc}
 
-    def apply_fn(state: TrainState, grads):
+    def apply_fn(state: TrainState, grads, metrics=None):
+        grads, reduced = reduce_step(grads, metrics or {}, mesh)
+        if metrics is not None:
+            metrics.update(reduced)
         for name, p in model.named_parameters():
             p.grad = grads[name]
         tx.step()
@@ -305,13 +551,11 @@ def make_synthetic_batch(n_dev, F=4, H=48, W=64, seed=0):
     }
 
 
-def dryrun(device="cuda", num_steps=2, dry=False,
-           model: Optional[DroidNet] = None):
-    """One train step on tiny shapes on ``device``; returns the metrics
-    as floats. ``dry=True`` drops the photometric term."""
-    from pvo_tpu_torch.utils.device import open_device
-    dev = open_device(device)
-    model = (model or DroidNet.from_seed(0)).to(dev).train()
+def _dryrun_rank(mesh, num_steps, dry, model=None):
+    """One train step of :func:`dryrun` on this rank's slice of a
+    synthetic global batch of one sample a rank."""
+    model = replicate((model or DroidNet.from_seed(0)).to(mesh.device)
+                      .train(), mesh)
     F = 4
     ii, jj = [], []
     for a in range(F):
@@ -321,7 +565,23 @@ def dryrun(device="cuda", num_steps=2, dry=False,
                 jj.append(b)
     tx = make_optimizer(model.parameters(), total_steps=100)
     step = make_train_step(model, tx, ii, jj, num_steps=num_steps,
-                           ph_loss=not dry)
-    _, metrics = step(TrainState(model, tx),
-                      to_device(make_synthetic_batch(1, F=F), dev))
+                           ph_loss=not dry, mesh=mesh)
+    batch = shard_batch(make_synthetic_batch(mesh.world, F=F), mesh.rank,
+                        mesh.world)
+    _, metrics = step(TrainState(model, tx), to_device(batch, mesh.device))
     return {k: float(v) for k, v in metrics.items()}
+
+
+def dryrun(device="cuda", num_steps=2, dry=False,
+           model: Optional[DroidNet] = None, world=1):
+    """One train step on tiny shapes on ``device``; returns the metrics
+    as floats. ``dry=True`` drops the photometric term. ``world`` > 1:
+    one data-parallel step in that many spawned processes (one sample a
+    rank, one card a rank on the card), rank 0's metrics: the global
+    means."""
+    from pvo_tpu_torch.utils.device import open_device
+    dev = open_device(device)
+    if world > 1:
+        return spawn(_dryrun_rank, world, (num_steps, dry),
+                     device=device)[0]
+    return _dryrun_rank(Mesh(device=dev), num_steps, dry, model)

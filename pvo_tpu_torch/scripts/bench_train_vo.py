@@ -1,15 +1,19 @@
-"""Training-learns evidence for the VO trainer on one device (port of
+"""Training-learns evidence for the VO trainer (port of
 ``scripts/bench_train_vo.py``), printed as ONE JSON line. Writes no
 ``BENCH_*.json``.
 
     python -m pvo_tpu_torch.scripts.bench_train_vo [--steps 200]
         [--iters 4] [--device cpu]
+    torchrun --nproc_per_node N -m pvo_tpu_torch.scripts.bench_train_vo
     python -m pvo_tpu_torch.scripts.bench_train_vo --recipe [--steps 300]
 
 Default protocol: the train step of
 :mod:`pvo_tpu_torch.parallel.data_parallel` (the code ``train_vo``
 drives) for ``--steps`` steps on one fixed synthetic supervised batch
-(sup, 4 iterations, 48x64, F=4, random weights from seed 0): the loss
+(sup, 4 iterations, 48x64, F=4, random weights from seed 0), over the
+process group as the JAX bench runs it over its mesh: a global batch of
+one sample a rank sharded over the ranks, the gradients summed before
+each step, rank 0 printing; the loss
 curve, steps/s, peak memory, a checkpoint save -> load round trip that
 must restore bit-equal tensors, and the overfit canary. The JAX bench
 holds its canary on the total loss (``final < 0.5 * loss0``); on untamed
@@ -103,19 +107,24 @@ def checkpoint_roundtrip(model):
 
 
 def default_protocol(steps=200, iters=4, lr=5e-4, mode="sup", device="cuda",
-                     model=None):
+                     model=None, mesh=None, batch=None):
     """The default protocol; returns its JSON dict. ``model``: the
-    weights to train (default: random from seed 0)."""
-    dev = open_device(device)
+    weights to train (default: random from seed 0); ``mesh``: the
+    data-parallel group (default: this process alone, on ``device``);
+    ``batch``: the global batch (default: one sample a rank)."""
+    mesh = mesh or dp.Mesh(device=open_device(device))
+    dev = mesh.device
     F = 4
     ii, jj = dp.losses.ring_graph(F)
-    model = (model or DroidNet.from_seed(0)).to(dev).train()
+    model = dp.replicate((model or DroidNet.from_seed(0)).to(dev).train(),
+                         mesh)
     tx = dp.make_optimizer(model.parameters(), lr, total_steps=steps)
     step_fn = dp.make_train_step(model, tx, ii, jj, num_steps=iters,
-                                 mode=mode)
+                                 mode=mode, mesh=mesh)
     state = dp.TrainState(model, tx)
-    batch = dp.to_device(dp.make_synthetic_batch(1, F=F, H=48, W=64,
-                                                 seed=0), dev)
+    batch = dp.to_device(dp.shard_batch(dp.make_synthetic_batch(
+        batch or mesh.world, F=F, H=48, W=64, seed=0), mesh.rank,
+        mesh.world), dev)
 
     reset_peak(dev)
     t0 = time.perf_counter()
@@ -153,6 +162,7 @@ def default_protocol(steps=200, iters=4, lr=5e-4, mode="sup", device="cuda",
         "peak_mem_gib": peak_gib(dev),
         "ckpt_roundtrip_ok": bool(ckpt_ok),
         "loss_curve": curve,
+        "world": mesh.world,
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
     }
@@ -221,14 +231,15 @@ def clip_feeder(db, depth=4):
 
 
 def recipe_trainer(dev, iters=15, n_frames=6, total_steps=200, lr=5e-4,
-                   remat=True, seed=0, model=None):
+                   remat=True, seed=0, model=None, mesh=None):
     """(model, pass_fn, apply_fn, acc_fn, state) of the recipe: semisup,
-    ring edges, the restart step."""
+    ring edges, the restart step (over ``mesh``'s group if given)."""
     model = (model or DroidNet.from_seed(seed)).to(dev).train()
     ii, jj = ring_edges(n_frames)
     tx = dp.make_optimizer(model.parameters(), lr, total_steps=total_steps)
     pass_fn, apply_fn, acc_fn = dp.make_restart_step(
-        model, tx, ii, jj, num_steps=iters, mode="semisup", remat=remat)
+        model, tx, ii, jj, num_steps=iters, mode="semisup", remat=remat,
+        mesh=mesh)
     return model, pass_fn, apply_fn, acc_fn, dp.TrainState(model, tx)
 
 
@@ -337,8 +348,11 @@ def main(argv=None):
                      args.device)
     else:
         steps = args.steps or 200
+        mesh = dp.make_mesh(args.device)
         out = default_protocol(steps, args.iters, args.lr, args.mode,
-                               args.device)
+                               mesh=mesh)
+        if mesh.rank:
+            return out
     print(json.dumps(out), flush=True)
     if args.recipe and steps >= MIN_CHECKED_STEPS and not out["canary_ok"]:
         raise SystemExit(f"the flow residual did not fall: {out['unit']}")

@@ -1,10 +1,11 @@
 """VO training CLI (port of ``scripts/train_vo.py``; reference
-VO_Module/train.py), on one device.
+VO_Module/train.py), on one card or data-parallel over several.
 
     python -m pvo_tpu_torch.scripts.train_vo --datapath <vkitti2 root> \
         [--mode semisup] [--iters 15] [--n_frames 6] [--clip 2.5] \
         [--batch 1] [--steps 20000] [--ckpt STEP|file.pth] \
         [--crop_size 200 400] [--device cpu]
+    torchrun --nproc_per_node N -m pvo_tpu_torch.scripts.train_vo ...
 
 The sup/semisup/unsup loss modes of :mod:`pvo_tpu_torch.vo.losses`, a
 fixed ring edge list, the reference's random-restart inner loop (each
@@ -13,8 +14,18 @@ optimizer step an outer step), OneCycle Adam with gradient clipping,
 ``remat`` when ``--iters`` > 8, a checkpoint every ``--ckpt_every``
 steps under ``checkpoints/<name>`` and the running-mean logger. Runs on
 the card unless ``--device cpu``. ``--ckpt`` restores a step of
-``checkpoints/<name>``, or a reference-format ``.pth`` file. Ends with
-one JSON line: steps, grad passes, the last loss and the checkpoint.
+``checkpoints/<name>``, or a reference-format ``.pth`` file.
+
+Under ``torchrun`` each process trains on one card (NCCL; gloo on the
+CPU) over the process group of :func:`pvo_tpu_torch.parallel.
+data_parallel.make_mesh`: ``--batch`` is the global batch and must divide
+by the world size; each rank samples its own clips (the dataset's
+generator seeded by its rank), starts from rank 0's weights, draws the
+restart passes from rank 0's seed (every rank runs the same passes) and
+averages the summed gradients over the ranks before each optimizer
+step. Rank 0 logs, writes the checkpoints and ends with one JSON line:
+steps, grad passes, the last loss (the global mean), the checkpoint,
+the device.
 """
 
 import argparse
@@ -27,11 +38,13 @@ import numpy as np
 from pvo_tpu_torch.data.vkitti2 import VKitti2Dataset
 from pvo_tpu_torch.parallel import data_parallel as dp
 from pvo_tpu_torch.utils import checkpoint
-from pvo_tpu_torch.utils.device import open_device
 from pvo_tpu_torch.utils.logger import Logger
 from pvo_tpu_torch.vo.net.droidnet import DroidNet
 
 RESTART_PROB = 0.2  # reference train.py random-restart inner loop
+# the restart draws' seed (rank 0's, on every rank) and the dataset's
+# seed (plus the rank)
+RESTART_SEED, DATA_SEED = 12345, 1234
 
 
 def ring_edges(n, r=2):
@@ -72,7 +85,7 @@ def main(argv=None):
     p.add_argument("--n_frames", type=int, default=6)
     p.add_argument("--clip", type=float, default=2.5)
     p.add_argument("--batch", type=int, default=1,
-                   help="clips per step")
+                   help="clips per step over all ranks (the global batch)")
     p.add_argument("--crop_size", type=int, nargs=2, default=(200, 400))
     p.add_argument("--ckpt", default=None)
     p.add_argument("--ckpt_every", type=int, default=2000)
@@ -80,9 +93,14 @@ def main(argv=None):
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
-    dev = open_device(args.device)
+    mesh = dp.make_mesh(args.device)
+    if args.batch % mesh.world:
+        raise ValueError(f"--batch {args.batch} does not divide by the "
+                         f"world size {mesh.world}")
+    dev, main_rank = mesh.device, mesh.rank == 0
     db = VKitti2Dataset(args.datapath, "train", n_frames=args.n_frames,
-                        mode=args.mode, crop_size=args.crop_size)
+                        mode=args.mode, crop_size=args.crop_size,
+                        seed=DATA_SEED + mesh.rank)
     ckpt_dir = osp.abspath(f"checkpoints/{args.name}")
 
     model = DroidNet.from_seed(0)
@@ -91,7 +109,7 @@ def main(argv=None):
         model = load_droidnet_torch(args.ckpt)
     elif args.ckpt:
         model = checkpoint.load(ckpt_dir, int(args.ckpt), template=model)
-    model = model.to(dev).train()
+    model = dp.replicate(model.to(dev).train(), mesh)
 
     # fixed ring topology: the covis graph drives CLIP sampling (in the
     # dataset); the edge list stays the same every step
@@ -100,29 +118,35 @@ def main(argv=None):
                            args.clip)
     pass_fn, apply_fn, acc_fn = dp.make_restart_step(
         model, tx, ii, jj, num_steps=args.iters, mode=args.mode,
-        remat=args.iters > 8)
+        remat=args.iters > 8, mesh=mesh)
     state = dp.TrainState(model, tx)
 
     sample = db.sample_clip()
-    logger = Logger(args.name, log_every=args.log_every)
-    rng = np.random.default_rng(12345)
+    logger = (Logger(args.name, log_every=args.log_every) if main_rank
+              else None)
+    rng = dp.restart_rng(RESTART_SEED, mesh)
     n_passes, loss = 0, None
     for step in range(args.steps):
-        clips = [db.sample_clip() for _ in range(args.batch)]
+        clips = [db.sample_clip() for _ in range(args.batch // mesh.world)]
         batch = dp.to_device({k: np.stack([c[k][0] for c in clips])[:, None]
                               for k in sample if k != "segments"}, dev)
         loss, metrics, grads, n = restart_passes(pass_fn, acc_fn, batch,
                                                  rng)
+        metrics = {"loss": loss, **metrics}
+        state = apply_fn(state, grads, metrics)
+        loss = metrics.pop("loss")
         n_passes += n
-        state = apply_fn(state, grads)
-        logger.push({k: float(v) for k, v in metrics.items()})
-        if (step + 1) % args.ckpt_every == 0:
-            checkpoint.save(ckpt_dir, step + 1, model)
-    path = checkpoint.save(ckpt_dir, args.steps, model)
+        if main_rank:
+            logger.push({k: float(v) for k, v in metrics.items()})
+            if (step + 1) % args.ckpt_every == 0:
+                checkpoint.save(ckpt_dir, step + 1, model)
     out = {"steps": args.steps, "grad_passes": n_passes,
            "loss_last": None if loss is None else float(loss),
-           "checkpoint": os.path.relpath(path), "device": str(dev)}
-    print(json.dumps(out), flush=True)
+           "checkpoint": None, "device": str(dev)}
+    if main_rank:
+        out["checkpoint"] = os.path.relpath(
+            checkpoint.save(ckpt_dir, args.steps, model))
+        print(json.dumps(out), flush=True)
     return out
 
 

@@ -1,5 +1,6 @@
 """VPS training CLI (port of ``scripts/train_vps.py``; reference
-VPS_Module/tools/train_net.py:184-194), on one device.
+VPS_Module/tools/train_net.py:184-194), on one card or data-parallel over
+several.
 
     python -m pvo_tpu_torch.scripts.train_vps --datapath <vkitti root> \
         [--dataset vkitti_511_train] [--mode full|fusion] \
@@ -24,7 +25,15 @@ unless ``--device cpu``; ``--tiny`` (1-block backbone, 64 proposals of
 128 a level before NMS, as the JAX package's tests train) and
 ``--scale`` (frames and targets resized) make a run small enough for the
 CPU.
-Ends with one JSON line: iterations, the last loss, the checkpoint.
+
+Under ``torchrun --nproc_per_node N`` the full mode trains over the
+process group (one card a process, NCCL; gloo on the CPU):
+``--batch`` is the global batch (default 1) and must divide by the
+world size; every rank draws the same records and takes its slice, and
+the step (``make_full_train_step_dp``) averages the gradients over the
+ranks. The fusion finetune trains one pair a step in one process. Rank 0
+logs, writes the checkpoints and ends with one JSON line: iterations,
+the last loss (the global mean), the checkpoint, the world size.
 """
 
 import argparse
@@ -34,10 +43,10 @@ import os.path as osp
 import time
 
 import numpy as np
+import torch
 
 from pvo_tpu_torch.scripts.initial_segmentation import load_model
 from pvo_tpu_torch.utils import checkpoint
-from pvo_tpu_torch.utils.device import open_device
 from pvo_tpu_torch.utils.logger import Logger
 from pvo_tpu_torch.vps import datasets as D
 from pvo_tpu_torch.vps import train as T
@@ -63,6 +72,8 @@ def parse_args(argv=None):
     p.add_argument("--log_every", type=int, default=20)
     p.add_argument("--max_instances", type=int, default=32)
     p.add_argument("--shared_data", default="shared_data")
+    p.add_argument("--batch", type=int, default=1,
+                   help="samples a step over all ranks (full mode)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--tiny", action="store_true",
                    help="1-block backbone, 64 proposals (CI on CPU)")
@@ -123,7 +134,16 @@ def fusion_sample(sample):
 
 def main(argv=None):
     args = parse_args(argv)
-    dev = open_device(args.device)
+    from pvo_tpu_torch.parallel import data_parallel as dp
+
+    mesh = dp.make_mesh(args.device)
+    if args.batch % mesh.world:
+        raise ValueError(f"--batch {args.batch} does not divide by the "
+                         f"world size {mesh.world}")
+    if args.mode == "fusion" and args.batch * mesh.world > 1:
+        raise ValueError("the fusion finetune trains one pair a step in "
+                         "one process")
+    dev, main_rank = mesh.device, mesh.rank == 0
 
     cfg = get_cfg()
     if args.config:
@@ -140,31 +160,41 @@ def main(argv=None):
         records = [r for r in records if r.get("ref_file_name")]
     if not records:
         raise SystemExit(f"no records in {args.dataset}")
-    print(f"{len(records)} training records from {args.dataset}",
-          flush=True)
+    if main_rank:
+        print(f"{len(records)} training records from {args.dataset}",
+              flush=True)
 
-    model = load_weights(args.weights, args.tiny).to(dev).train()
+    model = dp.replicate(load_weights(args.weights, args.tiny).to(dev)
+                         .train(), mesh)
     loss_kw = TINY_LOSS_KW if args.tiny else {}
     if args.mode == "fusion":
         tx = T.make_fusion_optimizer(model, lr=lr)
         step = T.make_fusion_train_step(model, tx, **loss_kw)
     else:
         tx = T.make_solver(model, base_lr=lr, max_iter=max_iter)
-        step = T.make_full_train_step(model, tx, **loss_kw)
+        step = T.make_full_train_step_dp(model, tx, mesh, **loss_kw)
     state = T.TrainState(model, tx)
 
-    logger = Logger("train_vps", log_every=args.log_every, logdir=args.out)
+    logger = (Logger("train_vps", log_every=args.log_every, logdir=args.out)
+              if main_rank else None)
     rng = np.random.RandomState(0)
+    local = args.batch // mesh.world
     t0 = time.time()
     path = None
     for it in range(max_iter):
-        rec = records[rng.randint(len(records))]
-        sample = D.pad_to_divisor(scale_sample(
-            D.train_sample_mapper(rec, max_instances=args.max_instances),
-            args.scale))
+        # the same draws on every rank: the global batch's records
+        picks = [records[rng.randint(len(records))]
+                 for _ in range(args.batch)]
+        samples = [T.to_device(prep_sample(rec, args), dev) for rec in
+                   picks[mesh.rank * local:(mesh.rank + 1) * local]]
         if args.mode == "fusion":
-            sample = fusion_sample(sample)
-        state, metrics = step(state, T.to_device(sample, dev))
+            batch = samples[0]
+        else:
+            batch = {k: torch.stack([s[k] for s in samples])
+                     for k in samples[0]}
+        state, metrics = step(state, batch)
+        if not main_rank:
+            continue
         logger.push({k: float(v) for k, v in metrics.items()})
         if (it + 1) % args.log_every == 0:
             dt = (time.time() - t0) / args.log_every
@@ -177,9 +207,20 @@ def main(argv=None):
             print(f"checkpoint @ {it + 1} -> {path}", flush=True)
     out = {"iterations": max_iter,
            "loss_last": float(metrics["loss"]) if max_iter else None,
-           "checkpoint": path and os.path.relpath(path), "device": str(dev)}
-    print(json.dumps(out), flush=True)
+           "checkpoint": path and os.path.relpath(path), "device": str(dev),
+           "world": mesh.world}
+    if main_rank:
+        print(json.dumps(out), flush=True)
     return out
+
+
+def prep_sample(rec, args):
+    """A record's training sample (numpy, the JAX layout), scaled, padded
+    to 32 and, in the fusion mode, paired with its reference frame."""
+    sample = D.pad_to_divisor(scale_sample(
+        D.train_sample_mapper(rec, max_instances=args.max_instances),
+        args.scale))
+    return fusion_sample(sample) if args.mode == "fusion" else sample
 
 
 if __name__ == "__main__":

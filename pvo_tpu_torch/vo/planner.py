@@ -884,7 +884,7 @@ class PlannerDriver:
         self._records = []
         self.overflow = 0
         self._last_refusal = None
-        self.engaged = True
+        self.engaged = v.engaged = True
         log.info("planner engaged at frame %d (n_edges=%d, inactive=%d)",
                  v.counter, n, ni)
 
@@ -1060,6 +1060,6 @@ class PlannerDriver:
         else:
             fe._packet = None
             fe._dmat = dmat
-        self.engaged = False
+        self.engaged = v.engaged = False
         log.info("planner disengaged at frame %d (flags=%s)", v.counter,
                  flag_names(int(scal[S_FLAGS])))

@@ -4,7 +4,14 @@
 A fixed-size ring of keyframe state on one device: images, w2c poses,
 inverse depths (1/8 res), intrinsics, correlation/context features
 (bf16), local panoptic-segment ids and BA damping. Timestamps live on
-the host. Tensors are updated in place.
+the host. Tensors are updated in place: the JAX package's fused
+keyframe write (one jitted dispatch) becomes in-place writes on the
+video's device.
+
+``engaged`` is True while the planner's frame program owns the buffers
+(:class:`pvo_tpu_torch.vo.planner.PlannerDriver` sets it): the counter
+is stale then, and a reader that would force a sync into the program
+(the visualizer, the live viewer) raises.
 """
 
 from __future__ import annotations
@@ -12,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pvo_tpu_torch.geom import projective
 from pvo_tpu_torch.geom.distance import frame_distance_bidirectional
 from pvo_tpu_torch.lie import se3
 
@@ -33,6 +41,7 @@ class DepthVideo:
 
         self.counter = 0
         self.ready = False
+        self.engaged = False
 
         B, h, w = buffer, self.h, self.w
         z = dict(device=self.device)
@@ -61,6 +70,42 @@ class DepthVideo:
         labels[labels > self.max_segments - 1] = 0      # overflow -> 0
         return labels[inv].reshape(self.h, self.w)
 
+    def append(self, tstamp, image, pose=None, disp=None,
+               intrinsics=None, fmap=None, net=None, inp=None,
+               segm=None):
+        self.set_frame(self.counter, tstamp, image, pose, disp,
+                       intrinsics, fmap, net, inp, segm)
+
+    def set_frame(self, ix, tstamp, image=None, pose=None, disp=None,
+                  intrinsics=None, fmap=None, net=None, inp=None,
+                  segm=None):
+        """Write slot ``ix`` (numpy, tensors on any device, or scalars;
+        a field left None keeps its value) and raise the counter past
+        it. A whole keyframe (features, image and intrinsics given) is
+        written as the JAX package's fused write does: its segment slot
+        is cleared unless a map is given under the segment filter, and
+        its pose and disparity are written only with a pose (the
+        disparity 1 by default, a scalar filling the map)."""
+        if ix >= self.counter:
+            self.counter = ix + 1
+        self.tstamp[ix] = float(tstamp)
+        if all(x is not None for x in (fmap, net, inp, image, intrinsics)):
+            if segm is None or not self.segm_filter:
+                self.segms[ix] = 0
+            if pose is None:
+                disp = None
+            elif disp is None:
+                disp = 1.0
+        for name, value in (("images", image), ("poses", pose),
+                            ("disps", disp), ("intrinsics", intrinsics),
+                            ("fmaps", fmap), ("nets", net), ("inps", inp)):
+            if value is not None:
+                buf = getattr(self, name)
+                buf[ix] = torch.as_tensor(value).to(buf.device, buf.dtype)
+        if segm is not None and self.segm_filter:
+            self.segms[ix] = torch.as_tensor(self._remap_segments(segm),
+                                             device=self.device)
+
     def remove_frame(self, ix):
         """Shift frame ix+1 down onto ix (keyframe removal)."""
         for name in self.FRAME_FIELDS:
@@ -82,3 +127,22 @@ class DepthVideo:
         d = frame_distance_bidirectional(self.poses, self.disps,
                                          self.intrinsics[0], ii, jj, beta)
         return d.cpu().numpy()
+
+    def reproject(self, ii, jj):
+        """Pixels of frames ``ii`` mapped into frames ``jj``: coords
+        (1, N, h, w, 2) and valid (1, N, h, w, 1)."""
+        ii = torch.as_tensor(np.asarray(ii, np.int64), device=self.device)
+        jj = torch.as_tensor(np.asarray(jj, np.int64), device=self.device)
+        return projective.projective_transform(
+            self.poses[None], self.disps[None], self.intrinsics[None], ii, jj)
+
+    def distance_matrix(self, beta=0.3):
+        """(counter, counter) frame distances, as numpy."""
+        t = self.counter
+        ii, jj = np.meshgrid(np.arange(t), np.arange(t), indexing="ij")
+        return self.distance(ii.reshape(-1), jj.reshape(-1),
+                             beta).reshape(t, t)
+
+    def pose_at(self, ix):
+        """The w2c pose [t, q] of slot ``ix``, as numpy."""
+        return self.poses[ix].cpu().numpy()

@@ -1,5 +1,5 @@
-"""VPS training: the fusion-conv finetune and the full-model step (port of
-:mod:`pvo_tpu.vps.train` on one device).
+"""VPS training: the fusion-conv finetune and the full-model step, on one
+device or data-parallel across processes (port of :mod:`pvo_tpu.vps.train`).
 
 The Panoptic FPN loss stack (RPN, Fast R-CNN, mask, semantic) on one
 image, with flow-warped reference features in the fusion mode, where
@@ -16,8 +16,15 @@ outside the graph. The backbone's ``FrozenBN`` statistics are buffers
 and never move: the JAX package declares them parameters and its solver
 trains them (fault J5, not copied).
 
-The data-parallel step (``make_full_train_step_dp``, ``dryrun_dp``) is
-not ported yet (ROADMAP.md Queue 1).
+The full step (``make_full_train_step_dp``; ``make_full_train_step``
+is it on one device and one sample) runs over the process group of
+:func:`pvo_tpu_torch.parallel.data_parallel.make_mesh`, or alone without
+one: each rank differentiates its share of the global batch's mean
+loss, then one all-reduce sums the gradients (and averages the loss and
+metrics) before the solver's step. As the JAX step closes one key over its
+vmap, every sample of a step, on every rank, draws its RPN subsample from
+the same draws: ``rng_fn(step, device)`` is called afresh for each
+sample.
 """
 
 from __future__ import annotations
@@ -288,27 +295,116 @@ def make_fusion_train_step(model: PanopticFPN, tx: FusionOptimizer,
     return step
 
 
-def make_full_train_step(model: PanopticFPN, tx: Solver,
-                         rng_fn: Optional[Callable] = None, **loss_kw):
+def make_full_train_step_dp(model: PanopticFPN, tx: Solver, mesh=None,
+                            rng_fn: Optional[Callable] = None, **loss_kw):
     """The full-model step (every head learns: backbone, FPN, RPN,
     box/mask heads, semantic head; the reference's train_net.py
-    DefaultTrainer over the PanopticFPN losses):
-    ``step(state, batch) -> (state, metrics)``.
+    DefaultTrainer over the PanopticFPN losses), over a data-parallel
+    ``mesh`` (:func:`pvo_tpu_torch.parallel.data_parallel.make_mesh`;
+    None: this process alone): ``step(state, batch) -> (state,
+    metrics)``.
 
-    batch (on the device): image (1, 3, H, W), gt_boxes (G, 4),
-    gt_classes (G,), gt_valid (G,), sem_labels (1, H, W), gt_masks
-    (G, H, W). ``rng_fn`` as :func:`make_fusion_train_step`'s."""
+    batch (on the device): this rank's samples along a leading axis,
+    each sample's leaves image (1, 3, H, W), gt_boxes (G, 4), gt_classes
+    (G,), gt_valid (G,), sem_labels (1, H, W), gt_masks (G, H, W).
+    ``rng_fn`` as :func:`make_fusion_train_step`'s. The loss is the mean
+    over the global batch (local batches of one size on every rank). A
+    non-finite global loss raises ``FloatingPointError`` on every rank,
+    after the backward and the all-reduce, so that no rank waits on
+    another; the gradients are cleared and the solver does not step."""
+    from pvo_tpu_torch.parallel.data_parallel import (Mesh, global_share,
+                                                      reduce_model_grads)
     rng_fn = rng_fn or step_generator
+    mesh = mesh or Mesh()
 
     def step(state: TrainState, batch):
-        image = batch["image"]
-        loss, metrics = panoptic_losses(
-            model, image, None, batch["gt_boxes"], batch["gt_classes"],
-            batch["gt_valid"], batch["sem_labels"],
-            **_loss_kwargs(batch, loss_kw, rng_fn(state.step, image.device)))
-        _backward(loss, metrics, state.step)
+        n = batch["image"].shape[0]
+        total, mets = 0.0, []
+        for b in range(n):
+            sample = {k: v[b] for k, v in batch.items()}
+            loss, metrics = panoptic_losses(
+                model, sample["image"], None, sample["gt_boxes"],
+                sample["gt_classes"], sample["gt_valid"],
+                sample["sem_labels"], **_loss_kwargs(
+                    sample, loss_kw, rng_fn(state.step,
+                                            sample["image"].device)))
+            total = total + loss
+            mets.append(metrics)
+        loss = total / n
+        global_share(loss, mesh).backward()
+        metrics = reduce_model_grads(
+            model, {"loss": loss.detach(),
+                    **{k: torch.stack([m[k] for m in mets]).mean()
+                       for k in mets[0]}}, mesh)
+        if not bool(torch.isfinite(metrics["loss"])):
+            model.zero_grad(set_to_none=True)
+            raise FloatingPointError(
+                f"loss became {float(metrics['loss'])} at step "
+                f"{state.step}: { {k: float(v) for k, v in metrics.items()} }")
         tx.step()
         state.step += 1
-        return state, {"loss": loss.detach(), **metrics}
+        return state, metrics
 
     return step
+
+
+def make_full_train_step(model: PanopticFPN, tx: Solver,
+                         rng_fn: Optional[Callable] = None, **loss_kw):
+    """:func:`make_full_train_step_dp` on one device, one sample a step:
+    the batch's leaves without the leading axis (image (1, 3, H, W),
+    ...)."""
+    step = make_full_train_step_dp(model, tx, None, rng_fn, **loss_kw)
+
+    def one(state: TrainState, batch):
+        return step(state, {k: v[None] for k, v in batch.items()})
+
+    return one
+
+
+def dryrun_sample(H=64, W=96, device="cpu"):
+    """The JAX ``dryrun_dp``'s sample on ``device`` (its image drawn from
+    a seeded torch generator): two boxes with masks, two padded GT
+    slots, semantic class 3 everywhere. H and W divide by 32."""
+    g = torch.Generator().manual_seed(0)
+    masks = np.zeros((4, H, W), np.float32)
+    masks[0, 4:20, 4:20] = 1.0
+    masks[1, 6:24, 10:30] = 1.0
+    sample = {
+        "image": (torch.randn((1, H, W, 3), generator=g) * 20 + 90).numpy(),
+        "gt_boxes": np.asarray([[4., 4., 20., 20.], [10., 6., 30., 24.],
+                                [0., 0., 1., 1.], [0., 0., 1., 1.]],
+                               np.float32),
+        "gt_classes": np.asarray([1, 2, 0, 0], np.int64),
+        "gt_valid": np.asarray([True, True, False, False]),
+        "sem_labels": np.full((1, H, W), 3, np.int64),
+        "gt_masks": masks,
+    }
+    return to_device(sample, device)
+
+
+def _dryrun_dp_rank(mesh, H, W):
+    from pvo_tpu_torch.parallel.data_parallel import replicate
+    from .panoptic_fpn import init_weights
+    model = init_weights(PanopticFPN(backbone_blocks=(1, 1, 1, 1)), 0)
+    model = replicate(model.to(mesh.device).train(), mesh)
+    tx = make_solver(model, base_lr=1e-3)
+    step = make_full_train_step_dp(model, tx, mesh, max_props=32,
+                                   pre_nms_topk=64)
+    one = dryrun_sample(H, W, mesh.device)
+    batch = {k: v[None] for k, v in one.items()}
+    _, metrics = step(TrainState(model, tx), batch)
+    return {k: float(v) for k, v in metrics.items()}
+
+
+def dryrun_dp(world=1, H=64, W=96, device="cuda"):
+    """ONE data-parallel full-model step of the 1-block Panoptic FPN at
+    HxW (32 proposals of 64 a level before NMS), one sample a rank, in
+    ``world`` spawned processes (one card a rank on the card; in this
+    process for ``world`` 1). Returns rank 0's metrics: the global
+    means."""
+    from pvo_tpu_torch.parallel import data_parallel as dp
+    from pvo_tpu_torch.utils.device import open_device
+    dev = open_device(device)
+    if world > 1:
+        return dp.spawn(_dryrun_dp_rank, world, (H, W), device=device)[0]
+    return _dryrun_dp_rank(dp.Mesh(device=dev), H, W)

@@ -222,6 +222,24 @@ def test_import_walk_covers_the_vps_train_slice(rel):
     test_import_walk_covers_the_vps_slice(rel)
 
 
+DEMO_SLICE = ("utils/flow_vis.py", "data/streams.py", "vo/video.py",
+              "vo/visualization.py", "vo/live_viewer.py", "native.py",
+              "scripts/demo.py", "scripts/export_reconstruction.py",
+              "scripts/visualize_results.py")
+DP_SLICE = ("parallel/data_parallel.py", "parallel/multihost.py",
+            "vps/train.py", "scripts/train_vo.py", "scripts/train_vps.py",
+            "scripts/bench_train_vo.py")
+
+
+@pytest.mark.parametrize("rel", DEMO_SLICE + DP_SLICE)
+def test_import_walk_covers_the_demo_and_dp_slices(rel):
+    """The walks above read each file of the image-directory demo's and
+    the data-parallel trainers' slices (no JAX, no module-level cv2 or
+    PIL); their imports of the port's own modules resolve to files of
+    the port."""
+    test_import_walk_covers_the_vps_slice(rel)
+
+
 def test_port_config_equals_the_jax_package_config():
     ours = [(f.name, f.type, f.default) for f in dataclasses.fields(VOConfig)]
     theirs = [(f.name, f.type, f.default)

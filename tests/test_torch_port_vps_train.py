@@ -376,7 +376,7 @@ def test_step_generator_is_seeded_by_the_step():
 def test_a_diverged_step_raises(module):
     """A non-finite loss (detectron2's trainer check) or non-finite
     proposals, whose boxes would index outside the levels, raise
-    FloatingPointError before the backward."""
+    FloatingPointError, leave no gradient and take no solver step."""
     model = init_weights(PanopticFPN(backbone_blocks=BLOCKS), 3).train()
     with torch.no_grad():
         model.get_submodule(module).bias.fill_(float("inf"))

@@ -4,8 +4,8 @@
     python3 chip_smoke.py main       only the named phases (kernels,
                                      packed, reference, main, planner,
                                      harness, export, vps, loop, train,
-                                     vps_train, demo, dp), without the
-                                     result lines
+                                     vps_train, demo, dp, tools), without
+                                     the result lines
 
 Phases, one line each (any failure exits non-zero):
   1. device   - requires CUDA; prints the card's name and power limit;
@@ -224,6 +224,26 @@ Phases, one line each (any failure exits non-zero):
                 each run
                 ("launches_dp" in the kernels line: this process's and
                 the ranks').
+ 15. tools    - the developer and analysis CLIs (pvo_tpu_torch/scripts:
+                analyze_model, bench_corr, bench_dba, bench_step_parts,
+                bench_filler, profile_vo, profile_track,
+                profile_terminate, trace_track, trace_vo2, trace_vps,
+                profile_vps, profile_vps_pipeline), each through its
+                main() in this process on the card (trace_track as a
+                process of its own, as a user starts it: see TOOLS_CUTS)
+                at the JAX scripts' widths (240x808, 376x1248, 384x1248),
+                depth cut as TOOLS_CUTS says (printed in the phase's log
+                line). Held:
+                bench_corr's K3 within 1e-4 and P1 within 2e-2 + 8e-3
+                |ref| with >= 99.9% bit-equal of their plain versions
+                before they are timed; trace_track's K1/K2/K3 and
+                segment-sum launches in the trace of its replayed frames
+                equal to FrameGraph.per_replay's; its planner frame's
+                FLOP count on the card equal to the same frame
+                program's on the CPU at 64x96 (the same sections run),
+                and its MFU in (0, 1]; analyze_model's parameter counts
+                on the card equal to the CPU's; every number each CLI
+                returns finite. ("launches_tools" in the kernels line.)
 Then the whole run's seconds, one JSON line of kernel results (the
 segment sum's row too), the card's name and power limit, and the
 contract line {"ok": true, "device": {...}}.
@@ -231,9 +251,12 @@ contract line {"ok": true, "device": {...}}.
 
 import contextlib
 import copy
+import gc
 import glob
 import importlib
+import io
 import json
+import math
 import os
 import os.path as osp
 import subprocess
@@ -251,10 +274,16 @@ from pvo_tpu_torch.parallel import data_parallel as dp
 from pvo_tpu_torch.geom import projective
 from pvo_tpu_torch.geom.depth_filter import depth_consistency_count
 from pvo_tpu_torch.lie import se3
-from pvo_tpu_torch.scripts import (bench_train_vo, bench_train_vps,
+from pvo_tpu_torch.scripts import (analyze_model, bench_corr, bench_dba,
+                                   bench_filler, bench_step_parts,
+                                   bench_train_vo, bench_train_vps,
                                    bench_vo2_export, bench_vps_train, demo,
                                    fault_probe, kbench, prepare_vkitti,
-                                   run_pvo_loop, train_vo)
+                                   profile_terminate, profile_track,
+                                   profile_vo, profile_vps,
+                                   profile_vps_pipeline, run_pvo_loop,
+                                   trace_track, trace_vo2, trace_vps,
+                                   train_vo)
 from pvo_tpu_torch.scripts.bench_track import (RANGE_PREFIXES, api_calls,
                                                bench_system, corr_rows,
                                                kernel_rows, profiled,
@@ -273,6 +302,7 @@ from pvo_tpu_torch.vo.net import corr as corr_plain
 from pvo_tpu_torch.vo.net import cuda_corr
 from pvo_tpu_torch.vo.net import cuda_corr_exp
 from pvo_tpu_torch.vo.net import cuda_segsum
+from pvo_tpu_torch.vo.net.droidnet import DroidNet
 from pvo_tpu_torch.utils.io import VKITTI_INTRINSICS
 from pvo_tpu_torch.vo.system import VOSystem
 from pvo_tpu_torch.vo.video import DepthVideo
@@ -407,6 +437,32 @@ DP_GRAD_TOL = 1e-6
 # card's own run-to-run difference: bit-equal where the card repeats
 # itself
 DP_FLOOR_FACTOR = 4
+# phase 15: each CLI's arguments (the JAX scripts' widths, depth cut to
+# keep the phase near 90 s). trace_track runs as a process of its own,
+# as a user starts it: after earlier work in a process (profile_terminate,
+# or phases 13-14) the profiler names a replayed frame's kernels wrongly
+# there (a K1, a K2 and 7-19 segment sums a frame more than the graph
+# holds, with the kernel total and the poses equal to the eager
+# program's; PERF.md section 7), with 20 warm frames (the capture at 16)
+# where its own protocol takes 42. Its card-against-CPU FLOP check, which
+# traces nothing, runs in this process: 64x96, 14 warm frames (the
+# engage at 13), the count frame next
+TOOLS_TRACE_ARGV = ["--warm", "20"]
+TOOLS_CUTS = {
+    "analyze_model": [],
+    "bench_corr": [],
+    "bench_dba": [],
+    "bench_step_parts": [],
+    "bench_filler": ["40", "1"],
+    "profile_vo": [],
+    "profile_track": ["--frames", "20", "10"],
+    "profile_terminate": ["40"],
+    "trace_vo2": ["3"],
+    "trace_vps": [],
+    "profile_vps": ["--reps", "4"],
+    "profile_vps_pipeline": ["--frames", "4"],
+}
+TOOLS_FLOP_HW, TOOLS_FLOP_WARM = (64, 96), 14
 P2_VARIANTS = (
     (dict(), ("X2", "X3", "X4", "X5")),
     (dict(weights="bf16"), ("X2",)),
@@ -1264,19 +1320,11 @@ def check_replay_counts(drv, records, replayed, prof):
     sum."""
     if not all(replayed):
         raise AssertionError(f"profiled frames not all replays: {replayed}")
-    derived = {}
-    for rec in records:
-        for k, v in drv.frame_graph.per_replay(drv.sections(rec)).items():
-            derived[k] = derived.get(k, 0) + v
-    rows = {k: n for k, (_, n) in corr_rows(prof).items()}
-    seen = {"build_volumes": rows["K1"], "corr_extract": rows["K2"],
-            "corr_lookup": rows["K3_bf16"] + rows["K3_f32"],
-            "segsum": sum(r.count for r in prof.key_averages()
-                          if r.device_type == torch.autograd.DeviceType.CUDA
-                          and "segsum_kernel" in r.key)}
+    derived = trace_track.replay_counted(drv, records)
+    seen = trace_track.profile_launches(prof)
     log("planner", replays_profiled=len(records),
         launches_counted=repr(derived), launches_profiled=repr(seen))
-    if {k: derived.get(k, 0) for k in seen} != seen:
+    if derived != seen:
         raise AssertionError(f"replayed launches counted {derived}, "
                              f"profiled {seen}")
 
@@ -2041,11 +2089,8 @@ def run_loop():
 def corr_launches():
     """Every corr kernel's launch count by row of the kernels line: K1
     and K3 split by feature type, K2, P1 and P2."""
-    out = dict(cuda_corr.LAUNCHES)
-    for k in cuda_corr.F32_KERNELS:
-        out[F32_ROWS[k]] = cuda_corr.F32_LAUNCHES[k]
-        out[k] -= cuda_corr.F32_LAUNCHES[k]
-    out.update(cuda_corr_exp.LAUNCHES)
+    out = kbench.launch_counts()
+    del out["segsum"]
     return out
 
 
@@ -2709,11 +2754,187 @@ def run_dp():
     return launches
 
 
+def non_finite(obj, path="out"):
+    """The paths of the non-finite numbers in a CLI's returned value
+    (None, the CPU's marker of a device field, is not a number)."""
+    if isinstance(obj, dict):
+        return [p for k, v in obj.items()
+                for p in non_finite(v, f"{path}.{k}")]
+    if isinstance(obj, (list, tuple)):
+        return [p for i, v in enumerate(obj)
+                for p in non_finite(v, f"{path}[{i}]")]
+    if isinstance(obj, (int, float)) and not isinstance(obj, bool):
+        return [] if math.isfinite(obj) else [path]
+    return []
+
+
+def run_tool(name, argv):
+    """``main(argv + --device cuda)`` of the CLI ``name``, its printing
+    kept and shown only if it fails; raises on a non-finite number in
+    what it returns. Returns (its value, seconds)."""
+    module = globals()[name]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = module.main(argv + ["--device", "cuda"])
+    except BaseException:
+        print(buf.getvalue()[-6000:], file=sys.stderr)
+        raise
+    bad = non_finite(out)
+    if bad:
+        print(buf.getvalue()[-6000:], file=sys.stderr)
+        raise AssertionError(f"{name} returned non-finite numbers: {bad}")
+    # the CLI's systems and their CUDA graphs freed before the next one
+    gc.collect()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def run_trace_track():
+    """``python -m pvo_tpu_torch.scripts.trace_track`` with
+    TOOLS_TRACE_ARGV on the card, as a process of its own: its JSON last
+    line and seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pvo_tpu_torch.scripts.trace_track",
+         *TOOLS_TRACE_ARGV, "--device", "cuda"], capture_output=True,
+        text=True, timeout=600)
+    if proc.returncode:
+        print(proc.stdout[-6000:], proc.stderr[-6000:], file=sys.stderr)
+        raise AssertionError(f"trace_track exited {proc.returncode}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    bad = non_finite(out)
+    if bad:
+        raise AssertionError(f"trace_track returned non-finite numbers: "
+                             f"{bad}")
+    return out, time.perf_counter() - t0
+
+
+def frame_flops_card_against_cpu():
+    """Phase 15: trace_track's planner frame counted at TOOLS_FLOP_HW on
+    the card and on the CPU, the CPU's frame forced through the card's
+    sections: the FLOPs must be equal."""
+    H, W = TOOLS_FLOP_HW
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        card = trace_track.run(TOOLS_FLOP_HW, TOOLS_FLOP_WARM, 0, "cuda")
+        cpu = trace_track.run(TOOLS_FLOP_HW, TOOLS_FLOP_WARM, 0, "cpu",
+                              sections=card["sections"])
+    log("tools", check="frame_flops_card_vs_cpu", size=f"{H}x{W}",
+        card_gflop=f"{card['frame_gflop']:.6f}",
+        cpu_gflop=f"{cpu['frame_gflop']:.6f}",
+        sections=repr(card["sections"]),
+        seconds=f"{time.perf_counter() - t1:.1f}")
+    if card["frame_gflop"] != cpu["frame_gflop"] or \
+            card["kernel_flops"] != cpu["kernel_flops"]:
+        raise AssertionError(f"frame FLOPs: card {card['frame_gflop']} "
+                             f"{card['kernel_flops']}, CPU "
+                             f"{cpu['frame_gflop']} {cpu['kernel_flops']}")
+
+
+def run_tools():
+    """Phase 15: the developer and analysis CLIs, each through its main()
+    in this process on the card with TOOLS_CUTS's arguments; the planner
+    frame at 64x96 counted on the card and on the CPU (the card's sections
+    forced); trace_track as a process of its own; analyze_model's
+    parameter counts against the CPU's. Returns the phase's launches by
+    kernels-line row (trace_track's process's included)."""
+    t0 = time.perf_counter()
+    reset_corr_launches()
+    outs, secs = {}, {}
+    for name, argv in TOOLS_CUTS.items():
+        outs[name], secs[name] = run_tool(name, argv)
+    frame_flops_card_against_cpu()
+    launches = kbench.launch_counts()
+    outs["trace_track"], secs["trace_track"] = run_trace_track()
+    for k, n in outs["trace_track"]["launches"].items():
+        launches[k] += n
+
+    corr = outs["bench_corr"]
+    log("tools", cli="bench_corr", shape="64x30x101",
+        k3_ms=f"{corr['k3']['ms']:.4f}",
+        k3_err=f"{corr['k3']['max_abs_err']:.3g}",
+        k3_share=f"{corr['k3']['share']:.3f}",
+        p1_ms=f"{corr['packed']['ms']:.4f}",
+        p1_err=f"{corr['packed']['max_abs_err']:.3g}",
+        p1_bit_equal=f"{corr['packed']['bit_equal']:.6f}",
+        p1_share=f"{corr['packed']['share']:.3f}")
+    dba = outs["bench_dba"]
+    log("tools", cli="bench_dba", device_ms=f"{dba['device_ms']:.3f}",
+        events_ms=f"{dba['events_ms']:.3f}", kernels=dba["launches"],
+        top3=repr([[k[:40], round(ms, 3), n] for k, ms, n in dba["top"][:3]]))
+    for name, key in (("bench_step_parts", "parts"), ("profile_vo", "pieces")):
+        log("tools", cli=name, **{
+            part: f"{r['device_ms']:.3f}/{r['events_ms']:.3f}/"
+                  f"{r['host_ms']:.3f}"
+            for part, r in outs[name][key].items()},
+            read="device/events/host ms")
+    track = outs["trace_track"]
+    log("tools", cli="trace_track", device_ms_per_frame=(
+        f"{track['device_ms_per_frame']:.3f}"),
+        frame_gflop=f"{track['frame_gflop']:.3f}",
+        tflop_per_s=f"{track['tflop_per_s']:.2f}", mfu=f"{track['mfu']:.4f}",
+        sections=repr(track["sections"]),
+        launches_counted=repr(track["launches_counted"]),
+        launches_traced=repr(track["launches_traced"]),
+        kernel_gflop=repr({k: round(v["gflop"], 4)
+                           for k, v in track["kernel_flops"].items()}))
+    if not (0 < track["mfu"] <= 1 and
+            track["launches_counted"] == track["launches_traced"]):
+        raise AssertionError(f"trace_track: MFU {track['mfu']}, launches "
+                             f"{track['launches_counted']} counted, "
+                             f"{track['launches_traced']} traced")
+    prof = outs["profile_track"]
+    log("tools", cli="profile_track", fps=f"{prof['fps']:.3f}",
+        stages=repr({k: round(v["mean_ms"], 3)
+                     for k, v in prof["stages"].items()}))
+    term = outs["profile_terminate"]
+    log("tools", cli="profile_terminate", n_kf=term["n_kf"],
+        total_s=f"{term['total_s']:.3f}", keyframes=term["keyframes"],
+        filler_s=f"{term['stages']['traj_filler']:.3f}")
+    log("tools", cli="bench_filler", seconds=repr(outs["bench_filler"][
+        "seconds"]))
+    vo2 = outs["trace_vo2"]
+    log("tools", cli="trace_vo2", iters=vo2["iters"],
+        device_ms=f"{vo2['device_ms']:.2f}", kernels=vo2["launches"])
+    vps = outs["trace_vps"]
+    log("tools", cli="trace_vps", plain_device_ms=(
+        f"{vps['plain']['device_ms']:.2f}"),
+        fused_device_ms=f"{vps['fusion+depth']['device_ms']:.2f}")
+    log("tools", cli="profile_vps", **{
+        k.replace(" ", "_"): f"{v:.3f}" for kind in ("programs", "copies")
+        for k, v in outs["profile_vps"][kind].items()})
+    log("tools", cli="profile_vps_pipeline", **{
+        k.replace(" ", "_").replace("+", "_"): f"{v['frame']:.2f}"
+        for k, v in outs["profile_vps_pipeline"]["modes"].items()})
+
+    model = outs["analyze_model"]
+    want = {"vo": analyze_model.param_table(
+                DroidNet.from_seed(0), analyze_model.vo_group),
+            "vps": analyze_model.param_table(
+                pfpn.PanopticFPN(), analyze_model.vps_group)}
+    for fam, table in want.items():
+        cpu_params = {k: g["jax"] for k, g in table.items()}
+        log("tools", cli="analyze_model", family=fam,
+            params=repr(model[fam]["params"]), cpu_params=repr(cpu_params))
+        if cpu_params != model[fam]["params"]:
+            raise AssertionError(f"analyze_model {fam}: card "
+                                 f"{model[fam]['params']}, CPU {cpu_params}")
+    log("tools", cuts=repr(dict({k: v for k, v in TOOLS_CUTS.items() if v},
+                                trace_track=TOOLS_TRACE_ARGV)),
+        seconds_by_cli=repr({k: round(v, 1) for k, v in secs.items()}),
+        launches=repr(launches),
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    return launches
+
+
 PHASES = {"kernels": check_kernels, "packed": check_packed,
           "reference": check_reference, "main": run_main_path,
           "harness": run_harnesses, "export": run_export, "vps": run_vps,
           "loop": run_loop, "train": run_train, "vps_train": run_vps_train,
-          "planner": run_planner, "demo": run_demo, "dp": run_dp}
+          "planner": run_planner, "demo": run_demo, "dp": run_dp,
+          "tools": run_tools}
 
 
 def main():
@@ -2756,6 +2977,7 @@ def main():
     vps_train = run_vps_train()
     demo_launches = run_demo()
     dp_launches = run_dp()
+    tools_launches = run_tools()
 
     # K1 and K3 have a row for each feature type. A bf16 row's launches
     # are phase 5's (the video's features); an f32 row's are the timed
@@ -2783,6 +3005,7 @@ def main():
         extra["launches_vps_train"] = vps_train[row]
         extra["launches_demo"] = demo_launches[row]
         extra["launches_dp"] = dp_launches[row]
+        extra["launches_tools"] = tools_launches[row]
         kernels.append({
             "name": row, "route": "cuda",
             "source": "pvo_tpu_torch/csrc/corr.cu", "replaces": REPLACES[k],
@@ -2803,7 +3026,8 @@ def main():
         "launches_loop": loop["segsum"], "launches_train": train["segsum"],
         "launches_vps_train": vps_train["segsum"],
         "launches_demo": demo_launches["segsum"],
-        "launches_dp": dp_launches["segsum"]})
+        "launches_dp": dp_launches["segsum"],
+        "launches_tools": tools_launches["segsum"]})
     for x, (_, kernel, site) in HARNESS.items():
         n, ms, plain_ms, err = harness[x]
         bound = kernel_bound(kernel, HARNESS_E[kernel], 30, 101, C)
@@ -2826,7 +3050,8 @@ def main():
             "launches_train": train[kernel],
             "launches_vps_train": vps_train[kernel],
             "launches_demo": demo_launches[kernel],
-            "launches_dp": dp_launches[kernel], **extra})
+            "launches_dp": dp_launches[kernel],
+            "launches_tools": tools_launches[kernel], **extra})
     log("run", seconds=f"{time.perf_counter() - start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -259,18 +259,22 @@ def _rank_main(fn, rank, world, port, device, backend, share_card, threads,
             dist.destroy_process_group()
 
 
-def spawn(fn, world, args=(), device="cpu", backend=None, share_card=False,
+def spawn(fn, world, args=(), device="cuda", backend=None, share_card=False,
           threads=None, timeout=900):
     """Run ``fn(mesh, *args)`` in ``world`` new processes of this host
     (spawned; ``fn`` a module-level function), each with its
     ``RANK``/``WORLD_SIZE``/``LOCAL_RANK`` and a free localhost port, as
-    ``torchrun`` would start them; ``share_card``: every rank on card 0
+    ``torchrun`` would start them; ``device``: the cards by default (and
+    raises here, before any rank starts, without one), ``"cpu"`` when
+    asked for; ``share_card``: every rank on card 0
     (gloo only: NCCL refuses two ranks on one card); ``threads``: torch
     threads a rank. Returns the ranks' results in rank order; a rank that
     fails, or a run past ``timeout`` seconds, raises."""
     import multiprocessing as mp
     import queue as queue_mod
     import time
+    from pvo_tpu_torch.utils.device import open_device
+    open_device(device)
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
     port = free_port()

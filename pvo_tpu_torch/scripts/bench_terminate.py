@@ -49,15 +49,22 @@ def buffer_for(n_kf):
     return buf
 
 
-def run_once(n_kf, image_size, dev, profile_terminate=False):
-    """Track ``n_kf`` frames, then time terminate. Returns (keyframes,
-    terminate s, backend s, filler s, the backend's edges per call,
-    whether the planner was engaged, profile or None)."""
+def tracked_system(n_kf, image_size, dev):
+    """The benches' system after tracking ``n_kf`` frames of
+    ``bench_track``'s stream. Returns (system, frames)."""
     H, W = image_size
     sysm = bench_system(image_size, buffer_for(n_kf), dev)
     frames = list(synth_stream(n_kf, H, W))
     for t, img, intr, segm in frames:
         sysm.track(t, img, intr, segments=segm)
+    return sysm, frames
+
+
+def run_once(n_kf, image_size, dev, profile_terminate=False):
+    """Track ``n_kf`` frames, then time terminate. Returns (keyframes,
+    terminate s, backend s, filler s, the backend's edges per call,
+    whether the planner was engaged, profile or None)."""
+    sysm, frames = tracked_system(n_kf, image_size, dev)
     engaged = sysm.planner.engaged
 
     # the timers synchronize the device of ``sync`` when it is a card

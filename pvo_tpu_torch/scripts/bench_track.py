@@ -32,8 +32,8 @@ import json
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
 
+from pvo_tpu_torch.scripts.kbench import RANGE_PREFIXES, profiled
 from pvo_tpu_torch.utils.config import VOConfig
 from pvo_tpu_torch.utils.device import open_device
 from pvo_tpu_torch.utils.tracing import StepTimer
@@ -42,9 +42,6 @@ from pvo_tpu_torch.vo.frontend import Frontend
 from pvo_tpu_torch.vo.net.droidnet import DroidNet
 from pvo_tpu_torch.vo.system import VOSystem
 
-# the profiler ranges of the port, whose annotation rows on the device
-# are not kernels
-RANGE_PREFIXES = ("vo.", "vps.")
 # the hand-written corr kernels, by the names of their CUDA functions
 CORR_KERNELS = {"K1": ("build_volumes_tc_kernel", "build_volumes_f32_kernel"),
                 "K2": ("corr_extract_kernel",),
@@ -124,11 +121,6 @@ def bench_system(image_size, buffer, device, pipeline=True):
                    filter_thresh=0.01, keyframe_thresh=0.0, warmup=12,
                    segm_filter=True, pipeline=pipeline)
     return VOSystem(cfg, net=tame_net(0), device=device)
-
-
-def profiled():
-    """``torch.profiler`` over CPU and CUDA activity."""
-    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
 
 def kernel_rows(prof):

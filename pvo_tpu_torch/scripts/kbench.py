@@ -7,7 +7,12 @@
 warm-up call and returns the mean device time per call, as
 ``scripts/kbench.py`` times kernels for the JAX package on the TPU; with
 ``queued=True`` the calls wait behind a busy card and run back to back,
-which takes the host's enqueue rate out of a short kernel's time.
+which takes the host's enqueue rate out of a short kernel's time. The
+events are for times; a ``torch.profiler`` trace is for breakdowns:
+``trace_totals`` runs a function under one and ``device_op_totals``
+sums its kernel rows by name, ``print_top`` prints the costliest, as the
+JAX script's ``device_time_ms(fn, top=)`` does from its trace.
+``peak_flops`` is the card's bf16 dense peak, the denominator of MFU.
 ``gpu_line`` is the card's name and power limit, to stand beside every
 time kept. ``kernel_bound`` is the least time the card could take for a
 kernel's work at a shape, from the bytes it must move and the operations
@@ -27,13 +32,22 @@ from __future__ import annotations
 
 import hashlib
 import subprocess
+import time
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
+
+from pvo_tpu_torch.utils.device import open_device
 
 # published peaks of the H100 SXM (NVIDIA's data sheet, dense rates)
 HBM_BYTES_S = 3.35e12
 PEAK_FLOP_S = {"bf16": 989e12, "f32": 67e12}
+# the cards whose peaks PEAK_FLOP_S holds, by the name nvidia-smi gives
+CARD_PEAK_FLOP_S = {"NVIDIA H100 80GB HBM3": PEAK_FLOP_S}
+# the profiler ranges of the port (``vo.*``, ``vps.*``), whose annotation
+# rows on the device are not kernels
+RANGE_PREFIXES = ("vo.", "vps.")
 PATCH_TAPS = 64   # the 8x8 integer patch under a 7x7 bilinear window
 WINDOW_TAPS = 49
 
@@ -87,6 +101,122 @@ def device_time_ms(fn, reps=10, queued=False):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def peak_flops(card=None):
+    """The bf16 dense peak in FLOP/s of the card named ``card`` (as
+    :func:`gpu_line` gives it; the attached card's when None), the
+    denominator of MFU. A card whose peak this module does not hold
+    raises: no figure of another card stands in for it."""
+    if card is None:
+        card = gpu_line().split(",")[0].strip()
+    if card not in CARD_PEAK_FLOP_S:
+        raise KeyError(f"no published peak for {card!r}; known: "
+                       f"{sorted(CARD_PEAK_FLOP_S)}")
+    return CARD_PEAK_FLOP_S[card]["bf16"]
+
+
+def device_op_totals(prof):
+    """{kernel name: (total us, launches)} over the kernel rows of a
+    finished ``torch.profiler`` run (its CUDA rows, the ranges'
+    annotation rows left out; the ctypes-launched kernels and those a
+    CUDA graph replays included)."""
+    out = {}
+    for r in prof.key_averages():
+        if r.device_type != torch.autograd.DeviceType.CUDA or \
+                r.key.startswith(RANGE_PREFIXES):
+            continue
+        us, n = out.get(r.key, (0.0, 0))
+        out[r.key] = (us + r.self_device_time_total, n + r.count)
+    return out
+
+
+def print_top(totals, n):
+    """Print the ``n`` costliest rows of :func:`device_op_totals`, as the
+    JAX script does: ms, launches, name. Returns the rows printed, as
+    (name, us, launches), costliest first (ties by name)."""
+    rows = sorted(((k, us, c) for k, (us, c) in totals.items()),
+                  key=lambda r: (-r[1], r[0]))[:n]
+    for name, us, c in rows:
+        print(f"    {us / 1e3:9.3f} ms {c:5d}x  {name[:84]}")
+    return rows
+
+
+def profiled():
+    """``torch.profiler`` over CPU and CUDA activity."""
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
+def trace_totals(fn, warm=True):
+    """:func:`device_op_totals` of one call of ``fn()`` under
+    ``torch.profiler`` on the card, ended by a synchronize (after one
+    untraced warm-up call unless ``warm`` is False). Raises without a
+    card."""
+    open_device("cuda")
+    if warm:
+        fn()
+        torch.cuda.synchronize()
+    with profiled() as prof:
+        fn()
+        torch.cuda.synchronize()
+    return device_op_totals(prof)
+
+
+def total_ms(totals):
+    """The device ms of all the rows of :func:`device_op_totals`."""
+    return sum(us for us, _ in totals.values()) / 1e3
+
+
+def host_ms(fn, device, reps=5):
+    """Mean ms of ``reps`` calls of ``fn()`` on the host clock, ending in
+    a synchronize of ``device`` when it is a card, after one warm-up call
+    (the JAX scripts' ``timeit``)."""
+    device = torch.device(device)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def breakdown(fn, device, top=0, reps=5):
+    """``fn()`` measured as the JAX micro-benches measure it:
+    {"host_ms": :func:`host_ms`, and on the card "device_ms" (the
+    kernels of one traced call), "launches", "events_ms"
+    (:func:`device_time_ms`) and "top" (the ``top`` costliest kernels,
+    printed); on the CPU those are None}."""
+    out = {"host_ms": host_ms(fn, device, reps), "device_ms": None,
+           "launches": None, "events_ms": None, "top": None}
+    if torch.device(device).type == "cuda":
+        totals = trace_totals(fn)
+        out.update(device_ms=total_ms(totals),
+                   launches=sum(n for _, n in totals.values()),
+                   events_ms=device_time_ms(fn, reps))
+        if top:
+            out["top"] = [[k, us / 1e3, n]
+                          for k, us, n in print_top(totals, top)]
+    return out
+
+
+def launch_counts():
+    """The hand-written kernels' launches counted in this process (their
+    wrappers' counters), by the rows of ``chip_smoke.py``'s kernels line:
+    K1 and K3 split by feature type (``build_volumes_f32``,
+    ``corr_lookup_f32``), K2, P1, P2 and the segment sum."""
+    from pvo_tpu_torch.vo.net import cuda_corr, cuda_corr_exp, cuda_segsum
+    out = dict(cuda_corr.LAUNCHES)
+    for k in cuda_corr.F32_KERNELS:
+        out[f"{k}_f32"] = cuda_corr.F32_LAUNCHES[k]
+        out[k] -= cuda_corr.F32_LAUNCHES[k]
+    out.update(cuda_corr_exp.LAUNCHES)
+    out.update(cuda_segsum.LAUNCHES)
+    return out
 
 
 def level_sizes(H, W, levels):

@@ -54,7 +54,7 @@ def image_stream(datapath, image_size=(240, 808), mode="val",
         yield t, img, intr, segm
 
 
-def main(argv=None):
+def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--datapath", required=True)
     p.add_argument("--weights", default=None)
@@ -79,7 +79,11 @@ def main(argv=None):
                         "is 240x808")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; fails without a card) or cpu")
-    args = p.parse_args(argv)
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
 
     # Scene20 uses a stricter dynamic threshold (reference protocol)
     if args.datapath.rstrip("/").endswith("20"):

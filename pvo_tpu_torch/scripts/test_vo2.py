@@ -96,7 +96,7 @@ def read_pair(files, size):
     return np.stack(pair), (h0, w0)
 
 
-def main(argv=None):
+def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--datapath", required=True)
     p.add_argument("--weights", default=None)
@@ -112,7 +112,11 @@ def main(argv=None):
                    help="full-flow .npy output size (vkitti native)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; fails without a card) or cpu")
-    args = p.parse_args(argv)
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
 
     device = open_device(args.device)
     split = {"train": "clone", "val": "15-deg-left",

@@ -6,7 +6,8 @@ exact inverse of :func:`pvo_tpu.utils.convert.convert_droidnet`: the JAX
 4-tree param dict (numpy leaves, HWIO kernels, unexpanded corr
 weights) becomes that state dict (OIHW kernels). Every mapping is a
 linear re-layout, so the same function carries a JAX gradient tree to
-the port's gradients under the port's names.
+the port's gradients under the port's names. :func:`update_params_from_jax`
+does the same for the plain ``UpdateModule``.
 """
 
 from __future__ import annotations
@@ -40,6 +41,30 @@ def _encoder(tree, prefix, sd):
                 _conv(node, "downsample", f"{name}.downsample.0", sd)
 
 
+def _update(up, prefix, heads, sd):
+    """The encoders, heads and ConvGRU of an update operator's param tree
+    ``up``, under ``prefix``."""
+    _conv(up, "corr_enc0", f"{prefix}corr_encoder.0", sd)
+    _conv(up, "corr_enc1", f"{prefix}corr_encoder.2", sd)
+    _conv(up, "flow_enc0", f"{prefix}flow_encoder.0", sd)
+    _conv(up, "flow_enc1", f"{prefix}flow_encoder.2", sd)
+    for head in heads:
+        _conv(up[head], "conv0", f"{prefix}{head}.0", sd)
+        _conv(up[head], "conv1", f"{prefix}{head}.2", sd)
+    for g in ("convz", "convr", "convq", "w", "convz_glo", "convr_glo",
+              "convq_glo"):
+        _conv(up["gru"], g, f"{prefix}gru.{g}", sd)
+
+
+def update_params_from_jax(params, prefix="") -> Dict[str, torch.Tensor]:
+    """The JAX plain ``UpdateModule``'s param tree (``{"params": ...}``)
+    -> state dict of the port's :class:`UpdateModule`, its keys under
+    ``prefix`` (``"update."`` gives a reference checkpoint's names)."""
+    sd: Dict[str, torch.Tensor] = {}
+    _update(params["params"], prefix, ("delta", "weight"), sd)
+    return sd
+
+
 def params_from_jax(params) -> Dict[str, torch.Tensor]:
     """JAX ``{"fnet","cnet","update","agg"}`` param trees -> state dict
     of :class:`DroidNet` with the reference key names."""
@@ -47,16 +72,7 @@ def params_from_jax(params) -> Dict[str, torch.Tensor]:
     _encoder(params["fnet"]["params"], "fnet", sd)
     _encoder(params["cnet"]["params"], "cnet", sd)
     up = params["update"]["params"]
-    _conv(up, "corr_enc0", "update.corr_encoder.0", sd)
-    _conv(up, "corr_enc1", "update.corr_encoder.2", sd)
-    _conv(up, "flow_enc0", "update.flow_encoder.0", sd)
-    _conv(up, "flow_enc1", "update.flow_encoder.2", sd)
-    for head in ("delta", "delta_dy", "weight", "delta_mask"):
-        _conv(up[head], "conv0", f"update.{head}.0", sd)
-        _conv(up[head], "conv1", f"update.{head}.2", sd)
-    for g in ("convz", "convr", "convq", "w", "convz_glo", "convr_glo",
-              "convq_glo"):
-        _conv(up["gru"], g, f"update.gru.{g}", sd)
+    _update(up, "update.", ("delta", "delta_dy", "weight", "delta_mask"), sd)
     if "aff_conv" in up:
         _conv(up, "aff_conv", "update.global_avg_pool.0", sd)
         lin = up["aff_linear"]

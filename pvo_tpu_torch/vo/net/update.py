@@ -12,7 +12,8 @@ reference state dict (``update.corr_encoder.0``, ``update.agg.eta.0``).
 With ``use_aff_bri`` the operator also predicts per-edge affine
 brightness parameters (``update.global_avg_pool.0``,
 ``update.param_linear.0``), which the photometric training loss applies
-to the warped image.
+to the warped image. :class:`UpdateModule` is the plain DROID operator
+(two heads, no dynamic mask) of the vanilla-VO model family.
 """
 
 from __future__ import annotations
@@ -165,3 +166,39 @@ class DynamicUpdateModule(nn.Module):
                                 ctx_pre=pre, gru_nc=gru_nc)
         return {k: v.permute(0, 2, 3, 1) if v.dim() == 4 else v
                 for k, v in out.items()}
+
+
+class UpdateModule(nn.Module):
+    """The plain (non-dynamic) DROID update operator (port of
+    ``pvo_tpu.vo.net.update.UpdateModule``; reference droid_net.py:98-163):
+    corr and flow encoders, ConvGRU(128), the ``delta`` and ``weight``
+    heads; state-dict names as the reference's (``corr_encoder.0``,
+    ``flow_encoder.2``, ``gru.convz``, ``delta.0``, ``weight.2``, under
+    ``update.`` in a checkpoint). Its parameters are f32; on the card a
+    caller converts it to :func:`pvo_tpu_torch.vo.system.operator_dtype`,
+    the dynamic operator's rule. The flow encoder takes the 4 motion
+    planes of the plain model: camera flow and residual."""
+
+    def __init__(self):
+        super().__init__()
+        self.corr_encoder = nn.Sequential(
+            nn.Conv2d(CORR_PLANES, 128, 1), nn.ReLU(),
+            nn.Conv2d(128, 128, 3, padding=1), nn.ReLU())
+        self.flow_encoder = nn.Sequential(
+            nn.Conv2d(4, 128, 7, padding=3), nn.ReLU(),
+            nn.Conv2d(128, 64, 3, padding=1), nn.ReLU())
+        self.gru = ConvGRU(128, 128 + 128 + 64)
+        self.delta = _head(2)
+        self.weight = _head(2)
+
+    def forward(self, net, inp, corr, motion):
+        """All inputs (E, H, W, C) NHWC: hidden 128, context 128, corr
+        196, motion 4. Returns dict: net, delta (E, H, W, 2) and weight,
+        the sigmoid of the weight head."""
+        p = (lambda t: t.permute(0, 3, 1, 2))
+        c = self.corr_encoder(p(corr))
+        f = self.flow_encoder(p(motion))
+        net = self.gru.forward_nchw(p(net), torch.cat([p(inp), c, f], 1))
+        q = (lambda t: t.permute(0, 2, 3, 1))
+        return {"net": q(net), "delta": q(self.delta(net)),
+                "weight": q(torch.sigmoid(self.weight(net)))}

@@ -371,6 +371,17 @@ def _shift_window_rows(buf, ix, end, W4=4, when=None):
 # ---------------------------------------------------------------------
 
 
+def corr_route(device, h, w):
+    """How the program's update reads correlation at h x w features:
+    "volume" (K1's volumes once an update call, K2 a step; the card,
+    narrow streams), "indexed" (K3 a step on a pyramid pooled once; the
+    card, wide streams) or "plain" (the chunked plain lookup; the CPU).
+    On the CPU the first two run the kernels' plain versions."""
+    if torch.device(device).type != "cuda":
+        return "plain"
+    return "volume" if cuda_corr.volume_cache_ok(h, w) else "indexed"
+
+
 class PlannerProgram:
     """One frame of the planner on the state of ``system``, in place.
     Every Python value here is fixed when PlannerDriver builds it."""
@@ -679,10 +690,11 @@ class PlannerProgram:
         v, g = self.video, self.graph
         cdt = next(g.update_op.parameters()).dtype
         E = ii_e.shape[0]
-        if v.device.type == "cuda" and cuda_corr.volume_cache_ok(v.h, v.w):
+        route = corr_route(v.device, v.h, v.w)
+        if route == "volume":
             vols = cuda_corr.build_volumes(v.fmaps[ii_e], v.fmaps[jj_e])
             corr_fn = lambda c1: cuda_corr.corr_extract(vols, c1)  # noqa
-        elif v.device.type == "cuda":
+        elif route == "indexed":
             frames = v.fmaps[torch.cat([ii_e, jj_e])]
             pyr = cuda_corr.lookup_pyramid(frames)
             fi = torch.arange(E, dtype=torch.int32, device=v.device)

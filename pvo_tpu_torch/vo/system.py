@@ -51,6 +51,16 @@ from pvo_tpu_torch.vo.trajectory_filler import TrajectoryFiller
 from pvo_tpu_torch.vo.video import DepthVideo
 
 
+def operator_dtype(cfg, device):
+    """The recurrent update operator's dtype: bf16 on the card when
+    ``cfg.dtype_features`` is "bfloat16" (the reference autocasts fp16),
+    else f32."""
+    if cfg.dtype_features == "bfloat16" and \
+            torch.device(device).type == "cuda":
+        return torch.bfloat16
+    return torch.float32
+
+
 class VOSystem:
     """End-to-end visual odometry (the reference's ``Droid``)."""
 
@@ -79,9 +89,9 @@ class VOSystem:
         # bf16 recurrent operator on the card (the reference autocasts
         # fp16); the motion filter keeps the f32 module
         update = self.net.update
-        if self.cfg.dtype_features == "bfloat16" and \
-                self.device.type == "cuda":
-            update = copy.deepcopy(update).to(torch.bfloat16)
+        dt = operator_dtype(self.cfg, self.device)
+        if dt != torch.float32:
+            update = copy.deepcopy(update).to(dt)
         self.update = update
 
         cfg = self.cfg

@@ -46,9 +46,13 @@ Phases, one line each (any failure exits non-zero):
                 pairs within and above the bounding-box cap equal to
                 the numpy model's (smooth: none above). The segment sum
                 (segsum.cu, B5) bit-equal to the CPU's index_add_ at
-                the planner's full-width shapes (GraphAgg, the DBA's
-                Hessian, edge x depth and pair sums), with its time
-                beside the card's index_add_ and its bound;
+                the planner's full-width shapes (GraphAgg's sum and
+                counts; the DBA's Hessian, gradient, C, w, edge x
+                depth, Schur, pair, rhs and edge-term sums), each in
+                both modes (accumulate, zero start), and in the
+                tracker's batched launches (GraphAgg's; the DBA's three
+                a full iteration), with its kernel time (a CUDA graph
+                of calls) beside the card's index_add_ and its bound;
   4. reference- the port's loop with the kernels against the same loop
                 with their plain versions, on the card: 64x96, 8 frames
                 + terminate(image_stream), same weights (mask logits
@@ -182,7 +186,8 @@ Phases, one line each (any failure exits non-zero):
                 eager planner (poses, disparities, decision records);
                 each path's two runs bit-equal (B5); under the oracle
                 core the planner's decisions equal the classic path's,
-                poses within 1e-3; capture fails on any host read.
+                poses within 1e-3; capture fails on any host read;
+                PLANNER_SEGSUMS (42) segment-sum launches a replay.
                 Printed: ms and frames/s a run, device ms, kernels, host
                 CUDA API calls and busy share a frame, capture seconds,
                 the graph's launches a frame.
@@ -282,8 +287,8 @@ from pvo_tpu_torch.scripts import (analyze_model, bench_corr, bench_dba,
                                    profile_terminate, profile_track,
                                    profile_vo, profile_vps,
                                    profile_vps_pipeline, run_pvo_loop,
-                                   trace_track, trace_vo2, trace_vps,
-                                   train_vo)
+                                   segsum_probe, trace_track, trace_vo2,
+                                   trace_vps, train_vo)
 from pvo_tpu_torch.scripts.bench_track import (RANGE_PREFIXES, api_calls,
                                                bench_system, corr_rows,
                                                kernel_rows, profiled,
@@ -292,7 +297,7 @@ from pvo_tpu_torch.scripts.bench_track import (RANGE_PREFIXES, api_calls,
 from pvo_tpu_torch.scripts.benchmark_vps import tamed_model, timed_pass
 from pvo_tpu_torch.scripts.harness import harness_inputs
 from pvo_tpu_torch.scripts.kbench import (device_time_ms, gpu_line,
-                                          kernel_bound, segsum_bound)
+                                          kernel_bound)
 from pvo_tpu_torch.scripts.test_vo2 import export_pair
 from pvo_tpu_torch.utils.config import VOConfig
 from pvo_tpu_torch.utils.tracing import range_device_ms
@@ -362,16 +367,13 @@ HARNESS = {
 }
 # P2's output-defining variants (X2's rounding, X3's modes) and the X
 # kernels each one stands for
-# the segment sum's checks (rows, segments, row shape) at the planner's
-# full-width shapes at 240x808 (30x101 features): GraphAgg's sum (48
-# edges into the 32-frame window), the DBA's Hessian (4 x 144 BA edges
-# into 32 x 32 blocks and the overflow block), its edge x depth term
-# (144 edges into 32 frames) and the edge x edge pairs (2048 into the
-# blocks)
-SEGSUM_CASES = {"graph_agg": (48, 32, (128, 30, 101)),
-                "dba_hessian": (576, 1025, (6, 6)),
-                "dba_ei": (144, 32, (6, 3030)),
-                "dba_pairs": (2048, 1025, (6, 6))}
+# the segment sum's checks: segsum_probe.CASES (the planner frame's sums
+# at 240x808) in both modes and segsum_probe.GROUPS (the tracker's
+# launches of them), kernel times over SEGSUM_REPS calls in a CUDA graph
+SEGSUM_REPS = 20
+# a replayed planner frame's segment-sum launches: GraphAgg's one a
+# update and the DBA's three a full iteration, 6 updates x 2 iterations
+PLANNER_SEGSUMS = 6 + 6 * 2 * 3
 # phase 12: the planner's runs (bench_track's system at 240x808), the
 # frames tracked, the first of the timed steady ones (past the engage at
 # 13, two eager frames and the capture) and the profiled ones after them
@@ -639,47 +641,42 @@ def check_kernels():
 
 
 def check_segsum():
-    """Phase 3, the segment sum (csrc/segsum.cu, B5): the kernel against
-    the CPU's index_add_ (the plain version) at the planner's full-width
-    shapes (SEGSUM_CASES), bit for bit, about a tenth of the rows out of
-    range; its time beside the plain version on the card (an overflow
-    row and the card's index_add_), the card's index_add_ alone (the
-    library call, float atomics) and its bound. Returns the kernel row's
-    numbers at the GraphAgg shape, with the largest |kernel - CPU| of
-    all the shapes."""
+    """Phase 3, the segment sum (csrc/segsum.cu, B5): each case of
+    segsum_probe.CASES (the planner frame's sums at 240x808, about a
+    tenth of each case's rows out of range) in both modes, accumulate and
+    zero start, and the tracker's launches of them (segsum_probe.GROUPS,
+    one batched launch each, zero start): bit for bit against the CPU's
+    index_add_, the kernel's ms (SEGSUM_REPS calls in a CUDA graph)
+    beside the plain version on the card (an overflow row and the card's
+    index_add_), the card's index_add_ alone (the library call, float
+    atomics, one call a job) and the bound with its share. Returns the
+    kernel row's numbers at GraphAgg's shape (accumulate), with the
+    largest |kernel - CPU| of all."""
     row, worst = {}, 0.0
-    for name, (n, n_out, shape) in SEGSUM_CASES.items():
-        g = torch.Generator().manual_seed(n)
-        x = torch.randn((n,) + shape, generator=g)
-        idx = torch.randint(-1, n_out + 1, (n,), generator=g)
-        out = torch.randn((n_out,) + shape, generator=g)
-        want = cuda_segsum.index_add(out.clone(), idx, x)
-        xd, idd, od = x.cuda(), idx.cuda(), out.cuda()
-        got = cuda_segsum.index_add(od.clone(), idd, xd).cpu()
-        equal = torch.equal(got, want)
-        err = float((got - want).abs().max())
-        worst = max(worst, err)
-        ok = (idx >= 0) & (idx < n_out)
-        xin, iin = xd[ok.cuda()], idd[ok.cuda()]
-        work = od.clone()
-        ms = device_time_ms(lambda: cuda_segsum.index_add(work, idd, xd))
-        plain_ms = device_time_ms(
-            lambda: cuda_segsum.index_add_plain(work, idd, xd))
-        library_ms = device_time_ms(lambda: work.index_add_(0, iin, xin))
-        D = int(np.prod(shape))
-        bound = segsum_bound(int(ok.sum()), n, n_out, D)
-        log("kernel", name="segsum", case=name, rows=n, segments=n_out,
-            row_values=D, bit_equal_cpu=equal, max_abs_err=f"{err:.3g}",
-            ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-            library_ms=f"{library_ms:.4f}", bound_ms=f"{bound['ms']:.4f}",
-            bound_by=bound["bound_by"],
+    runs = ([("case", name, (name,), zero) for name in segsum_probe.CASES
+             for zero in (False, True)] +
+            [("group", group, names, True)
+             for group, names in segsum_probe.GROUPS.items()])
+    for kind, label, names, zero in runs:
+        r = segsum_probe.measure(names, zero, SEGSUM_REPS, plain=True)
+        worst = max(worst, r["max_abs_err"])
+        ms, bound = min(r["ms"]), r["bound"]
+        log("kernel", name="segsum", **{kind: label},
+            mode="zero" if zero else "accumulate",
+            rows=sum(segsum_probe.CASES[n][0] for n in names),
+            bit_equal_cpu=r["bit_equal_cpu"],
+            max_abs_err=f"{r['max_abs_err']:.3g}", ms=f"{ms:.4f}",
+            plain_ms=f"{r['plain_ms']:.4f}",
+            library_ms=f"{r['library_ms']:.4f}",
+            bound_ms=f"{bound['ms']:.4f}", bound_by=bound["bound_by"],
             share_of_bound=f"{bound['ms'] / ms:.4f}")
-        if not equal:
-            raise AssertionError(f"segsum {name}: not the CPU's index_add_")
-        if name == "graph_agg":
-            row = {"ms": ms, "plain_ms": plain_ms,
+        if not r["bit_equal_cpu"]:
+            raise AssertionError(f"segsum {names} zero={zero}: not the "
+                                 f"CPU's index_add_")
+        if (kind, label, zero) == ("case", "graph_agg", False):
+            row = {"ms": ms, "plain_ms": r["plain_ms"],
                    "bound_ms": bound["ms"], "bound_by": bound["bound_by"],
-                   "library_ms": library_ms}
+                   "library_ms": r["library_ms"]}
     row["err"] = worst
     return row
 
@@ -1400,6 +1397,11 @@ def run_planner():
         raise AssertionError("graph replay differs from the eager planner")
     if not (b5["classic"] and b5["planner"]):
         raise AssertionError(f"tracking does not repeat itself: {b5}")
+    for r in by["graph"]:
+        if r["launches_per_replay"]["segsum"] != PLANNER_SEGSUMS:
+            raise AssertionError(
+                f"segment sums a replay {r['launches_per_replay']}, "
+                f"expected {PLANNER_SEGSUMS}")
     if not decisions or not pose_diff < 1e-3:
         raise AssertionError(f"planner against classic (oracle core): "
                              f"decisions equal {decisions}, poses "
@@ -2878,6 +2880,8 @@ def run_tools():
         sections=repr(track["sections"]),
         launches_counted=repr(track["launches_counted"]),
         launches_traced=repr(track["launches_traced"]),
+        segsum_ms_launches_per_frame=repr(track["segsum_per_frame"]),
+        cond_ms_launches_per_frame=repr(track["cond_per_frame"]),
         kernel_gflop=repr({k: round(v["gflop"], 4)
                            for k, v in track["kernel_flops"].items()}))
     if not (0 < track["mfu"] <= 1 and

@@ -39,7 +39,7 @@ every frame: the first frame where they differ and by how much, and
 each run's frames/s, on the classic path (``pipeline=False``, the path
 B5 was found on). Once as the port runs (``kernel``: the fixed-order
 segment sum of ``csrc/segsum.cu``), and once with the tracker's sums
-(``cuda_segsum.index_add``) replaced by each variant of ``SUMS``: the
+(each job of ``cuda_segsum.sums``) replaced by each variant of ``SUMS``: the
 card's ``Tensor.index_add_`` (``atomic``: float atomics, the sums before
 B5's repair), the same under ``torch.use_deterministic_algorithms(True,
 warn_only=True)`` (``deterministic``; the operations PyTorch warns about
@@ -378,8 +378,8 @@ def _onehot_add(buf, idx, x):
     buf.add_((onehot @ x.reshape(x.shape[0], -1)).view(buf.shape))
 
 
-# the tracker's scatter-sums (cuda_segsum.index_add) in place of the
-# kernel: the card's index_add_ (float atomics, B5's cause), PyTorch's
+# the tracker's scatter-sums (each job of cuda_segsum.sums) in place of
+# the kernel: the card's index_add_ (float atomics, B5's cause), PyTorch's
 # sort-based index_put_(accumulate=True) and a one-hot product
 SUMS = {
     "atomic": _with_overflow_row(lambda b, i, x: b.index_add_(0, i, x)),
@@ -389,17 +389,32 @@ SUMS = {
 }
 
 
+def _each_job(add):
+    """A ``cuda_segsum.sums`` that runs its jobs one by one, in order,
+    through ``add`` (one of ``SUMS``), a zero-start job's output zeroed
+    first."""
+    def sums(jobs):
+        jobs = [cuda_segsum.Sum(*job) for job in jobs]
+        for out, idx, x, zero in jobs:
+            if zero:
+                out.zero_()
+            add(out, idx, x)
+        return [job.out for job in jobs]
+    return sums
+
+
 @contextlib.contextmanager
 def scatter_sums(variant):
-    """``cuda_segsum.index_add`` replaced by ``SUMS[variant]`` for the
+    """``cuda_segsum.sums``, the entry of every segment sum of the
+    tracker (batched or not), replaced by ``SUMS[variant]`` a job for the
     block (the kernel itself for ``"kernel"``)."""
-    saved = cuda_segsum.index_add
+    saved = cuda_segsum.sums
     if variant != "kernel":
-        cuda_segsum.index_add = SUMS[variant]
+        cuda_segsum.sums = _each_job(SUMS[variant])
     try:
         yield
     finally:
-        cuda_segsum.index_add = saved
+        cuda_segsum.sums = saved
 
 
 def probe_b5(n):

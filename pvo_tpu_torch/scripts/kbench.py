@@ -103,6 +103,32 @@ def device_time_ms(fn, reps=10, queued=False):
     return start.elapsed_time(end) / reps
 
 
+def graph_time_ms(fn, reps=20, replays=5):
+    """Mean device time of ``fn()`` in ms: ``reps`` calls captured in one
+    CUDA graph (after one warm-up call outside it), the graph replayed
+    once, then ``replays`` times between CUDA events. The card runs the
+    calls back to back, so a kernel shorter than its wrapper's host cost
+    is timed as a kernel, not as an enqueue."""
+    require_cuda()
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * reps)
+    del graph
+    return ms
+
+
 def peak_flops(card=None):
     """The bf16 dense peak in FLOP/s of the card named ``card`` (as
     :func:`gpu_line` gives it; the attached card's when None), the
@@ -319,18 +345,33 @@ def kernel_bound(name, E, H, W, C=128, levels=4, features="bf16",
     return res
 
 
-def segsum_bound(n_in_range, n_rows, n_out, D):
+def segsum_bound(n_in_range, n_rows, n_out, D, zero=False):
     """The roofline bound of the segment sum (``csrc/segsum.cu``) adding
     ``n_in_range`` of ``n_rows`` f32 rows of D values into ``n_out``
-    rows: the rows it adds, the int64 index and the output read once,
-    the output written once, against one f32 add a value. Rows out of
-    range are not read."""
-    b_in = n_in_range * D * 4 + n_rows * 8 + n_out * D * 4
-    b_out = n_out * D * 4
-    flops = n_in_range * D
-    bytes_ms = 1e3 * (b_in + b_out) / HBM_BYTES_S
+    rows: the rows it adds, the int64 index and (unless it starts from
+    zero, ``zero``) the output read once, the output written once,
+    against one f32 add a value. Rows out of range are not read."""
+    b_in = n_in_range * D * 4 + n_rows * 8 + (0 if zero else n_out * D * 4)
+    return _f32_bound(b_in + n_out * D * 4, n_in_range * D)
+
+
+def segsum_jobs_bound(jobs):
+    """:func:`segsum_bound` of a batch of ``cuda_segsum`` jobs (out, idx,
+    x, zero) in one launch: their bytes and adds summed."""
+    b = f = 0
+    for out, idx, x, zero in jobs:
+        n = out.shape[0]
+        ok = int(((idx >= 0) & (idx < n)).sum())
+        one = segsum_bound(ok, idx.shape[0], n,
+                           out[0].numel() if n else 0, zero)
+        b, f = b + one["bytes"], f + one["flops"]
+    return _f32_bound(b, f)
+
+
+def _f32_bound(nbytes, flops):
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_S
     ops_ms = 1e3 * flops / PEAK_FLOP_S["f32"]
-    return {"bytes": b_in + b_out, "flops": flops, "bytes_ms": bytes_ms,
+    return {"bytes": nbytes, "flops": flops, "bytes_ms": bytes_ms,
             "ops_ms": ops_ms, "ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 

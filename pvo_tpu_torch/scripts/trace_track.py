@@ -59,7 +59,9 @@ def _corr(kernel, E, H, W, C):
 
 # the wrappers of the hand-written kernels (module, function name, the
 # kernel's row, its FLOPs from the call's arguments); corr_and_lookup is
-# the plain stand-in of K3 in the motion filter's probe on the CPU
+# the plain stand-in of K3 in the motion filter's probe on the CPU;
+# cuda_segsum.sums is the entry of every segment sum (index_add and
+# segment_sum call it)
 WRAPPERS = (
     (cuda_corr, "build_volumes", "build_volumes",
      lambda f1, f2, *a, **kw: _corr("build_volumes", *f1.shape)),
@@ -73,10 +75,11 @@ WRAPPERS = (
          "corr_lookup", *coords.shape[:3], fmaps.shape[-1])),
     (corr_ops, "corr_and_lookup", "corr_lookup",
      lambda f1, f2, coords, *a, **kw: _corr("corr_lookup", *f1.shape)),
-    (cuda_segsum, "index_add", "segsum",
-     lambda out, idx, x: kbench.segsum_bound(
+    (cuda_segsum, "sums", "segsum",
+     lambda jobs: sum(kbench.segsum_bound(
          x.shape[0], x.shape[0], out.shape[0],
-         out[0].numel() if out.shape[0] else 0)["flops"]),
+         out[0].numel() if out.shape[0] else 0)["flops"]
+         for out, idx, x, *_ in jobs)),
 )
 
 
@@ -300,6 +303,14 @@ def run(image_size=(240, 808), n_warm=42, n_trace=5, device="cuda",
               f"({ms:.3f} ms/frame) ===")
         out["top"] = [[name, us / 1e3, n] for name, us, n in
                       kbench.print_top(totals, TOP)]
+        # the segment sum's and the conditional nodes' one-thread
+        # kernels (csrc/cond.cu) a frame: (ms, launches)
+        for key, name in (("segsum", "segsum_kernel"),
+                          ("cond", "set_cond_kernel")):
+            rows = [v for k, v in totals.items() if name in k]
+            out[f"{key}_per_frame"] = (
+                sum(us for us, _ in rows) / 1e3 / n_trace,
+                sum(n for _, n in rows) / n_trace)
         if not 0 < out["mfu"] <= 1:
             raise AssertionError(f"MFU {out['mfu']} outside (0, 1]: a "
                                  f"counting fault")

@@ -6,9 +6,11 @@ Port of :mod:`pvo_tpu.vo.dba`. The reduced camera system is a dense
 structured terms: self x self per depth frame, self x edge, and
 edge x edge over pairs of edges sharing a source frame (built on the
 host by :func:`build_edge_pairs`, or on the device by the planner).
-Scatter-sums are :func:`cuda_segsum.index_add`, which sums in a fixed
-order on the card as on the CPU; rows whose index is masked go to an
-overflow row that is dropped. ``t0``, ``t1`` and ``w0`` may be Python
+Scatter-sums are :func:`cuda_segsum.sums`, which sums in a fixed order
+on the card as on the CPU, three launches a full iteration (H, v, C, w,
+Ei; the Schur sum and the rhs correction; the depth back-substitution's
+edge term) and one a motion-only one; rows whose index is masked are
+dropped. ``t0``, ``t1`` and ``w0`` may be Python
 ints or 0-d device tensors (the planner's), so nothing here reads the
 card. Levenberg damping (diag += ep + lm*diag)
 and the per-pixel eta damping keep the f32 solve well conditioned.
@@ -56,9 +58,10 @@ def build_edge_pairs(ii, valid, max_pairs=None):
 
 
 def _seg(x, idx, ok, n):
-    """Sum rows of x into n segments; rows with ``ok`` False dropped."""
+    """A zero-start job summing the rows of x into n segments; rows with
+    ``ok`` False dropped."""
     idx = torch.where(ok, idx, torch.full_like(idx, n))
-    return cuda_segsum.segment_sum(x, idx, n)
+    return cuda_segsum.zero_sum(x, idx, n)
 
 
 def dba(poses, disps, intrinsics, target, weight, eta, ii, jj, valid,
@@ -108,28 +111,29 @@ def dba(poses, disps, intrinsics, target, weight, eta, ii, jj, valid,
         Ck = Ck[0] * vmask[:, None]
         wk = wk[0] * vmask[:, None]
 
-        # pose-pose Hessian (P,P,6,6): one scatter of the 4E blocks
+        # one launch: the pose-pose Hessian (P,P,6,6) from the 4E blocks,
+        # the gradient from the 2E halves and, for a full iteration, the
+        # depth terms C, w and Ei per depth frame
         hidx = torch.cat([sidx(pi, pi, ok_i), sidx(pi, pj, ok_i & ok_j),
                           sidx(pj, pi, ok_i & ok_j), sidx(pj, pj, ok_j)])
-        Hs = Hblk.new_zeros((P * P + 1, D, D))
-        cuda_segsum.index_add(Hs, hidx, torch.cat([
-            Hblk[:, :6, :6], Hblk[:, :6, 6:], Hblk[:, 6:, :6],
-            Hblk[:, 6:, 6:]]))
-        H = Hs[:P * P]
         vidx = torch.cat([torch.where(ok_i, pi, torch.full_like(pi, P)),
                           torch.where(ok_j, pj, torch.full_like(pj, P))])
-        v = vblk.new_zeros((P + 1, D))
-        cuda_segsum.index_add(v, vidx, torch.cat([vblk[:, :6],
-                                                  vblk[:, 6:]]))
-        v = v[:P]
+        jobs = [cuda_segsum.zero_sum(torch.cat([
+                    Hblk[:, :6, :6], Hblk[:, :6, 6:], Hblk[:, 6:, :6],
+                    Hblk[:, 6:, 6:]]), hidx, P * P),
+                cuda_segsum.zero_sum(torch.cat([vblk[:, :6], vblk[:, 6:]]),
+                                     vidx, P)]
+        if not motion_only:
+            jobs += [_seg(Ck, m, ok_m, K), _seg(wk, m, ok_m, K),
+                     _seg(Ei, m, ok_m & ok_i, K)]
+        H, v, *depth = cuda_segsum.sums(jobs)
 
         if motion_only:
             S, rhs = H, v
         else:
-            C = _seg(Ck, m, ok_m, K) + eta_flat           # (K, HW)
-            w_m = _seg(wk, m, ok_m, K)                     # (K, HW)
+            C, w_m, Ei_m = depth          # (K, HW), (K, HW), (K, 6, HW)
+            C = C + eta_flat
             Q = 1.0 / C
-            Ei_m = _seg(Ei, m, ok_m & ok_i, K)             # (K, 6, HW)
 
             # (a) self x self per depth frame, (b) self x edge
             Ei_e = Ei_m[m_c]
@@ -139,11 +143,9 @@ def dba(poses, disps, intrinsics, target, weight, eta, ii, jj, valid,
                               torch.cat([Ei_m, Ej]))
             SSa, SSb = SS[:K], SS[K:]
             ok_bm = ok_i & ok_j & ok_m
-            S_sum = SS.new_zeros((P * P + 1, D, D))
-            cuda_segsum.index_add(S_sum, torch.cat([
-                sidx(pm, pm, ok_pm), sidx(pi, pj, ok_bm),
-                sidx(pj, pi, ok_bm)]),
-                torch.cat([SSa, SSb, SSb.transpose(-1, -2)]))
+            s_rows = [SSa, SSb, SSb.transpose(-1, -2)]
+            s_idx = [sidx(pm, pm, ok_pm), sidx(pi, pj, ok_bm),
+                     sidx(pj, pi, ok_bm)]
 
             # (c) edge x edge over same-source pairs, in chunks: the
             # gathered (pairs, 6, HW) operands grow with the square of
@@ -151,14 +153,12 @@ def dba(poses, disps, intrinsics, target, weight, eta, ii, jj, valid,
             for o in range(0, pairs_a.shape[0], PAIR_CHUNK):
                 pa_c = pairs_a[o:o + PAIR_CHUNK]
                 pb_c = pairs_b[o:o + PAIR_CHUNK]
-                SSc = torch.einsum("pdh,ph,peh->pde", Ej[pa_c], Q_e[pa_c],
-                                   Ej[pb_c])
+                s_rows.append(torch.einsum("pdh,ph,peh->pde", Ej[pa_c],
+                                           Q_e[pa_c], Ej[pb_c]))
                 pj_a, pj_b = pj[pa_c], pj[pb_c]
                 ok_c = (pairs_valid[o:o + PAIR_CHUNK] & (pj_a >= 0) &
                         (pj_a < P) & (pj_b >= 0) & (pj_b < P))
-                cuda_segsum.index_add(S_sum, sidx(pj_a, pj_b, ok_c), SSc)
-
-            S = H - S_sum[:P * P]
+                s_idx.append(sidx(pj_a, pj_b, ok_c))
 
             # rhs correction: v - E Q w (self + edge terms)
             rc = torch.einsum("xdh,xh,xh->xd", torch.cat([Ei_m, Ej]),
@@ -167,9 +167,14 @@ def dba(poses, disps, intrinsics, target, weight, eta, ii, jj, valid,
             ridx = torch.cat([
                 torch.where(ok_pm, pm, torch.full_like(pm, P)),
                 torch.where(ok_j & ok_m, pj, torch.full_like(pj, P))])
-            corr_v = rc.new_zeros((P + 1, D))
-            cuda_segsum.index_add(corr_v, ridx, rc)
-            rhs = v - corr_v[:P]
+            # one launch: the Schur sum (a), (b), (c) in that order, and
+            # the rhs correction
+            S_sum, corr_v = cuda_segsum.sums([
+                cuda_segsum.zero_sum(torch.cat(s_rows), torch.cat(s_idx),
+                                     P * P),
+                cuda_segsum.zero_sum(rc, ridx, P)])
+            S = H - S_sum
+            rhs = v - corr_v
 
         # damped dense solve
         Sd = S.reshape(P, P, D, D).permute(0, 2, 1, 3).reshape(P * D, P * D)
@@ -189,7 +194,8 @@ def dba(poses, disps, intrinsics, target, weight, eta, ii, jj, valid,
         dx_pm = torch.where(ok_pm[:, None], dx[pm.clamp(0, P - 1)], 0.0)
         t_self = torch.einsum("kdh,kd->kh", Ei_m, dx_pm)
         dx_pj = torch.where(ok_j[:, None], dx[pj.clamp(0, P - 1)], 0.0)
-        t_edge = _seg(torch.einsum("edh,ed->eh", Ej, dx_pj), m, ok_m, K)
+        t_edge, = cuda_segsum.sums([
+            _seg(torch.einsum("edh,ed->eh", Ej, dx_pj), m, ok_m, K)])
         dz = Q * (w_m - t_self - t_edge)
         krows = torch.arange(K, device=dev) + w0
         dz = torch.where((krows < t1)[:, None], dz, 0.0)

@@ -616,9 +616,9 @@ class FactorGraph:
                 valid_c)
             self.net[sl] = net.to(self.net.dtype)
             m = ii_c - w0
-            cuda_segsum.index_add(sum_acc, m, upd.agg.pre(
-                net_c.permute(0, 3, 1, 2)).float())
-            cuda_segsum.index_add(cnt_acc, m, valid_c.float())
+            cuda_segsum.sums([
+                (sum_acc, m, upd.agg.pre(net_c.permute(0, 3, 1, 2)).float()),
+                (cnt_acc, m, valid_c.float())])
         mean = sum_acc[:K] / cnt_acc[:K].clamp(min=1.0)[:, None, None, None]
         eta, _ = upd.agg.post(mean.to(cdt), upmask=False)
         return eta[:, 0].float(), cnt_acc[:K] > 0

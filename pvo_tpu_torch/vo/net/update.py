@@ -5,7 +5,7 @@ A ConvGRU updates a per-edge hidden state from correlation + motion
 features; four heads predict camera-flow delta, dynamic-flow delta,
 confidence logits and a dynamic-mask logit delta. GraphAgg mean-pools
 hidden states over edges sharing a source frame (scatter-mean with f32
-accumulation in a fixed order, :func:`cuda_segsum.segment_sum`) and
+accumulation in a fixed order, :func:`cuda_segsum.sums`) and
 produces per-frame BA damping.
 Edges are a flat leading dim (E, H, W, C); module names follow the
 reference state dict (``update.corr_encoder.0``, ``update.agg.eta.0``).
@@ -36,18 +36,24 @@ def _head(out):
 
 
 class SegmentSum(torch.autograd.Function):
-    """:func:`cuda_segsum.segment_sum` with its backward, a gather of the
+    """The sums of :func:`cuda_segsum.segment_sum` and the count of rows
+    in each, in one launch, with the sums' backward, a gather of the
     output gradient (zero for the dropped rows): the training forward
-    runs GraphAgg under grad."""
+    runs GraphAgg under grad. The counts take no gradient."""
 
     @staticmethod
     def forward(ctx, x, seg_ids, n):
         ctx.save_for_backward(seg_ids)
         ctx.n = n
-        return cuda_segsum.segment_sum(x, seg_ids, n)
+        ones = torch.ones(x.shape[0], device=x.device)
+        summed, counts = cuda_segsum.sums([
+            cuda_segsum.zero_sum(x, seg_ids, n),
+            cuda_segsum.zero_sum(ones, seg_ids, n)])
+        ctx.mark_non_differentiable(counts)
+        return summed, counts
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, _):
         (seg_ids,) = ctx.saved_tensors
         ok = (seg_ids >= 0) & (seg_ids < ctx.n)
         gx = g[seg_ids.clamp(0, ctx.n - 1)]
@@ -88,10 +94,7 @@ class GraphAgg(nn.Module):
         the (num_frames,) f32 count of rows in each; ids outside
         [0, num_frames) are dropped. The sums take the rows in ascending
         order on the CPU and on the card alike."""
-        E = x.shape[0]
-        summed = SegmentSum.apply(x.float(), seg_ids, num_frames)
-        counts = cuda_segsum.segment_sum(
-            torch.ones(E, device=x.device), seg_ids, num_frames)
+        summed, counts = SegmentSum.apply(x.float(), seg_ids, num_frames)
         shape = (num_frames,) + (1,) * (x.dim() - 1)
         return summed / counts.clamp(min=1.0).reshape(shape), counts
 

@@ -10,7 +10,8 @@
 Phases, one line each (any failure exits non-zero):
   1. device   - requires CUDA; prints the card's name and power limit;
   2. build    - compiles pvo_tpu_torch/csrc/corr.cu, corr_exp.cu,
-                segsum.cu and cond.cu (nvcc, sm_90a), all at once;
+                segsum.cu, dba.cu and cond.cu (nvcc, sm_90a), all at
+                once;
   3. kernels  - each CUDA kernel against its plain PyTorch version on the
                 same inputs, C=128. K1 and K2 at 30x101, E in {1, 24, 48}:
                 <= 2e-2 (bf16 volume); K1 (the bf16 kernel, also at a
@@ -52,9 +53,22 @@ Phases, one line each (any failure exits non-zero):
                 both modes (accumulate, zero start), and in the
                 tracker's batched launches (GraphAgg's; the DBA's three
                 a full iteration), with its kernel time (a CUDA graph
-                of calls) beside the card's index_add_ and its bound;
-  4. reference- the port's loop with the kernels against the same loop
-                with their plain versions, on the card: 64x96, 8 frames
+                of calls) beside the card's index_add_ and its bound.
+                The DBA's kernels (dba.cu: linearize, Schur terms,
+                back-substitution) at dba_probe.SHAPES (30x101 with
+                E=144, K=P=32, 2048 pair slots; E=48; 47x156; 128x40;
+                E=1; motion-only): each output within 1e-4 of the plain
+                version relative to its largest magnitude, two calls
+                bit-equal, a CUDA-graph replay equal to the eager call,
+                dba.dba's poses and disparities after 2 iterations
+                within 1e-4 abs/rel of the plain versions' at the
+                planner's shape (elsewhere within 4x the plain versions'
+                own card-against-CPU difference, if larger); times by
+                CUDA graph beside the plain versions', the bound and
+                the Schur einsum's;
+  4. reference- the port's loop with the kernels (the DBA's too) against
+                the same loop with their plain versions, on the card:
+                64x96, 8 frames
                 + terminate(image_stream), same weights (mask logits
                 biased away from the threshold), all 8 poses within
                 1e-3;
@@ -187,7 +201,8 @@ Phases, one line each (any failure exits non-zero):
                 each path's two runs bit-equal (B5); under the oracle
                 core the planner's decisions equal the classic path's,
                 poses within 1e-3; capture fails on any host read;
-                PLANNER_SEGSUMS (42) segment-sum launches a replay.
+                PLANNER_SEGSUMS (42) segment-sum launches a replay and
+                PLANNER_DBA's DBA-kernel launches (12, 12, 24).
                 Printed: ms and frames/s a run, device ms, kernels, host
                 CUDA API calls and busy share a frame, capture seconds,
                 the graph's launches a frame.
@@ -250,7 +265,8 @@ Phases, one line each (any failure exits non-zero):
                 on the card equal to the CPU's; every number each CLI
                 returns finite. ("launches_tools" in the kernels line.)
 Then the whole run's seconds, one JSON line of kernel results (the
-segment sum's row too), the card's name and power limit, and the
+segment sum's and the DBA kernels' rows too), the card's name and power
+limit, and the
 contract line {"ok": true, "device": {...}}.
 """
 
@@ -287,7 +303,8 @@ from pvo_tpu_torch.scripts import (analyze_model, bench_corr, bench_dba,
                                    profile_terminate, profile_track,
                                    profile_vo, profile_vps,
                                    profile_vps_pipeline, run_pvo_loop,
-                                   segsum_probe, trace_track, trace_vo2,
+                                   dba_probe, segsum_probe, trace_track,
+                                   trace_vo2,
                                    trace_vps, train_vo)
 from pvo_tpu_torch.scripts.bench_track import (RANGE_PREFIXES, api_calls,
                                                bench_system, corr_rows,
@@ -306,6 +323,7 @@ from pvo_tpu_torch.vo.factor_graph import FactorGraph
 from pvo_tpu_torch.vo.net import corr as corr_plain
 from pvo_tpu_torch.vo.net import cuda_corr
 from pvo_tpu_torch.vo.net import cuda_corr_exp
+from pvo_tpu_torch.vo.net import cuda_dba
 from pvo_tpu_torch.vo.net import cuda_segsum
 from pvo_tpu_torch.vo.net.droidnet import DroidNet
 from pvo_tpu_torch.utils.io import VKITTI_INTRINSICS
@@ -374,6 +392,11 @@ SEGSUM_REPS = 20
 # a replayed planner frame's segment-sum launches: GraphAgg's one a
 # update and the DBA's three a full iteration, 6 updates x 2 iterations
 PLANNER_SEGSUMS = 6 + 6 * 2 * 3
+# and its DBA kernels' launches: 6 updates x 2 iterations, the
+# back-substitution in two passes
+PLANNER_DBA = {"dba_linearize": 12, "dba_schur": 12, "dba_backsub": 24}
+# the DBA kernels' checks (dba_probe.SHAPES), those timed and their reps
+DBA_TIMED, DBA_REPS = ("planner", "bench_dba"), 20
 # phase 12: the planner's runs (bench_track's system at 240x808), the
 # frames tracked, the first of the timed steady ones (past the engage at
 # 13, two eager frames and the capture) and the profiled ones after them
@@ -421,7 +444,8 @@ DEMO_FRAMES, DEMO_MASK_EQUAL, DEMO_POINT_TOL = 72, 0.999, 1e-4
 # the kernels the demo's narrow stream (30x100 features) must launch:
 # K1 once a keyframe, K2 every iteration, the f32 K3 in the probe, the
 # segment sum
-DEMO_ROWS = ("build_volumes", "corr_extract", "corr_lookup_f32", "segsum")
+DEMO_ROWS = ("build_volumes", "corr_extract", "corr_lookup_f32", "segsum",
+             *cuda_dba.KERNELS)
 # phase 14: the recipe's scene frames, the optimizer steps compared, and
 # the two gloo ranks' bounds against one process: the first step's
 # applied gradient within DP_GRAD_TOL relative L2 in every tensor (the
@@ -637,7 +661,53 @@ def check_kernels():
                entry="gathered")
         torch.cuda.empty_cache()
     res["segsum"] = check_segsum()
+    res.update(check_dba())
     return res
+
+
+def check_dba():
+    """Phase 3, the DBA's kernels (csrc/dba.cu): at each of
+    dba_probe.SHAPES (the planner's full regime at 30x101, E=144, K=P=32,
+    2048 pair slots; bench_dba's E=48; 47x156; 128x40; one edge; the
+    planner's shape motion-only) each kernel within dba_probe.TOL of its
+    plain version relative to the output's largest magnitude, bit-equal
+    twice, a CUDA-graph replay equal to the eager call; dba.dba's poses
+    and disparities after 2 iterations within its limit of the plain
+    versions' (dba_probe.failures). At DBA_TIMED the kernel times (a
+    CUDA graph of DBA_REPS calls, kernel and plain in turns) beside the
+    bound and, for the Schur terms, the einsum of its (a) and (b) items.
+    Returns the rows' numbers at the planner's shape with the worst error
+    of all."""
+    rows = {k: {"err": 0.0} for k in cuda_dba.KERNELS}
+    for name in dba_probe.SHAPES:
+        res = dba_probe.check(name, DBA_REPS if name in DBA_TIMED else 0)
+        for k, r in res.items():
+            if k == "dba":
+                log("kernel", name="dba", shape=name,
+                    poses_absrel=f"{r['poses']:.3g}",
+                    disps_absrel=f"{r['disps']:.3g}",
+                    plain_card_against_cpu=f"{r['plain_card_cpu']:.3g}",
+                    limit=f"{r['limit']:.3g}", bit_stable=r["bit_stable"])
+                continue
+            times = {t: (f"{r[t]:.4f}" if isinstance(r[t], float) else
+                         "/".join(f"{v:.4f}" for v in r[t]))
+                     for t in ("ms", "plain_ms", "bound_ms", "library_ms")
+                     if r.get(t) is not None}
+            share = ({"share_of_bound": f"{r['bound_ms'] / min(r['ms']):.4f}",
+                      "bound_by": r["bound_by"]} if "ms" in r else {})
+            log("kernel", name=k, shape=name, max_rel_err=f"{r['err']:.3g}",
+                tol=dba_probe.TOL, bit_stable=r["bit_stable"],
+                graph_equals_eager=r["graph_equal"], **times, **share)
+            rows[k]["err"] = max(rows[k]["err"], r["err"])
+            if name == "planner":
+                rows[k].update(ms=min(r["ms"]), plain_ms=r["plain_ms"],
+                               bound_ms=r["bound_ms"],
+                               bound_by=r["bound_by"],
+                               library_ms=r["library_ms"])
+        bad = dba_probe.failures(res)
+        if bad:
+            raise AssertionError(f"DBA kernels at {name}: {bad}")
+    return rows
 
 
 def check_segsum():
@@ -1001,14 +1071,15 @@ def patched(obj, name, value):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Swap each kernel wrapper (K3's indexed entry too) for its plain
-    PyTorch version."""
+    """Swap each kernel wrapper (K3's indexed entry and the DBA's kernels
+    too) for its plain PyTorch version."""
     names = cuda_corr.KERNELS + ("corr_lookup_indexed",)
     saved = {k: getattr(cuda_corr, k) for k in names}
     for k in names:
         setattr(cuda_corr, k, getattr(cuda_corr, k + "_plain"))
     try:
-        yield
+        with dba_probe.plain():
+            yield
     finally:
         for k, fn in saved.items():
             setattr(cuda_corr, k, fn)
@@ -1098,6 +1169,7 @@ def run_main_path():
     torch.cuda.reset_peak_memory_stats()
     cuda_corr.reset_launches()
     cuda_segsum.reset_launches()
+    cuda_dba.reset_launches()
 
     times, engaged_at = [], None
     for t, img, intr, segm in frames:
@@ -1111,7 +1183,7 @@ def run_main_path():
     planner = sysm.planner
     replays = planner.frame_graph.replays if planner.frame_graph else 0
     planner.disengage()
-    tracked = dict(cuda_corr.LAUNCHES, **cuda_segsum.LAUNCHES)
+    tracked = dict(cuda_corr.LAUNCHES, **cuda_segsum.LAUNCHES, **cuda_dba.LAUNCHES)
     cuda_corr.reset_routes()
     with contextlib.ExitStack() as stack:
         for entry in ("corr_lookup", "corr_lookup_indexed"):
@@ -1129,7 +1201,7 @@ def run_main_path():
     # terminate_s: the last frontend update and the backend, as measured
     # before terminate filled every frame; filler_s: the filler
     term_s = time.perf_counter() - t0 - filler_s[0]
-    launches = dict(cuda_corr.LAUNCHES, **cuda_segsum.LAUNCHES)
+    launches = dict(cuda_corr.LAUNCHES, **cuda_segsum.LAUNCHES, **cuda_dba.LAUNCHES)
     f32_launches = dict(cuda_corr.F32_LAUNCHES)
 
     # the frontend initializes at t=12 (warmup 12, admission committed
@@ -1200,7 +1272,11 @@ def run_main_path():
     if missing or launches["build_volumes_f32"]:
         raise AssertionError(f"launches on the main path: {launches}; never "
                              f"launched: {missing}")
-    return launches
+    terminate = {k: launches[k] - tracked[k] for k in cuda_dba.KERNELS}
+    if not all(terminate.values()):
+        raise AssertionError(f"terminate never launched a DBA kernel: "
+                             f"{terminate}")
+    return dict(launches, in_terminate=terminate)
 
 
 def oracle_core(n):
@@ -1398,10 +1474,12 @@ def run_planner():
     if not (b5["classic"] and b5["planner"]):
         raise AssertionError(f"tracking does not repeat itself: {b5}")
     for r in by["graph"]:
-        if r["launches_per_replay"]["segsum"] != PLANNER_SEGSUMS:
+        per = r["launches_per_replay"]
+        if per["segsum"] != PLANNER_SEGSUMS or \
+                any(per[k] != n for k, n in PLANNER_DBA.items()):
             raise AssertionError(
-                f"segment sums a replay {r['launches_per_replay']}, "
-                f"expected {PLANNER_SEGSUMS}")
+                f"segment sums and DBA kernels a replay {per}, expected "
+                f"{PLANNER_SEGSUMS} and {PLANNER_DBA}")
     if not decisions or not pose_diff < 1e-3:
         raise AssertionError(f"planner against classic (oracle core): "
                              f"decisions equal {decisions}, poses "
@@ -1964,7 +2042,7 @@ def loop_stage_counter(rows):
         n = {k: cuda_corr.LAUNCHES[k] - f32.get(k, 0)
              for k in cuda_corr.KERNELS}
         return {**n, **{F32_ROWS[k]: v for k, v in f32.items()},
-                **cuda_segsum.LAUNCHES}
+                **cuda_segsum.LAUNCHES, **cuda_dba.LAUNCHES}
 
     def counted(script, args_list):
         it = sum(r["stage"] == "test_vo" for r in rows) + \
@@ -2061,7 +2139,7 @@ def run_loop():
                                vps, "--device", "cuda"])
         rep = check_loop_artifacts(data, shared, n)
     total = {k: sum(r["launches"][k] for r in rows)
-             for k in (*LOOP_ROWS, "segsum")}
+             for k in (*LOOP_ROWS, "segsum", *cuda_dba.KERNELS)}
     export = [{k: r["launches"][k] for k in LOOP_ROWS}
               for r in rows if r["stage"] == "test_vo2"]
     per_export = {"build_volumes": 0, "corr_extract": 0, "corr_lookup": 0,
@@ -2072,8 +2150,8 @@ def run_loop():
                                              ("vpq_all", "vpq_thing",
                                               "vpq_stuff")}),
         seconds=f"{time.perf_counter() - t0:.1f}")
-    missing = [k for k in LOOP_ROWS if k != "build_volumes_f32"
-               and total[k] == 0]
+    missing = [k for k in (*LOOP_ROWS, *cuda_dba.KERNELS)
+               if k != "build_volumes_f32" and total[k] == 0]
     if missing or export != [per_export] * LOOP_ITERS:
         raise AssertionError(f"loop launches {total}, never launched "
                              f"{missing}; test_vo2 {export}")
@@ -2092,15 +2170,18 @@ def corr_launches():
     """Every corr kernel's launch count by row of the kernels line: K1
     and K3 split by feature type, K2, P1 and P2."""
     out = kbench.launch_counts()
-    del out["segsum"]
+    for k in ("segsum", *cuda_dba.KERNELS):
+        del out[k]
     return out
 
 
 def reset_corr_launches():
-    """Sets the corr kernels' counts and the segment sum's to 0."""
+    """Sets the corr kernels' counts, the segment sum's and the DBA
+    kernels' to 0."""
     cuda_corr.reset_launches()
     cuda_corr_exp.reset_launches()
     cuda_segsum.reset_launches()
+    cuda_dba.reset_launches()
 
 
 def train_card_against_cpu():
@@ -2295,9 +2376,10 @@ def run_train():
     launches = corr_launches()
     log("train", launches=repr(launches),
         segsum_launches=cuda_segsum.LAUNCHES["segsum"])
-    if any(launches.values()):
-        raise AssertionError(f"training launched corr kernels: {launches}")
-    return dict(launches, **cuda_segsum.LAUNCHES)
+    if any(launches.values()) or any(cuda_dba.LAUNCHES.values()):
+        raise AssertionError(f"training launched corr or DBA kernels: "
+                             f"{launches} {cuda_dba.LAUNCHES}")
+    return dict(launches, **cuda_segsum.LAUNCHES, **cuda_dba.LAUNCHES)
 
 
 def vps_train_card_against_cpu():
@@ -2391,10 +2473,10 @@ def run_vps_train():
     log("vps_train", launches=repr(launches),
         segsum_launches=cuda_segsum.LAUNCHES["segsum"],
         seconds=f"{time.perf_counter() - t0:.1f}")
-    if any(launches.values()):
-        raise AssertionError(f"VPS training launched corr kernels: "
-                             f"{launches}")
-    return dict(launches, **cuda_segsum.LAUNCHES)
+    if any(launches.values()) or any(cuda_dba.LAUNCHES.values()):
+        raise AssertionError(f"VPS training launched corr or DBA kernels: "
+                             f"{launches} {cuda_dba.LAUNCHES}")
+    return dict(launches, **cuda_segsum.LAUNCHES, **cuda_dba.LAUNCHES)
 
 
 def demo_inputs(root):
@@ -2641,7 +2723,8 @@ def dp_default_rank(mesh, steps):
             "first_step_s": out["first_step_s"],
             "steps_per_sec": out["steps_per_sec"],
             "loss_curve": out["loss_curve"],
-            "launches": dict(corr_launches(), **cuda_segsum.LAUNCHES)}
+            "launches": dict(corr_launches(), **cuda_segsum.LAUNCHES,
+                         **cuda_dba.LAUNCHES)}
 
 
 def grad_rel_l2(got, want):
@@ -2716,7 +2799,8 @@ def run_dp():
             s_per_step_one=f"{secs[0]:.3f}", s_per_step_dp=f"{secs[1]:.3f}",
             s_per_step_one_again=f"{secs[2]:.3f}")
         ok &= d_dp <= DP_FLOOR_FACTOR * d_floor
-    launches = dict(corr_launches(), **cuda_segsum.LAUNCHES)
+    launches = dict(corr_launches(), **cuda_segsum.LAUNCHES,
+                         **cuda_dba.LAUNCHES)
 
     t1 = time.perf_counter()
     two = dp.spawn(dp_default_rank, 2, (DP_STEPS,), device="cuda",
@@ -2954,7 +3038,7 @@ def main():
 
     t0 = time.perf_counter()
     sources = (cuda_corr.SOURCE, cuda_corr_exp.SOURCE, cuda_segsum.SOURCE,
-               graph_capture.SOURCE)
+               cuda_dba.SOURCE, graph_capture.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(cuda_corr.build, sources))
     log("build", sources=",".join(src.name for src in sources),
@@ -2972,6 +3056,7 @@ def main():
     packed = check_packed()
     check_reference()
     launches = run_main_path()
+    in_terminate = launches.pop("in_terminate")
     run_planner()
     harness = run_harnesses()
     export = run_export()
@@ -3032,6 +3117,23 @@ def main():
         "launches_demo": demo_launches["segsum"],
         "launches_dp": dp_launches["segsum"],
         "launches_tools": tools_launches["segsum"]})
+    # the DBA's kernels: phase 5's launches (terminate's within them)
+    for row in cuda_dba.KERNELS:
+        kernels.append({
+            "name": row, "route": "cuda",
+            "source": "pvo_tpu_torch/csrc/dba.cu",
+            "replaces": "none: XLA einsums in pvo_tpu/vo/dba.py",
+            "launches": launches[row], "max_abs_err": res[row]["err"],
+            **{k: res[row][k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")},
+            "launches_in_terminate": in_terminate[row],
+            "launches_loop": loop[row], "launches_train": train[row],
+            "launches_vps_train": vps_train[row],
+            "launches_demo": demo_launches[row],
+            "launches_dp": dp_launches[row],
+            "launches_tools": tools_launches[row]})
+        if not (launches[row] and loop[row] and demo_launches[row]):
+            raise AssertionError(f"{row} was never launched on a path")
     for x, (_, kernel, site) in HARNESS.items():
         n, ms, plain_ms, err = harness[x]
         bound = kernel_bound(kernel, HARNESS_E[kernel], 30, 101, C)

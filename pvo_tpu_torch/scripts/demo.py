@@ -65,8 +65,10 @@ def image_stream(imagedir, calib, stride=1):
 
 def kernel_launches():
     """The hand-written kernels' launch counts (all 0 on the CPU): K1 and
-    K3 by feature type, K2, the packed kernels, the segment sum."""
-    from pvo_tpu_torch.vo.net import cuda_corr, cuda_corr_exp, cuda_segsum
+    K3 by feature type, K2, the packed kernels, the segment sum, the DBA's
+    kernels."""
+    from pvo_tpu_torch.vo.net import (cuda_corr, cuda_corr_exp, cuda_dba,
+                                      cuda_segsum)
     out = {}
     for k, n in cuda_corr.LAUNCHES.items():
         f32 = cuda_corr.F32_LAUNCHES.get(k, 0)
@@ -75,6 +77,7 @@ def kernel_launches():
             out[f"{k}_f32"] = f32
     out.update(cuda_corr_exp.LAUNCHES)
     out.update(cuda_segsum.LAUNCHES)
+    out.update(cuda_dba.LAUNCHES)
     return out
 
 

@@ -234,14 +234,17 @@ def launch_counts():
     """The hand-written kernels' launches counted in this process (their
     wrappers' counters), by the rows of ``chip_smoke.py``'s kernels line:
     K1 and K3 split by feature type (``build_volumes_f32``,
-    ``corr_lookup_f32``), K2, P1, P2 and the segment sum."""
-    from pvo_tpu_torch.vo.net import cuda_corr, cuda_corr_exp, cuda_segsum
+    ``corr_lookup_f32``), K2, P1, P2, the segment sum and the DBA's
+    kernels."""
+    from pvo_tpu_torch.vo.net import (cuda_corr, cuda_corr_exp, cuda_dba,
+                                      cuda_segsum)
     out = dict(cuda_corr.LAUNCHES)
     for k in cuda_corr.F32_KERNELS:
         out[f"{k}_f32"] = cuda_corr.F32_LAUNCHES[k]
         out[k] -= cuda_corr.F32_LAUNCHES[k]
     out.update(cuda_corr_exp.LAUNCHES)
     out.update(cuda_segsum.LAUNCHES)
+    out.update(cuda_dba.LAUNCHES)
     return out
 
 
@@ -368,6 +371,55 @@ def segsum_jobs_bound(jobs):
     return _f32_bound(b, f)
 
 
+def dba_bound(name, E, K, HW, F=0, NP=0, valid_pairs=None,
+              valid_edges=None, motion_only=False):
+    """The roofline bound of one launch of the DBA's kernels
+    (``csrc/dba.cu``) at E edges, K depth frames, HW pixels a frame, F
+    frames of disparities and NP pair slots: every input read once and
+    every output written once, f32 (indices int64, masks one byte),
+    against the f32 peak.
+
+    ``dba_linearize`` reads target, weight and disps[ii] of the
+    ``valid_edges`` valid edges (all by default; an invalid one reads
+    nothing) and writes Hblk, vblk and, unless ``motion_only``, Ei, Ej,
+    Ck, wk; ``dba_schur`` reads Ei_m, Ej, C, eta, w_m and the pair slots
+    and writes K + 2E + NP rows of 36 and K + E of 6;
+    ``dba_backsub_edges`` (the edge pass) reads Ej and writes E x HW;
+    ``dba_backsub`` (the depth pass) reads Ei_m, C, eta, w_m, the edge
+    terms and F frames of disparities and writes F. The operations are
+    the products ``FlopCounterMode`` counts in the plain versions (the
+    einsums; ``trace_track.KernelFlops`` counts these): for the Schur
+    terms over ``valid_pairs`` of the NP slots (all by default, as the
+    plain version computes them; an invalid slot reads nothing)."""
+    f = 4
+    if name == "dba_linearize":
+        ve = E if valid_edges is None else valid_edges
+        b_in = ve * (5 * HW + 14) * f + E * 17
+        b_out = E * 156 * f + (0 if motion_only else E * 14 * HW * f)
+        flops = E * (816 * HW + 54)
+    elif name == "dba_schur":
+        vp = NP if valid_pairs is None else valid_pairs
+        b_in = ((K + E) * 6 + 3 * K) * HW * f + E * 8 + NP * 17
+        b_out = ((K + 2 * E + NP) * 36 + (K + E) * 6) * f
+        flops = (72 * (K + E + vp) + 12 * (K + E)) * HW
+    elif name == "dba_backsub_edges":
+        b_in, b_out = E * (6 * HW * f + 8), E * HW * f
+        flops = 12 * E * HW
+    elif name == "dba_backsub":
+        b_in = K * (10 * HW * f + 8) + F * (HW * f + 8)
+        b_out, flops = F * HW * f, 12 * K * HW
+    else:
+        raise ValueError(f"no DBA kernel named {name!r}")
+    return _f32_bound(b_in + b_out, flops)
+
+
+def bounds_sum(*bounds):
+    """One bound for several launches: their bytes and operations
+    summed."""
+    return _f32_bound(sum(b["bytes"] for b in bounds),
+                      sum(b["flops"] for b in bounds))
+
+
 def _f32_bound(nbytes, flops):
     bytes_ms = 1e3 * nbytes / HBM_BYTES_S
     ops_ms = 1e3 * flops / PEAK_FLOP_S["f32"]
@@ -470,6 +522,19 @@ def main():
                   f"{b['sectors'] / (E * 3030):.2f} sectors a pixel, bound "
                   f"{b['sector_ms']:.4f} ms by sectors, {b['ms']:.4f} by "
                   f"bytes")
+    # the DBA's kernels at the planner's full regime (E=144, K=32, 2048
+    # pair slots, 30x101; the back-substitution's two passes over 40
+    # frames)
+    E, K, HW = 144, 32, 30 * 101
+    for name, b in (
+            ("dba_linearize", dba_bound("dba_linearize", E, K, HW)),
+            ("dba_schur", dba_bound("dba_schur", E, K, HW, NP=2048)),
+            ("dba_backsub", bounds_sum(
+                dba_bound("dba_backsub_edges", E, K, HW),
+                dba_bound("dba_backsub", E, K, HW, F=40)))):
+        print(f"{name} E={E} K={K} 30x101: {b['bytes'] / 1e9:.4f} GB, "
+              f"{b['flops'] / 1e9:.3f} GFLOP, bound {b['ms']:.4f} ms "
+              f"({b['bound_by']})")
     if torch.cuda.is_available():
         from pvo_tpu_torch.vo.net import cuda_corr, cuda_corr_exp
         vol, coords = (t.cuda() for t in saved_extract_case())

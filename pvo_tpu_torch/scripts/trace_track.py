@@ -9,8 +9,8 @@ every frame a keyframe, the segment filter on, the planner engaged from
 frame 13), 42 warm-up frames, then ``n_traced_frames`` (default 5) under
 ``torch.profiler``, each frame a window of its own: the device total a
 frame and the costliest kernels (``kbench.device_op_totals``). The
-traced frames replay the planner's CUDA graph; their K1/K2/K3 and
-segment-sum launches in the trace are held equal to those
+traced frames replay the planner's CUDA graph; their K1/K2/K3,
+segment-sum and DBA-kernel launches in the trace are held equal to those
 ``FrameGraph.per_replay`` counts for them.
 
 Then one more frame whose program runs eagerly
@@ -19,9 +19,10 @@ Then one more frame whose program runs eagerly
 hand-written kernels are opaque to the counter on the card, and on the
 CPU their plain versions are torch ops it would count, so
 :class:`KernelFlops` leaves the plain versions out of its total and adds
-each kernel call's FLOPs by ``kbench.kernel_bound``'s and
-``kbench.segsum_bound``'s formulas at the call's shapes (the segment
-sum's over every row it is given: the program runs at static widths).
+each kernel call's FLOPs by ``kbench.kernel_bound``'s,
+``kbench.segsum_bound``'s and ``kbench.dba_bound``'s formulas at the
+call's shapes (the segment sum's over every row it is given, the Schur
+terms' over every pair slot: the program runs at static widths).
 On the CPU the program takes the card's correlation route
 (``planner.corr_route``) on the kernels' plain versions, so the count is
 the same function of the shapes and of the sections the frame ran on
@@ -50,18 +51,23 @@ from pvo_tpu_torch.scripts.bench_track import (bench_system, corr_rows,
 from pvo_tpu_torch.utils.device import open_device
 from pvo_tpu_torch.vo import graph_capture, planner
 from pvo_tpu_torch.vo.net import corr as corr_ops
-from pvo_tpu_torch.vo.net import cuda_corr, cuda_segsum
+from pvo_tpu_torch.vo.net import cuda_corr, cuda_dba, cuda_segsum
 
 
 def _corr(kernel, E, H, W, C):
     return kbench.kernel_bound(kernel, E, H, W, C)["flops"]
 
 
+def _dba(kernel, E, K, HW, NP=0):
+    return kbench.dba_bound(kernel, E, K, HW, NP=NP)["flops"]
+
+
 # the wrappers of the hand-written kernels (module, function name, the
 # kernel's row, its FLOPs from the call's arguments); corr_and_lookup is
 # the plain stand-in of K3 in the motion filter's probe on the CPU;
 # cuda_segsum.sums is the entry of every segment sum (index_add and
-# segment_sum call it)
+# segment_sum call it); the DBA's kernels count the einsums of their plain
+# versions, every pair slot included
 WRAPPERS = (
     (cuda_corr, "build_volumes", "build_volumes",
      lambda f1, f2, *a, **kw: _corr("build_volumes", *f1.shape)),
@@ -80,6 +86,19 @@ WRAPPERS = (
          x.shape[0], x.shape[0], out.shape[0],
          out[0].numel() if out.shape[0] else 0)["flops"]
          for out, idx, x, *_ in jobs)),
+    (cuda_dba, "linearize", "dba_linearize",
+     lambda poses, disps, intr, target, *a, **kw: _dba(
+         "dba_linearize", target.shape[0], 0, target[0, ..., 0].numel())),
+    (cuda_dba, "schur", "dba_schur",
+     lambda Ei_m, Ej, C, eta, w_m, m_c, pairs_a, *a, **kw: _dba(
+         "dba_schur", Ej.shape[0], Ei_m.shape[0], Ei_m.shape[-1],
+         pairs_a.shape[0])),
+    (cuda_dba, "edge_terms", "dba_backsub",
+     lambda Ej, *a, **kw: _dba("dba_backsub_edges", Ej.shape[0], 0,
+                               Ej.shape[-1])),
+    (cuda_dba, "backsub", "dba_backsub",
+     lambda Ei_m, *a, **kw: _dba("dba_backsub", 0, Ei_m.shape[0],
+                                 Ei_m.shape[-1])),
 )
 
 
@@ -193,9 +212,10 @@ def count_frame(sysm, frame, sections=None):
 
 def replay_counted(drv, records):
     """{kernel: launches} of replayed frames with records ``records`` as
-    ``FrameGraph.per_replay`` counts them: K1, K2, K3, the segment sum."""
+    ``FrameGraph.per_replay`` counts them: K1, K2, K3, the segment sum and
+    the DBA's kernels."""
     counted = dict.fromkeys(("build_volumes", "corr_extract", "corr_lookup",
-                             "segsum"), 0)
+                             "segsum", *cuda_dba.KERNELS), 0)
     for rec in records:
         for k, v in drv.frame_graph.per_replay(drv.sections(rec)).items():
             counted[k] += v
@@ -206,11 +226,15 @@ def profile_launches(prof):
     """The same kernels' launches as the kernel rows of a finished
     ``torch.profiler`` run show them."""
     rows = {k: n for k, (_, n) in corr_rows(prof).items()}
+
+    def named(name):
+        return sum(r.count for r in prof.key_averages()
+                   if r.device_type == torch.autograd.DeviceType.CUDA
+                   and name in r.key)
     return {"build_volumes": rows["K1"], "corr_extract": rows["K2"],
             "corr_lookup": rows["K3_bf16"] + rows["K3_f32"],
-            "segsum": sum(r.count for r in prof.key_averages()
-                          if r.device_type == torch.autograd.DeviceType.CUDA
-                          and "segsum_kernel" in r.key)}
+            "segsum": named("segsum_kernel"),
+            **{k: named(f"{k}_kernel") for k in cuda_dba.KERNELS}}
 
 
 def traced_frames(sysm, frames):

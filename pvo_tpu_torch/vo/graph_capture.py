@@ -32,11 +32,12 @@ from pathlib import Path
 
 import torch
 
-from pvo_tpu_torch.vo.net import cuda_corr, cuda_segsum
+from pvo_tpu_torch.vo.net import cuda_corr, cuda_dba, cuda_segsum
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "cond.cu"
 # the launch counters a graph's replays are counted into
-COUNTERS = (cuda_corr.LAUNCHES, cuda_corr.F32_LAUNCHES, cuda_segsum.LAUNCHES)
+COUNTERS = (cuda_corr.LAUNCHES, cuda_corr.F32_LAUNCHES, cuda_segsum.LAUNCHES,
+            cuda_dba.LAUNCHES)
 
 _lib = None
 # a few streams per device, shared by every capture and eager frame: a
@@ -180,13 +181,13 @@ class FrameGraph:
 
     def per_replay(self, ran):
         """{kernel: launches} of one replay that ran sections ``ran``:
-        the corr kernels and the segment sum."""
+        the corr kernels, the segment sum and the DBA's kernels."""
         out = {}
         for path in ((),) + tuple(ran):
             launches = self.launches.get(path)
             if launches is None:
                 continue
-            for d in (launches[0], launches[2]):
+            for d in (launches[0], launches[2], launches[3]):
                 for k, v in d.items():
                     out[k] = out.get(k, 0) + v
         return out

@@ -57,15 +57,17 @@ Phases, one line each (any failure exits non-zero):
                 The DBA's kernels (dba.cu: linearize, Schur terms,
                 back-substitution) at dba_probe.SHAPES (30x101 with
                 E=144, K=P=32, 2048 pair slots; E=48; 47x156; 128x40;
-                E=1; motion-only): each output within 1e-4 of the plain
+                E=1; motion-only; crowded: E=958 over 32 frames, about
+                30 edges a frame): each output within 1e-4 of the plain
                 version relative to its largest magnitude, two calls
                 bit-equal, a CUDA-graph replay equal to the eager call,
                 dba.dba's poses and disparities after 2 iterations
                 within 1e-4 abs/rel of the plain versions' at the
                 planner's shape (elsewhere within 4x the plain versions'
                 own card-against-CPU difference, if larger); times by
-                CUDA graph beside the plain versions', the bound and
-                the Schur einsum's;
+                CUDA graph beside the plain versions', the bound and,
+                for the Schur terms, one bmm of every depth frame's
+                weighted Gram (whose blocks are all its rows);
   4. reference- the port's loop with the kernels (the DBA's too) against
                 the same loop with their plain versions, on the card:
                 64x96, 8 frames
@@ -669,13 +671,15 @@ def check_dba():
     """Phase 3, the DBA's kernels (csrc/dba.cu): at each of
     dba_probe.SHAPES (the planner's full regime at 30x101, E=144, K=P=32,
     2048 pair slots; bench_dba's E=48; 47x156; 128x40; one edge; the
-    planner's shape motion-only) each kernel within dba_probe.TOL of its
+    planner's shape motion-only; crowded, the backend's E=958 over 32
+    frames, untimed) each kernel within dba_probe.TOL of its
     plain version relative to the output's largest magnitude, bit-equal
     twice, a CUDA-graph replay equal to the eager call; dba.dba's poses
     and disparities after 2 iterations within its limit of the plain
     versions' (dba_probe.failures). At DBA_TIMED the kernel times (a
     CUDA graph of DBA_REPS calls, kernel and plain in turns) beside the
-    bound and, for the Schur terms, the einsum of its (a) and (b) items.
+    bound and, for the Schur terms, one torch.bmm of every depth frame's
+    weighted Gram on operands stacked outside the timed call.
     Returns the rows' numbers at the planner's shape with the worst error
     of all."""
     rows = {k: {"err": 0.0} for k in cuda_dba.KERNELS}

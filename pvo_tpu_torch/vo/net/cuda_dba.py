@@ -5,11 +5,17 @@ module's attributes.
 
 - :func:`linearize` (kernel ``dba_linearize``): each edge's blocks
   Hblk (E,12,12), vblk (E,12), Ei, Ej (E,6,HW), Ck, wk (E,HW), zeros for
-  an invalid edge; with ``motion_only`` only Hblk and vblk.
+  an invalid edge; with ``motion_only`` only Hblk and vblk. A thread
+  keeps 27 sums a pixel (Hjj's upper triangle and vj): Ji = -Jj
+  Adj(Gij), so Hii, Hij, Hji and vi come from Hjj and vj and the
+  edge's Adj once an edge, and a pixel's Ei = -Adj^T Ej.
 - :func:`schur` (kernel ``dba_schur``): the Schur terms as rows for the
   segment sum, (a) K self x self, (b) E self x edge, their E transposes,
   (c) one a pair slot (zeros where the slot is not valid), and the rhs
-  correction's K + E rows.
+  correction's K + E rows, every one a block of its depth frame's
+  weighted Gram [Ei_m; Ej of the frame's edges] Q [..]^T. The kernel
+  builds the frames' groups from ``m_c`` itself; a valid slot's two
+  edges must share a depth frame, as ``dba.build_edge_pairs``' do.
 - :func:`edge_terms` and :func:`backsub` (kernel ``dba_backsub``, an
   edge pass and a depth pass around the segment sum of the edge terms):
   the depth back-substitution and the updated disparities.
@@ -18,11 +24,12 @@ None replaces a TPU kernel: the JAX package leaves this work to XLA
 (``pvo_tpu/geom/ba.py`` ``_edge_blocks``, ``pvo_tpu/vo/dba.py``). On the
 card these were einsums that cuBLAS ran as gemv and small f32 GEMMs,
 about 21 ms of a replayed planner frame's 76.3 (ROADMAP, "Farthest from
-the bound", item 1). The wrappers launch the kernels for CUDA tensors
-(built like the corr kernels, :func:`cuda_corr.build`, on the current
-stream; ``LAUNCHES`` counts them) and take the plain versions (the
-einsums the DBA ran before) only for tensors on the CPU. The kernels
-have no backward: a CUDA input that requires grad raises. Training
+the bound", item 1). The source's note gives each kernel's design and
+bound. The wrappers launch the kernels for CUDA tensors (built like the
+corr kernels, :func:`cuda_corr.build`, on the current stream;
+``LAUNCHES`` counts them) and take the plain versions (the einsums the
+DBA ran before) only for tensors on the CPU. The kernels have no
+backward: a CUDA input that requires grad raises. Training
 differentiates through :mod:`pvo_tpu_torch.geom.ba`, which stays plain.
 """
 
@@ -50,19 +57,25 @@ def reset_launches():
         LAUNCHES[k] = 0
 
 
+def load(source=SOURCE):
+    """The library built from ``source`` (this module's ``dba.cu``, or an
+    earlier one of the same C interface), its functions bound."""
+    lib = ctypes.CDLL(str(cuda_corr.build(source)))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.pvo_dba_linearize.argtypes = [p] * 8 + [i] * 3 + [p] * 7
+    lib.pvo_dba_schur.argtypes = [p] * 9 + [i] * 4 + [p] * 3
+    lib.pvo_dba_backsub_edges.argtypes = [p, p, p, i, i, p, p]
+    lib.pvo_dba_backsub.argtypes = [p] * 9 + [i, i, p, p]
+    for fn in (lib.pvo_dba_linearize, lib.pvo_dba_schur,
+               lib.pvo_dba_backsub_edges, lib.pvo_dba_backsub):
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def _library():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(cuda_corr.build(SOURCE)))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.pvo_dba_linearize.argtypes = [p] * 8 + [i] * 3 + [p] * 7
-        lib.pvo_dba_schur.argtypes = [p] * 9 + [i] * 4 + [p] * 3
-        lib.pvo_dba_backsub_edges.argtypes = [p, p, p, i, i, p, p]
-        lib.pvo_dba_backsub.argtypes = [p] * 9 + [i, i, p, p]
-        for fn in (lib.pvo_dba_linearize, lib.pvo_dba_schur,
-                   lib.pvo_dba_backsub_edges, lib.pvo_dba_backsub):
-            fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = load()
     return _lib
 
 
@@ -187,7 +200,11 @@ def schur(Ei_m, Ej, C, eta, w_m, m_c, pairs_a, pairs_b, pairs_valid,
     transposes of (b), (c) Ej[a] Q[m[a]] Ej[b]^T per pair slot, zeros
     where ``pairs_valid`` is False; and the rhs correction (K + E, 6),
     Ei_m Q w_m and Ej Q[m] w_m[m]. ``chunk`` is the plain version's pair
-    chunk; the kernel reads its operands by index and gathers nothing."""
+    chunk; the kernel reads its operands by index and gathers nothing.
+    On the card m_c must lie in [0, K), E may be at most 65535, and a
+    valid slot whose edges' frames differ gets zeros (the plain version
+    sums it): ``dba.build_edge_pairs`` pairs only edges of one source
+    frame, hence of one depth frame."""
     dev = Ei_m.device
     if dev.type == "cpu":
         return schur_plain(Ei_m, Ej, C, eta, w_m, m_c, pairs_a, pairs_b,

@@ -57,8 +57,10 @@ Phases, one line each (any failure exits non-zero):
                 The DBA's kernels (dba.cu: linearize, Schur terms,
                 back-substitution) at dba_probe.SHAPES (30x101 with
                 E=144, K=P=32, 2048 pair slots; E=48; 47x156; 128x40;
-                E=1; motion-only; crowded: E=958 over 32 frames, about
-                30 edges a frame): each output within 1e-4 of the plain
+                E=1; motion-only; E=48 at 47x155, an odd pixel count;
+                the backend's recorded call, E=1008 over K=100 frames;
+                crowded: E=958 over 32 frames, about 30 edges a
+                frame): each output within 1e-4 of the plain
                 version relative to its largest magnitude, two calls
                 bit-equal, a CUDA-graph replay equal to the eager call,
                 dba.dba's poses and disparities after 2 iterations
@@ -671,8 +673,10 @@ def check_dba():
     """Phase 3, the DBA's kernels (csrc/dba.cu): at each of
     dba_probe.SHAPES (the planner's full regime at 30x101, E=144, K=P=32,
     2048 pair slots; bench_dba's E=48; 47x156; 128x40; one edge; the
-    planner's shape motion-only; crowded, the backend's E=958 over 32
-    frames, untimed) each kernel within dba_probe.TOL of its
+    planner's shape motion-only; odd_hw, E=48 at 47x155; backend, the
+    backend's recorded call at 100 keyframes, E=1008 over K=100 frames;
+    crowded, E=958 over 32 frames; the last three untimed) each kernel
+    within dba_probe.TOL of its
     plain version relative to the output's largest magnitude, bit-equal
     twice, a CUDA-graph replay equal to the eager call; dba.dba's poses
     and disparities after 2 iterations within its limit of the plain

@@ -35,29 +35,30 @@
 //   rc is the self row of blocks against w_m[q]. So each plane is read
 //   from device memory once, and a pair of edges is summed once for both
 //   of its slots. A cluster of SC_CLUSTER blocks takes a job, each block
-//   a slice of the pixels; the kernel launches one wave of clusters (as
-//   many as the card holds at once) and each takes its jobs in turn. A
-//   job is a frame, or a share of a large frame's blocks: the frames'
-//   block counts, largest first, are dealt over the clusters there and
-//   back. The kernel builds each frame's group from m in shared memory
-//   (a stable compaction; no index lists come from the host) and marks
-//   the edges some valid slot pairs: an edge no slot pairs (an invalid
-//   edge) takes only its self x edge block. The rows [self; group] are
-//   cut into tiles of SC_TB six-row blocks; for each pair of tiles with
-//   a needed block, the rows' pixels are staged in shared memory by
-//   4-byte cp.async (a plane's stride at 30x101, 12120 bytes, is 8- but
-//   not 16-byte aligned), double-buffered, the first stage in flight
-//   while the slots are marked, and Q and Q w formed once a pixel. A
-//   thread sums one block (36 sums, and its rc where the left side is
-//   self) over a lane of pixels; the lanes are added in order, the
-//   cluster's blocks in rank order through distributed shared memory,
-//   and the rows written: (a), (b) and rc by the block that adds them,
-//   (c) through the slots each block resolved. An invalid slot, or one
-//   whose edges' frames differ, gets zeros. Integer atomics only count
-//   and mark; no value is summed by one. Bound: its inputs' bytes read
-//   once (the crowded backend call: the operations); at the planner's
-//   shape the cluster launch (about 5-10 us for an empty kernel) and the
-//   phases each job runs in turn (dba_probe --phases) are most of it.
+//   a slice of the pixels; the kernel launches SC_WAVE clusters (the
+//   wave an H100 holds at once) and each takes its jobs in turn. A job
+//   is a frame, or a share of a large frame's blocks: a frame whose
+//   blocks pass the mean share of a cluster is split, and the jobs,
+//   largest first, are dealt over the clusters there and back. The
+//   kernel builds each frame's group from m in shared memory (a stable
+//   compaction; no index lists come from the host) and marks the edges
+//   some valid slot pairs: an edge no slot pairs (an invalid edge) takes
+//   only its self x edge block. The rows [self; group] are cut into
+//   tiles of SC_TB six-row blocks; for each pair of tiles with a needed
+//   block, the rows' pixels are staged in shared memory by 4-byte
+//   cp.async (a plane's stride at 30x101, 12120 bytes, is 8- but not
+//   16-byte aligned), double-buffered, the first stage in flight while
+//   the slots are marked, and Q and Q w formed once a pixel. A thread
+//   sums one block (36 sums, and its rc where the left side is self)
+//   over a lane of pixels; the lanes are added in order, the cluster's
+//   blocks in rank order through distributed shared memory, and the rows
+//   written: (a), (b) and rc by the block that adds them, (c) through the
+//   slots each block resolved. An invalid slot, or one whose edges'
+//   frames differ, gets zeros. Integer atomics only count and mark; no
+//   value is summed by one. Bound: its inputs' bytes read once (the
+//   operations where the groups are large); at the planner's shape a
+//   cluster launch (about 5-10 us empty) and the phases each job runs in
+//   turn (group, marks, sums, lanes, cluster sums, slots) are most of it.
 // dba_backsub_kernel<EDGES>: a thread a pixel. The edge pass writes each
 //   edge's Ej dx[pj] (summed per depth frame by the segment sum); the
 //   depth pass forms dz = Q (w - Ei_m dx[pm] - t_edge) and writes the
@@ -84,8 +85,11 @@ constexpr int SC_UNITS = SC_TB * SC_TB;  // blocks of a tile pair
 constexpr int SC_NU = 42;           // a block's 36 sums and its rc's 6
 constexpr int SC_SLOTS = 4;         // pair slots a thread keeps resolved
 constexpr int SC_SPLIT = 4;         // jobs a frame at most
-constexpr int SC_SORT_K = 64;       // frames up to which jobs go largest first
 constexpr float SC_JOB_MIN = 24.f;  // a split job's blocks at least
+// the clusters launched: as many as an H100 SXM holds at once at two
+// blocks an SM (cudaOccupancyMaxActiveClusters); a constant, so that the
+// jobs, and the order of the sums, depend on the call's shapes alone
+constexpr int SC_WAVE = 39;
 // a rank's share of a tile pair's block sums
 constexpr int SC_FIN = (SC_UNITS + SC_CLUSTER - 1) / SC_CLUSTER * 36;
 // the stages' floats: at most SC_STAGE (two blocks an SM), at least two
@@ -391,21 +395,24 @@ struct SchurParams {
   const uint8_t* pv;
   float *S, *rc;
   int K, E, NP, HW;
-  int sb;   // the stages' floats
-  int ncl;  // the clusters the card holds at once
+  int sb;  // the stages' floats
 };
 
-// the dynamic shared memory of dba_schur_kernel at E edges after its
-// stages: the block's share of the sums (the slot marks before the
-// tiles), the group's edges (uint16) and their paired bits
+// the dynamic shared memory of dba_schur_kernel at E edges and K frames
+// after its stages: the block's share of the sums (the slot marks before
+// the tiles), the group's edges (uint16), their paired bits, the jobs in
+// order and each frame's count of jobs
 __host__ __device__ constexpr size_t schur_fin_bytes(int E) {
   return (size_t)4 * ((E + 31) / 32) > (size_t)SC_FIN * 4
              ? ((size_t)4 * ((E + 31) / 32) + 15) & ~(size_t)15
              : (size_t)SC_FIN * 4;
 }
-__host__ __device__ constexpr size_t schur_rest_bytes(int E) {
+__host__ __device__ constexpr size_t schur_jobs_at(int E) {
   return schur_fin_bytes(E) + (((size_t)2 * E + 7) & ~(size_t)7) +
          (size_t)4 * ((E + 31) / 32);
+}
+__host__ __device__ constexpr size_t schur_rest_bytes(int E, int K) {
+  return schur_jobs_at(E) + (size_t)4 * K * (SC_SPLIT + 1);
 }
 
 __device__ __forceinline__ void cp_async(float* dst, const float* src) {
@@ -497,46 +504,46 @@ __global__ void __cluster_dims__(SC_CLUSTER, 1, 1)
       reinterpret_cast<char*>(fin) + schur_fin_bytes(p.E));
   uint32_t* paired = reinterpret_cast<uint32_t*>(
       reinterpret_cast<char*>(grp) + ((2 * (size_t)p.E + 7) & ~(size_t)7));
+  int* order = reinterpret_cast<int*>(reinterpret_cast<char*>(fin) +
+                                      schur_jobs_at(p.E));  // the jobs by size
+  int* split = order + p.K * SC_SPLIT;                      // a frame's jobs
   __shared__ const float* rowptr[SC_ROWS];
   __shared__ uint16_t units[SC_UNITS];  // (A - a0) * SC_TB + (B - b0)
   __shared__ int16_t umap[SC_UNITS];    // its unit, or -1
   __shared__ int wsum[SC_WARPS];
-  __shared__ int16_t order[SC_SORT_K * SC_SPLIT];  // the jobs by size
-  __shared__ int split[SC_SORT_K];                  // a frame's jobs
 
   const int tid = threadIdx.x;
   const int rank = (int)cluster.block_rank();
   const int K = p.K, E = p.E, HW = p.HW;
   const int64_t NP = p.NP;
 
-  // the jobs (q, js, S): frame q's blocks t with t % S == js. Up to
-  // SC_SORT_K frames, a frame whose blocks pass the mean of the ncl
-  // clusters (and SC_JOB_MIN) is split in S jobs and the jobs go largest
-  // first; job r (in that order) goes to cluster r % ncl on even passes
-  // over the clusters and ncl - 1 - r % ncl on odd ones, so the largest
-  // and smallest share a cluster
-  const int ncl = p.ncl, y = blockIdx.y;
-  int J = K;
-  if (K <= SC_SORT_K) {
+  // the jobs (q, js, S): frame q's blocks t with t % S == js. A frame of
+  // c = (n + 1)(n + 2) / 2 blocks past the mean share of the SC_WAVE
+  // clusters (and SC_JOB_MIN) is split in S jobs; the jobs go largest
+  // first, job r (in that order) to cluster r % SC_WAVE on even passes
+  // over the clusters and SC_WAVE - 1 - r % SC_WAVE on odd ones, so the
+  // largest and smallest share a cluster
+  const int y = blockIdx.y;
+  int J = 0;
+  {
     int* cnt = reinterpret_cast<int*>(stage);  // before the pixels
-    float* cost = stage + SC_SORT_K;
+    float* cost = stage + K;
     for (int k = tid; k < K; k += SC_THREADS) cnt[k] = 0;
     __syncthreads();
     for (int e = tid; e < E; e += SC_THREADS) atomicAdd(cnt + p.m[e], 1);
     __syncthreads();
-    float c = 0.f, total = 0.f;
-    if (tid < K) c = 0.5f * (float)(cnt[tid] + 1) * (float)(cnt[tid] + 2);
+    float total = 0.f;
     for (int k = 0; k < K; ++k)
       total += 0.5f * (float)(cnt[k] + 1) * (float)(cnt[k] + 2);
-    const float target = fmaxf(SC_JOB_MIN, ceilf(total / (float)ncl));
-    if (tid < K) {
+    const float target = fmaxf(SC_JOB_MIN, ceilf(total / (float)SC_WAVE));
+    for (int k = tid; k < K; k += SC_THREADS) {
+      const float c = 0.5f * (float)(cnt[k] + 1) * (float)(cnt[k] + 2);
       const int S = min(SC_SPLIT, max(1, (int)ceilf(c / target)));
-      split[tid] = S;
+      split[k] = S;
       for (int js = 0; js < SC_SPLIT; ++js)
-        cost[tid * SC_SPLIT + js] = js < S ? c / (float)S : -1.f;
+        cost[k * SC_SPLIT + js] = js < S ? c / (float)S : -1.f;
     }
     __syncthreads();
-    J = 0;
     for (int k = 0; k < K; ++k) J += split[k];
     for (int i = tid; i < K * SC_SPLIT; i += SC_THREADS) {
       const float ci = cost[i];
@@ -546,18 +553,15 @@ __global__ void __cluster_dims__(SC_CLUSTER, 1, 1)
         const float cj = cost[j];
         before += cj > ci || (cj == ci && j < i);
       }
-      order[before] = (int16_t)i;
+      order[before] = i;
     }
     __syncthreads();
   }
 
-  for (int pass = 0; pass * ncl < J; ++pass) {
-    const int r = pass * ncl + (pass & 1 ? ncl - 1 - y : y);
+  for (int pass = 0; pass * SC_WAVE < J; ++pass) {
+    const int r = pass * SC_WAVE + (pass & 1 ? SC_WAVE - 1 - y : y);
     if (r >= J) continue;  // the same in the whole cluster
-    int q = r, js = 0, S = 1;
-    if (K <= SC_SORT_K) {
-      q = order[r] / SC_SPLIT, js = order[r] % SC_SPLIT, S = split[q];
-    }
+    const int q = order[r] / SC_SPLIT, js = order[r] % SC_SPLIT, S = split[q];
 
     // the group: the edges of frame q in edge order
     int n = 0;
@@ -892,49 +896,6 @@ extern "C" int pvo_dba_linearize(const float* poses, const float* disps,
   return (int)cudaGetLastError();
 }
 
-// dba_schur_kernel's stages (floats), dynamic shared memory and the
-// clusters the card holds at once with it, at E edges: the stages take
-// what the rest leaves, up to SC_STAGE. One wave of those clusters takes
-// every job; the jobs' split reads it, and so the order of the sums, so
-// it depends on the card and the size alone (cached by size: nothing is
-// asked of the card inside a capture once a size has run eagerly)
-static cudaError_t schur_config(int E, int* sb, size_t* smem, int* ncl) {
-  const size_t rest = schur_rest_bytes(E);
-  *sb = (int)(((size_t)SC_SMEM - rest) / 4) & ~3;
-  if (*sb > SC_STAGE) *sb = SC_STAGE;
-  if (*sb < SC_STAGE_MIN) return cudaErrorInvalidValue;
-  *smem = (size_t)*sb * 4 + rest;
-  static size_t sizes[8], allowed = 0;
-  static int held[8];
-  for (int k = 0; k < 8 && sizes[k]; ++k)
-    if (sizes[k] == *smem) {
-      *ncl = held[k];
-      return cudaSuccess;
-    }
-  cudaError_t err;
-  if (*smem > allowed) {  // the kernel's limit only grows
-    err = cudaFuncSetAttribute(dba_schur_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)*smem);
-    if (err != cudaSuccess) return err;
-    allowed = *smem;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(SC_CLUSTER, 1);
-  cfg.blockDim = dim3(SC_THREADS);
-  cfg.dynamicSmemBytes = *smem;
-  err = cudaOccupancyMaxActiveClusters(ncl, (const void*)dba_schur_kernel,
-                                       &cfg);
-  if (err != cudaSuccess) return err;
-  if (*ncl < 1) return cudaErrorInvalidConfiguration;
-  for (int k = 0; k < 8; ++k)
-    if (!sizes[k] || k == 7) {
-      sizes[k] = *smem, held[k] = *ncl;
-      break;
-    }
-  return cudaSuccess;
-}
-
 extern "C" int pvo_dba_schur(const float* Ei_m, const float* Ej,
                              const float* C, const float* eta, const float* w,
                              const int64_t* m, const int64_t* pa,
@@ -943,23 +904,24 @@ extern "C" int pvo_dba_schur(const float* Ei_m, const float* Ej,
                              void* stream) {
   if (K < 1 || K > 65535 || E < 0 || E > 65535 || NP < 0 || HW < 1)
     return (int)cudaErrorInvalidValue;
-  int sb = 0, ncl = 0;
-  size_t smem = 0;
-  const cudaError_t err = schur_config(E, &sb, &smem, &ncl);
+  // the stages take what the rest leaves, up to SC_STAGE; the jobs' sizes
+  // are ranked in them before the pixels
+  const size_t rest = schur_rest_bytes(E, K);
+  if (rest + (size_t)SC_STAGE_MIN * 4 > (size_t)SC_SMEM)
+    return (int)cudaErrorInvalidValue;
+  const int room = (int)(((size_t)SC_SMEM - rest) / 4) & ~3;
+  const int sb = room < SC_STAGE ? room : SC_STAGE;
+  if ((int64_t)K * (SC_SPLIT + 1) > sb) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)sb * 4 + rest;
+  // the kernel's limit, set with every launch (as allowed in a capture)
+  const cudaError_t err = cudaFuncSetAttribute(
+      dba_schur_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const SchurParams p = {Ei_m, Ej, C, eta, w, m, pa, pb, pv, S, rc,
-                         K, E, NP, HW, sb, ncl};
-  dba_schur_kernel<<<dim3(SC_CLUSTER, ncl), SC_THREADS, smem,
+                         K, E, NP, HW, sb};
+  dba_schur_kernel<<<dim3(SC_CLUSTER, SC_WAVE), SC_THREADS, smem,
                      (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
-}
-
-// the clusters dba_schur_kernel runs at once at E edges, into *n (for
-// the probe)
-extern "C" int pvo_dba_schur_clusters(int E, int* n) {
-  int sb = 0;
-  size_t smem = 0;
-  return (int)schur_config(E, &sb, &smem, n);
 }
 
 extern "C" int pvo_dba_backsub_edges(const float* Ej, const float* dx,

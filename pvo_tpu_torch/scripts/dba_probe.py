@@ -2,52 +2,50 @@
 plain versions on the card, at the tracker's shapes.
 
     python -m pvo_tpu_torch.scripts.dba_probe [shape ...] [--reps N]
-        [--parent PATH] [--variants] [--phases] [--ablate]
+        [--parent PATH]
+    python -m pvo_tpu_torch.scripts.dba_probe --record_backend
 
 ``SHAPES`` are DBA calls from numpy (:func:`inputs`): the planner's full
 regime at 240x808 (E=144 edges, P = K = 32, 2048 pair slots, 30x101),
 ``bench_dba``'s E=48 (512 slots), the 47x156 features of the 376x1248
 export and wide streams, a 128x40 stream, one edge, the planner's
-shape motion-only, and ``crowded``: the backend's largest call at 100
-keyframes (E=958 over K=32 frames, about 30 edges a frame, every pair
-slot of ``build_edge_pairs``), whose frames' Grams span several row
-tiles. For each kernel (:func:`stages` makes the inputs of the Schur
-terms and the back-substitution from one plain iteration): the largest
-difference from the plain version relative to the largest magnitude of
-that output (:func:`rel_err`; within ``TOL``), whether two calls are
-bit-equal, and whether a CUDA-graph replay equals the eager call; and
-the whole ``dba.dba`` (2 iterations) against the same call on the plain
-versions (poses and disparities, abs/rel ``TOL``; beside the plain
-versions' own difference between the card and the CPU, which sets the
-limit at shapes outside ``STRICT``), and two calls bit-equal. With
-times: kernel and plain in turns (kernel, plain, plain, kernel), each
-the mean of ``reps`` calls captured in one CUDA graph
-(``kbench.graph_time_ms``), the bound (``kbench.dba_bound``, the valid
-edges and pair slots of the inputs) and, for the Schur terms, the
-library call: one ``torch.bmm`` of every depth frame's weighted Gram
-(:func:`gram_operands`, stacked and padded outside the timed call; the
-port never makes it), whose blocks are all the Schur rows
-(:func:`gram_rows`). The back-substitution's row is its two passes.
-With ``--variants``, first ``dba_linearize``'s launch shapes
-(``VARIANTS``, rebuilt from ``dba.cu`` by text substitution) at the
-planner's shape, full and motion-only, in turns; with ``--phases``,
-``dba_schur``'s phases stamped by each cluster's first block
-(:func:`time_phases`); with ``--ablate``, ``dba_schur`` with parts
-switched off or resized (``ABLATIONS``) at the planner's and bench_dba's
-shapes, in turns (times only), beside the clusters the card holds.
-With ``--parent PATH`` (an earlier ``dba.cu`` of the same C interface,
-for example ``git archive <commit>`` unpacked into the ignored
-``.parent/``) each kernel is also timed against the parent's in turns
-(parent, this, this, parent) and the parent's outputs are held to the
-plain versions' too. One JSON line last.
+shape motion-only, ``odd_hw``: E=48 at 47x155 (376x1240 images, an odd
+pixel count), ``backend``: the backend's largest call at 100 keyframes
+as it was recorded on the card (``BACKEND_CALL``: its 1008 edges over
+K = 100 depth frames and P = 99 pose frames, every pair slot of
+``build_edge_pairs``), and ``crowded``: E=958 packed into K=32 frames
+(about 30 edges a frame; the recorded call's largest frame has 14),
+whose frames' Grams span several row tiles. For each kernel (:func:`stages`
+makes the inputs of the Schur terms and the back-substitution from one
+plain iteration): the largest difference from the plain version
+relative to the largest magnitude of that output (:func:`rel_err`;
+within ``TOL``), whether two calls are bit-equal, and whether a
+CUDA-graph replay equals the eager call; and the whole ``dba.dba`` (2
+iterations) against the same call on the plain versions (poses and
+disparities, abs/rel ``TOL``; beside the plain versions' own difference
+between the card and the CPU, which sets the limit at shapes outside
+``STRICT``), and two calls bit-equal. With times: kernel and plain in
+turns (kernel, plain, plain, kernel), each the mean of ``reps`` calls
+captured in one CUDA graph (``kbench.graph_time_ms``), the bound
+(``kbench.dba_bound``, the valid edges and pair slots of the inputs)
+and, for the Schur terms, the library call: one ``torch.bmm`` of every
+depth frame's weighted Gram (:func:`gram_operands`, stacked and padded
+outside the timed call; the port never makes it), whose blocks are all
+the Schur rows (:func:`gram_rows`). The back-substitution's row is its
+two passes. With ``--parent PATH`` (an earlier ``dba.cu`` of the same C
+interface, for example ``git archive <commit>`` unpacked into the
+ignored ``.parent/``) each kernel is also timed against the parent's in
+turns (parent, this, this, parent) and the parent's outputs are held to
+the plain versions' too. One JSON line last. ``--record_backend`` makes
+``BACKEND_CALL`` (:func:`record_backend`).
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
-import ctypes
 import json
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -55,10 +53,22 @@ import torch
 from pvo_tpu_torch.geom import projective
 from pvo_tpu_torch.scripts import kbench
 from pvo_tpu_torch.vo import dba as dba_mod
-from pvo_tpu_torch.vo.net import cuda_corr, cuda_dba, cuda_segsum
+from pvo_tpu_torch.vo.net import cuda_dba, cuda_segsum
 
-# (E, K, h, w, pair slots, motion_only); P = K; None: the slots that
-# build_edge_pairs gives, unpadded
+# the backend's largest DBA call in bench_terminate's run at 100
+# keyframes (240x808), recorded on the card by record_backend: its edges
+# (ii, jj, all valid), windows (t0, t1, w0, P, K) and feature size
+BACKEND_CALL = Path(__file__).with_name("dba_backend_call.json")
+
+
+def backend_call():
+    """``BACKEND_CALL`` as a dict."""
+    return json.loads(BACKEND_CALL.read_text())
+
+
+_BACKEND = backend_call()
+# (E, K, h, w, pair slots, motion_only); P = K except at "backend" (its
+# recorded P); None: the slots that build_edge_pairs gives, unpadded
 SHAPES = {
     "planner": (144, 32, 30, 101, 2048, False),
     "bench_dba": (48, 32, 30, 101, 512, False),
@@ -66,8 +76,13 @@ SHAPES = {
     "tall": (48, 32, 128, 40, 512, False),
     "one": (1, 4, 30, 101, 4, False),
     "motion_only": (144, 32, 30, 101, 2048, True),
+    "odd_hw": (48, 32, 47, 155, 512, False),
+    "backend": (len(_BACKEND["ii"]), _BACKEND["K"], *_BACKEND["hw"], None,
+                False),
     "crowded": (958, 32, 30, 101, None, False),
 }
+# the shapes whose edges are a recorded graph, not drawn from the seed
+GRAPHS = {"backend": _BACKEND}
 TOL = 1e-4
 # the whole call against the plain versions' within TOL at these shapes;
 # at the others within TOL or FLOOR_FACTOR times the plain versions'
@@ -78,55 +93,40 @@ STRICT = ("planner", "motion_only")
 FLOOR_FACTOR = 4
 # frames of disparities past the window (the back-substitution copies them)
 EXTRA_FRAMES = 8
-# dba_linearize's launch shapes timed in turns by --variants: text
-# substitutions of dba.cu (none: the source as it is)
-VARIANTS = {
-    "cluster2x256": {},
-    "cluster1x512": {"LIN_CLUSTER = 2;": "LIN_CLUSTER = 1;",
-                     "LIN_THREADS = 256;": "LIN_THREADS = 512;"},
-    "cluster4x128": {"LIN_CLUSTER = 2;": "LIN_CLUSTER = 4;",
-                     "LIN_THREADS = 256;": "LIN_THREADS = 128;"},
-    "cluster4x256": {"LIN_CLUSTER = 2;": "LIN_CLUSTER = 4;"},
-}
-# parts of dba_schur switched off or resized, timed by --ablate (their
-# outputs are not the Schur terms; only the time is read)
-ABLATIONS = {
-    "as_is": {},
-    "no_sums": {"          if (active) {\n            const float* Ab":
-                "          if (false) {\n            const float* Ab"},
-    "no_loads": {"for (int c = tid & 31; c < cnt; c += 32) cp_async(dst + c, src + c);":
-                 ""},
-    "empty": {"  const int ncl = p.ncl, y = blockIdx.y;\n":
-              "  const int ncl = p.ncl, y = blockIdx.y;\n  if (ncl > 0) return;\n"},
-    "cluster4": {"SC_CLUSTER = 6;": "SC_CLUSTER = 4;"},
-    "cluster8": {"SC_CLUSTER = 6;": "SC_CLUSTER = 8;"},
-    "one_job_a_frame": {"SC_SPLIT = 4;": "SC_SPLIT = 1;"},
-}
 
 
-def inputs(E, K, h, w, n_pairs, device, seed=0):
-    """``dba.dba``'s arguments from numpy: F = K + EXTRA_FRAMES frames,
-    poses with small rotations and 0.05-scale translations, disparities
-    about 1, E edges (the last quarter, at most 4, invalid) between
-    nearby frames of the window, targets where the true poses and
-    disparities project each pixel (plus half-pixel noise) and random
-    weights, the poses and disparities given to the DBA off the true
-    ones by noise, the edge pairs of ``dba.build_edge_pairs`` in
-    ``n_pairs`` slots (as many as there are pairs when None), and t0,
-    t1, w0 as 0-d device tensors (the planner's)."""
+def inputs(E, K, h, w, n_pairs, device, seed=0, graph=None):
+    """``dba.dba``'s arguments from numpy: F = w0 + K + EXTRA_FRAMES
+    frames, poses with small rotations and 0.05-scale translations,
+    disparities about 1, E edges (the last quarter, at most 4, invalid)
+    between nearby frames of the window, or those of ``graph`` (a
+    recorded call, :func:`backend_call`: its edges, all valid, and its
+    t0, t1, w0, P), targets where the true poses and disparities project
+    each pixel (plus half-pixel noise) and random weights, the poses and
+    disparities given to the DBA off the true ones by noise, the edge
+    pairs of ``dba.build_edge_pairs`` in ``n_pairs`` slots (as many as
+    there are pairs when None), and t0, t1, w0 as 0-d device tensors
+    (the planner's: 1, K, 0)."""
     rng = np.random.RandomState(seed)
-    F = K + EXTRA_FRAMES
+    t0, t1, w0, P = 1, K, 0, K
+    if graph is not None:
+        t0, t1, w0, P = (graph[k] for k in ("t0", "t1", "w0", "P"))
+    F = w0 + K + EXTRA_FRAMES
     poses = np.zeros((F, 7), np.float32)
     q = np.concatenate([0.01 * rng.randn(F, 3), np.ones((F, 1))], 1)
     poses[:, 3:] = q / np.linalg.norm(q, axis=1, keepdims=True)
     poses[:, :3] = 0.05 * rng.randn(F, 3)
     disps = (1.0 + 0.1 * rng.rand(F, h, w)).astype(np.float32)
     intr = np.array([100.0, 100.0, w / 2, h / 2], np.float32)
-    n_real = E - min(4, E // 4)
-    ii = rng.randint(0, K, E)
-    jj = (ii + 1 + rng.randint(0, 3, E)) % K
-    valid = np.arange(E) < n_real
-    ii[~valid] = jj[~valid] = 0
+    if graph is None:
+        n_real = E - min(4, E // 4)
+        ii = rng.randint(0, K, E)
+        jj = (ii + 1 + rng.randint(0, 3, E)) % K
+        valid = np.arange(E) < n_real
+        ii[~valid] = jj[~valid] = 0
+    else:
+        ii, jj = np.asarray(graph["ii"]), np.asarray(graph["jj"])
+        valid = np.ones(E, bool)
     coords, _ = projective.projective_transform(
         torch.from_numpy(poses)[None], torch.from_numpy(disps)[None],
         torch.from_numpy(intr).expand(1, F, 4), ii, jj)
@@ -142,9 +142,61 @@ def inputs(E, K, h, w, n_pairs, device, seed=0):
                 target=t(target), weight=t(weight), eta=t(eta),
                 ii=t(ii.astype(np.int64)), jj=t(jj.astype(np.int64)),
                 valid=t(valid), pairs_a=t(pa), pairs_b=t(pb),
-                pairs_valid=t(pv), t0=torch.tensor(1, device=device),
-                t1=torch.tensor(K, device=device),
-                w0=torch.tensor(0, device=device), P=K, K=K)
+                pairs_valid=t(pv), t0=torch.tensor(t0, device=device),
+                t1=torch.tensor(t1, device=device),
+                w0=torch.tensor(w0, device=device), P=P, K=K)
+
+
+def shape_inputs(name, device, seed=0, hw=None):
+    """:func:`inputs` at ``SHAPES[name]`` (at ``hw`` pixels if given)."""
+    E, K, h, w, n_pairs, _ = SHAPES[name]
+    h, w = hw or (h, w)
+    return inputs(E, K, h, w, n_pairs, device, seed, graph=GRAPHS.get(name))
+
+
+def record_backend(path=BACKEND_CALL, n_kf=100, image_size=(240, 808)):
+    """Track ``n_kf`` frames with ``bench_terminate``'s system on the
+    card, run ``terminate`` and write the backend's largest ``dba.dba``
+    call to ``path`` as JSON: its edges ``ii``, ``jj`` (every one valid),
+    ``t0``, ``t1``, ``w0``, ``P``, ``K``, the feature size ``hw``, the
+    frames ``F`` and the edges of each backend call. Returns that dict.
+    With random weights the graph differs from run to run: the file
+    keeps one run's."""
+    from pvo_tpu_torch.scripts import bench_terminate
+    dev = torch.device("cuda")
+    sysm, frames = bench_terminate.tracked_system(n_kf, image_size, dev)
+    inside, calls, real = [False], [], dba_mod.dba
+    backend = sysm.backend
+
+    def in_backend(*a, **kw):
+        inside[0] = True
+        try:
+            return backend(*a, **kw)
+        finally:
+            inside[0] = False
+
+    def recorded(poses, disps, intrinsics, target, weight, eta, ii, jj,
+                 valid, pairs_a, pairs_b, pairs_valid, t0, t1, w0, P, K,
+                 **kw):
+        if inside[0]:
+            assert bool(valid.all()) and not kw.get("motion_only")
+            calls.append(dict(
+                ii=ii.tolist(), jj=jj.tolist(), t0=int(t0), t1=int(t1),
+                w0=int(w0), P=int(P), K=int(K),
+                hw=list(disps.shape[-2:]), F=int(poses.shape[0])))
+        return real(poses, disps, intrinsics, target, weight, eta, ii, jj,
+                    valid, pairs_a, pairs_b, pairs_valid, t0, t1, w0, P, K,
+                    **kw)
+
+    sysm.backend, dba_mod.dba = in_backend, recorded
+    try:
+        sysm.terminate(iter(frames))
+    finally:
+        dba_mod.dba = real
+    call = max(calls, key=lambda c: len(c["ii"]))
+    call["backend_edges"] = list(dict.fromkeys(len(c["ii"]) for c in calls))
+    Path(path).write_text(json.dumps(call, separators=(",", ":")) + "\n")
+    return call
 
 
 def call_dba(a, iters=2, motion_only=False):
@@ -294,7 +346,7 @@ def check(name, reps=0, seed=0, parent=None):
     poses' and disparities' worst abs/rel difference."""
     E, K, h, w, n_pairs, motion_only = SHAPES[name]
     dev = torch.device("cuda")
-    a = inputs(E, K, h, w, n_pairs, dev, seed)
+    a = shape_inputs(name, dev, seed)
     st = stages(a)
     HW, F = h * w, a["poses"].shape[0]
     NP = a["pairs_a"].shape[0]
@@ -389,151 +441,6 @@ def check(name, reps=0, seed=0, parent=None):
     return res
 
 
-def variant(subs, tag):
-    """``dba.cu`` with the text substitutions ``subs`` (each must match
-    once), built and bound; the source goes to the ignored build
-    directory."""
-    text = cuda_dba.SOURCE.read_text()
-    for old, new in subs.items():
-        if text.count(old) != 1:
-            raise ValueError(f"{old!r} matches {text.count(old)} times")
-        text = text.replace(old, new)
-    path = cuda_corr.BUILD_DIR / f"dba_{tag}.cu"
-    path.parent.mkdir(parents=True, exist_ok=True)
-    path.write_text(text)
-    return cuda_dba.load(path)
-
-
-def time_variants(name="planner", reps=20, seed=0):
-    """dba_linearize (full and motion-only) of each of ``VARIANTS`` at
-    shape ``name``, in turns (each variant, then again in reverse order):
-    {variant: {"full": [ms, ms], "motion_only": [ms, ms], "err": x}},
-    err the worst of both against the plain version."""
-    E, K, h, w, n_pairs, _ = SHAPES[name]
-    a = inputs(E, K, h, w, n_pairs, torch.device("cuda"), seed)
-    args = stages(a)["linearize"]
-    libs = {tag: variant(subs, tag) for tag, subs in VARIANTS.items()}
-    res = {tag: {"full": [], "motion_only": [], "err": 0.0} for tag in libs}
-    for mo in (False, True):
-        ref = _outs(cuda_dba.linearize_plain(*args, motion_only=mo))
-        order = list(libs) + list(libs)[::-1]
-        for tag in order:
-            with library(libs[tag]):
-                out = _outs(cuda_dba.linearize(*args, motion_only=mo))
-                res[tag]["err"] = max(res[tag]["err"], *(
-                    rel_err(o, r) for o, r in zip(out, ref)))
-                res[tag]["motion_only" if mo else "full"].append(
-                    kbench.graph_time_ms(
-                        lambda: cuda_dba.linearize(*args, motion_only=mo),
-                        reps))
-    return res
-
-
-# dba_schur with each cluster's first block stamping the card's clock
-# (%globaltimer, ns) at its phases, read back by pvo_dba_phases (--phases)
-PHASES = ("start", "group", "marks", "merged", "units", "sums", "lanes",
-          "cluster_sums", "slots")
-_STAMP = "PHASE_STAMP({}, rank);\n"
-PHASE_SUBS = {
-    "namespace {\n\nconstexpr int LIN_THREADS":
-        "namespace {\n\n__device__ unsigned long long dba_phase_ns[4096 * 16];\n"
-        "#define PHASE_STAMP(i, rank) if (threadIdx.x == 0 && (rank) == 0 && "
-        "blockIdx.y < 4096) { unsigned long long t; asm volatile("
-        "\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t)); "
-        "dba_phase_ns[blockIdx.y * 16 + (i)] = t; }\n"
-        "constexpr int LIN_THREADS",
-    "    int q = r, js = 0, S = 1;\n":
-        "    int q = r, js = 0, S = 1;\n    " + _STAMP.format(0),
-    "    for (int k = tid; k < nwords; k += SC_THREADS) mine[k] = 0u;\n"
-    "    __syncthreads();\n":
-        "    for (int k = tid; k < nwords; k += SC_THREADS) mine[k] = 0u;\n"
-        "    __syncthreads();\n    " + _STAMP.format(1),
-    "    cluster.sync();\n    for (int k = tid; k < nwords; k += SC_THREADS) {":
-        "    cluster.sync();\n    " + _STAMP.format(2) +
-        "    for (int k = tid; k < nwords; k += SC_THREADS) {",
-    "    // the marks are read by the other blocks until the first tile's sync\n"
-    "    __syncthreads();\n":
-        "    __syncthreads();\n    " + _STAMP.format(3),
-    "        if (U == 0) {  // the same in every block of the cluster\n":
-        "        " + _STAMP.format(4) +
-        "        if (U == 0) {  // the same in every block of the cluster\n",
-    "          __syncthreads();  // the buffer is refilled two stages on\n"
-    "        }\n":
-        "          __syncthreads();\n        }\n        " + _STAMP.format(5),
-    "        cluster.sync();\n        // the cluster's sums in rank order":
-        "        cluster.sync();\n        " + _STAMP.format(6) +
-        "        // the cluster's sums in rank order",
-    "        cluster.sync();\n        // (c): this block's share":
-        "        cluster.sync();\n        " + _STAMP.format(7) +
-        "        // (c): this block's share",
-    "        cluster.sync();  // the sums are read; the next tile may "
-    "overwrite\n":
-        "        cluster.sync();\n        " + _STAMP.format(8),
-    'extern "C" int pvo_dba_backsub_edges(':
-        'extern "C" int pvo_dba_phases(unsigned long long* out, int n) {\n'
-        '  cudaError_t err = cudaMemcpyFromSymbol(out, dba_phase_ns, (size_t)n * 8);\n'
-        '  if (err != cudaSuccess) return (int)err;\n'
-        '  static unsigned long long zeros[4096 * 16];\n'
-        '  return (int)cudaMemcpyToSymbol(dba_phase_ns, zeros, sizeof zeros);\n'
-        '}\n\nextern "C" int pvo_dba_backsub_edges(',
-}
-
-
-def time_phases(name="planner", seed=0):
-    """One dba_schur call at shape ``name`` with each frame's cluster
-    with a job stamping its phases (``PHASES``; the last tile pair's):
-    per phase the mean and largest time since the one before over the
-    jobs, in us, "start" the jobs' starts after the first one; the
-    call's span from the first start to the last stamp, and the jobs."""
-    lib = variant(PHASE_SUBS, "phases")
-    E, K, h, w, n_pairs, _ = SHAPES[name]
-    a = inputs(E, K, h, w, n_pairs, torch.device("cuda"), seed)
-    args = stages(a)["schur"]
-    jobs = 4 * K  # at most SC_SPLIT jobs a frame; a job never run stays 0
-    buf = (ctypes.c_ulonglong * (jobs * 16))()
-    with library(lib):
-        for _ in range(3):
-            cuda_dba.schur(*args)
-        torch.cuda.synchronize()
-        cuda_corr.check_rc(lib.pvo_dba_phases(buf, jobs * 16), "dba phases")
-        cuda_dba.schur(*args)
-        torch.cuda.synchronize()
-    cuda_corr.check_rc(lib.pvo_dba_phases(buf, jobs * 16), "dba phases")
-    t = np.array(buf, dtype=np.float64).reshape(jobs, 16)[:, :len(PHASES)]
-    t = t[t[:, 0] > 0]
-    t = (t - t[:, 0].min()) / 1e3
-    steps = np.diff(t, axis=1)
-    res = {"start": [float(t[:, 0].mean()), float(t[:, 0].max())]}
-    for i, ph in enumerate(PHASES[1:]):
-        res[ph] = [float(steps[:, i].mean()), float(steps[:, i].max())]
-    res["span"] = float(t.max())
-    res["jobs"] = int(t.shape[0])
-    return res
-
-
-def time_ablations(names=("planner", "bench_dba"), reps=20, seed=0):
-    """dba_schur with each of ``ABLATIONS`` at each shape of ``names``,
-    in turns (each ablation, then again in reverse order): {shape:
-    {ablation: [ms, ms]}, "clusters": {ablation: the clusters the card
-    holds at once at E=144}}."""
-    libs = {tag: variant(subs, tag) for tag, subs in ABLATIONS.items()}
-    res = {"clusters": {}}
-    for tag, lib in libs.items():
-        n = ctypes.c_int(0)
-        rc = lib.pvo_dba_schur_clusters(144, ctypes.byref(n))
-        res["clusters"][tag] = n.value if rc == 0 else f"error {rc}"
-    for name in names:
-        E, K, h, w, n_pairs, _ = SHAPES[name]
-        a = inputs(E, K, h, w, n_pairs, torch.device("cuda"), seed)
-        args = stages(a)["schur"]
-        res[name] = {tag: [] for tag in libs}
-        for tag in list(libs) + list(libs)[::-1]:
-            with library(libs[tag]):
-                res[name][tag].append(kbench.graph_time_ms(
-                    lambda: cuda_dba.schur(*args), reps))
-    return res
-
-
 def failures(res):
     """What in :func:`check`'s result breaks its tolerances."""
     bad = []
@@ -554,32 +461,20 @@ def main(argv=None):
     p.add_argument("--reps", type=int, default=20)
     p.add_argument("--parent", default=None,
                    help="an earlier dba.cu to time in turns with this one")
-    p.add_argument("--variants", action="store_true",
-                   help="time dba_linearize's launch shapes (VARIANTS) at "
-                        "the planner's shape first")
-    p.add_argument("--phases", action="store_true",
-                   help="stamp dba_schur's phases at the planner's and "
-                        "bench_dba's shapes first")
-    p.add_argument("--ablate", action="store_true",
-                   help="time dba_schur's ABLATIONS at the planner's and "
-                        "bench_dba's shapes first")
+    p.add_argument("--record_backend", action="store_true",
+                   help="track bench_terminate's 100 keyframes and write "
+                        "the backend's largest DBA call to BACKEND_CALL "
+                        "(nothing else)")
     args = p.parse_args(argv)
     kbench.require_cuda()
+    if args.record_backend:
+        call = record_backend()
+        print(json.dumps({k: v for k, v in call.items()
+                          if k not in ("ii", "jj")}))
+        return call
     torch.backends.cuda.matmul.allow_tf32 = False
     parent = cuda_dba.load(args.parent) if args.parent else None
     out = {"gpu": kbench.gpu_line()}
-    if args.phases:
-        out["phases"] = {n: time_phases(n) for n in ("planner", "bench_dba")}
-        print("phases", json.dumps(out["phases"]))
-    if args.ablate:
-        out["ablations"] = time_ablations(reps=args.reps)
-        print("ablations", json.dumps(out["ablations"]))
-    if args.variants:
-        out["variants"] = time_variants(reps=args.reps)
-        print("variants", json.dumps(out["variants"]))
-        bad = [t for t, r in out["variants"].items() if r["err"] > TOL]
-        if bad:
-            raise AssertionError(f"variants beyond TOL: {bad}")
     for name in args.shapes:
         res = check(name, args.reps, parent=parent)
         out[name] = res

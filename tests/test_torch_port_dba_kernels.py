@@ -18,9 +18,9 @@ the import walk over ``cuda_dba.py``.
 
 On the card (``cuda`` marker, skipped here): ``dba_probe.check`` at
 each of its shapes (30x101 with E=144, K=P=32 and 2048 slots; E=48;
-47x156; 128x40; E=1; motion-only; crowded, E=958 over 32 frames): each
-kernel within 1e-4 of its
-plain version relative to the output's largest magnitude, bit-equal
+47x156; 128x40; E=1; motion-only; E=48 at 47x155; the backend's
+recorded call, E=1008 over K=100 frames; crowded, E=958 over 32
+frames): each kernel within 1e-4 of its plain version relative to the output's largest magnitude, bit-equal
 twice, a CUDA-graph replay equal to the eager call, and ``dba.dba``'s
 poses and disparities after 2 iterations within 1e-4 abs/rel of the
 plain versions'. The JAX tests import JAX inside and skip without it:

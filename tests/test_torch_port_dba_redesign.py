@@ -17,18 +17,21 @@ package before the card sees it.
   pair slots from the marked blocks, zeros for an invalid slot or one
   whose edges' frames differ. :func:`gram_emulation` does that walk;
   it must match ``cuda_dba.schur_plain`` (and the JAX contractions)
-  including invalid slots, invalid edges and the ``crowded`` shape's
-  groups of about 30 edges, which span several row tiles.
+  including invalid slots, invalid edges, the backend's recorded call
+  (``dba_probe.BACKEND_CALL``: K = 100 depth frames) and the ``crowded``
+  shape's groups of about 30 edges, which span several row tiles.
 - The library yardstick's rows (``dba_probe.gram_operands`` /
   ``gram_rows``, one bmm of every frame's Gram) equal ``schur_plain``'s.
-- ``dba_probe``'s launch shapes, ablations and phase stamps rebuild
-  ``dba.cu`` by text substitution: each must match the source once.
+- ``dba_probe``'s ``backend`` shape is the recorded call: its edges,
+  windows and pair slots are those the backend's graph builder and
+  ``FactorGraph._update`` make.
 
 The kernel builds its groups itself from ``m_c`` in shared memory, so
 ``vo/dba.py`` builds no new index lists.
 """
 
 import functools
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -88,15 +91,14 @@ def linearize_27(poses, disps, intr, target, weight, ii, jj, valid):
             wk * m[:, None])
 
 
-def planner_linearize_args():
-    a = dba_probe.inputs(*dba_probe.SHAPES["planner"][:5], "cpu")
-    return dba_probe.stages(a)["linearize"]
+def probe_linearize_args(name):
+    return dba_probe.stages(dba_probe.shape_inputs(name, "cpu"))["linearize"]
 
 
-@pytest.mark.parametrize("hw", SCENES + ["planner"])
+@pytest.mark.parametrize("hw", SCENES + ["planner", "odd_hw"])
 def test_linearize_27_sums_match_the_plain_version(hw):
-    if hw == "planner":
-        args = planner_linearize_args()
+    if isinstance(hw, str):
+        args = probe_linearize_args(hw)
     else:
         T = torch_args(scene(*hw))
         args = (*T[:5], T[6], T[7], T[8])
@@ -112,7 +114,7 @@ def test_linearize_27_sums_match_the_jax_edge_blocks(hw):
     import jax.numpy as jnp
     from pvo_tpu.geom.ba import _edge_blocks
     if hw == "planner":
-        args = planner_linearize_args()
+        args = probe_linearize_args(hw)
     else:
         T = torch_args(scene(*hw))
         args = (*T[:5], T[6], T[7], T[8])
@@ -186,19 +188,20 @@ def gram_emulation(Ei_m, Ej, C, eta, w_m, m_c, pairs_a, pairs_b, pairs_valid,
 
 def schur_cases():
     """(name, schur args): the test scenes' depth terms (random Ej, the
-    last 3 edges invalid with zero Ej, their slots padded), the planner's
-    and crowded's stages (crowded at 4x6: its groups, not its pixels)."""
+    last 3 edges invalid with zero Ej, their slots padded), the planner's,
+    the backend's and crowded's stages (the last two at 4x6: their
+    groups, not their pixels)."""
     for hw in SCENES:
         d = {k: torch.from_numpy(v) for k, v in depth_terms(*hw).items()}
         K = d["Ei_m"].shape[0]
         yield (f"scene{hw}", (d["Ei_m"], d["Ej"], d["C"], d["eta"], d["w_m"],
                               d["m"].clamp(0, K - 1), d["pa"], d["pb"],
                               d["pv"]))
-    a = dba_probe.inputs(*dba_probe.SHAPES["planner"][:5], "cpu")
-    yield "planner", dba_probe.stages(a)["schur"]
-    E, K = dba_probe.SHAPES["crowded"][:2]
-    a = dba_probe.inputs(E, K, 4, 6, None, "cpu")
-    yield "crowded", dba_probe.stages(a)["schur"]
+    yield "planner", dba_probe.stages(
+        dba_probe.shape_inputs("planner", "cpu"))["schur"]
+    for name in ("backend", "crowded"):
+        yield name, dba_probe.stages(
+            dba_probe.shape_inputs(name, "cpu", hw=(4, 6)))["schur"]
 
 
 CASES = dict(schur_cases())
@@ -288,24 +291,36 @@ def test_library_yardstick_rows_are_the_schur_rows(name):
     within(rc, want_rc)
 
 
-def test_crowded_shape_is_the_backend_call():
-    E, K, h, w, n_pairs, motion_only = dba_probe.SHAPES["crowded"]
-    assert (E, K, h, w, n_pairs, motion_only) == (958, 32, 30, 101, None,
-                                                  False)
-    a = dba_probe.inputs(E, K, 4, 6, None, "cpu")
-    pa, pv = a["pairs_a"], a["pairs_valid"]
-    assert bool(pv.all())
-    ii, valid = a["ii"].numpy(), a["valid"].numpy()
-    want = sum(int((ii[valid] == i).sum()) ** 2 for i in range(K))
-    assert pa.shape[0] == want
-    assert tdba.build_edge_pairs(ii, valid)[0].shape == (want,)
-
-
-@pytest.mark.parametrize("table", ["VARIANTS", "ABLATIONS", "PHASE_SUBS"])
-def test_probe_substitutions_match_the_source_once(table):
-    text = cuda_dba.SOURCE.read_text()
-    subs = getattr(dba_probe, table)
-    for name, sub in (subs.items() if table != "PHASE_SUBS"
-                      else [("phases", subs)]):
-        for old in sub:
-            assert text.count(old) == 1, (table, name, old)
+def test_backend_shape_is_the_recorded_backend_call():
+    """The ``backend`` shape runs the recorded call: the windows that
+    ``FactorGraph.update_lowmem``/``_update`` derive from its edges, the
+    edges that ``add_proximity_factors`` makes (both directions of each
+    pair, every neighbour within the backend radius), all valid, and
+    every pair slot of ``build_edge_pairs`` unpadded."""
+    from pvo_tpu_torch.utils.config import VOConfig
+    call = dba_probe.backend_call()
+    ii, jj = np.asarray(call["ii"]), np.asarray(call["jj"])
+    E, K, h, w, n_pairs, motion_only = dba_probe.SHAPES["backend"]
+    assert (E, K, [h, w], n_pairs, motion_only) == (
+        len(ii), call["K"], call["hw"], None, False)
+    assert call["w0"] == ii.min() and K == ii.max() - ii.min() + 1
+    assert call["t0"] == max(1, ii.min() + 1) and call["P"] == \
+        call["t1"] - call["t0"]
+    assert len(ii) == max(call["backend_edges"]) and K > 64
+    # each pair in both directions (a pair both a neighbour and a
+    # proximity candidate comes twice, as add_proximity_factors adds it)
+    edges = Counter(zip(ii.tolist(), jj.tolist()))
+    assert sum(edges.values()) == E and \
+        edges == Counter(zip(jj.tolist(), ii.tolist()))
+    rad = VOConfig().backend_radius
+    assert all((i, j) in edges for i in range(call["t1"])
+               for j in range(i + 1, min(i + rad + 1, call["t1"])))
+    a = dba_probe.shape_inputs("backend", "cpu", hw=(4, 6))
+    assert torch.equal(a["ii"], torch.from_numpy(ii)) and \
+        torch.equal(a["jj"], torch.from_numpy(jj))
+    assert bool(a["valid"].all())
+    assert (a["P"], a["K"], int(a["t0"]), int(a["t1"]), int(a["w0"])) == \
+        (call["P"], K, call["t0"], call["t1"], call["w0"])
+    pa, pb, pv = tdba.build_edge_pairs(ii, np.ones(E, bool))
+    assert torch.equal(a["pairs_a"], torch.from_numpy(pa)) and \
+        torch.equal(a["pairs_b"], torch.from_numpy(pb)) and bool(pv.all())

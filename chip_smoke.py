@@ -49,13 +49,15 @@ Phases, one line each (any failure exits non-zero):
                 (segsum.cu, B5) bit-equal to the CPU's index_add_ at
                 the planner's full-width shapes (GraphAgg's sum and
                 counts; the DBA's Hessian, gradient, C, w, edge x
-                depth, Schur, pair, rhs and edge-term sums), each in
+                depth, Schur, pair and rhs sums), each in
                 both modes (accumulate, zero start), and in the
-                tracker's batched launches (GraphAgg's; the DBA's three
+                tracker's batched launches (GraphAgg's; the DBA's two
                 a full iteration), with its kernel time (a CUDA graph
                 of calls) beside the card's index_add_ and its bound.
                 The DBA's kernels (dba.cu: linearize, Schur terms,
-                back-substitution) at dba_probe.SHAPES (30x101 with
+                the update after the solve: the back-substitution with
+                its edge terms summed per depth frame and the pose
+                retraction, one launch) at dba_probe.SHAPES (30x101 with
                 E=144, K=P=32, 2048 pair slots; E=48; 47x156; 128x40;
                 E=1; motion-only; E=48 at 47x155, an odd pixel count;
                 the backend's recorded call, E=1008 over K=100 frames;
@@ -63,6 +65,8 @@ Phases, one line each (any failure exits non-zero):
                 frame): each output within 1e-4 of the plain
                 version relative to its largest magnitude, two calls
                 bit-equal, a CUDA-graph replay equal to the eager call,
+                the back-substitution's poses within dba_probe.POSE_TOL
+                abs/rel of se3.retr on the card,
                 dba.dba's poses and disparities after 2 iterations
                 within 1e-4 abs/rel of the plain versions' at the
                 planner's shape (elsewhere within 4x the plain versions'
@@ -133,8 +137,8 @@ Phases, one line each (any failure exits non-zero):
                 each level, features bit-equal where they agree. Then
                 375x1242 (padded 384x1248), f32 and bf16, plain, fusion
                 with device-resident flow and depth, and the file protocol
-                (host flow and 1/8-res depth, staged): one warm-up, 20
-                frames with one in flight: vps_frames_per_sec, ms/frame,
+                (host flow and 1/8-res depth, staged): one warm-up,
+                VPS_FRAMES (8) frames with one in flight: vps_frames_per_sec, ms/frame,
                 peak memory, valid detections and pasted instances per
                 frame (both > 0); one fused frame under torch.profiler:
                 device ms by layer, NMS/ROIAlign/splat/stitch device and
@@ -165,7 +169,8 @@ Phases, one line each (any failure exits non-zero):
                 (what training runs) and off (B4: TF32 off through
                 PyTorch's newer precision API too, utils/device.py); (b)
                 bench_train_vo's default protocol (sup, 4 iterations,
-                48x64, F=4, 200 steps on one batch, random weights):
+                48x64, F=4, TRAIN_DEFAULT_STEPS (20) steps on one
+                batch, random weights):
                 finite losses, a checkpoint round trip bit-equal, the
                 canary on the dynamic-mask BCE (gt_l: the mean of its
                 last tenth below half its first tenth's; the total
@@ -174,7 +179,7 @@ Phases, one line each (any failure exits non-zero):
                 steps/s, the loss ratio, peak memory; (c) the reference
                 recipe at full size (semisup, 15 iterations, 6 frames,
                 200x400 crop, restart loop, remat) on a synthetic scene
-                for 10 outer steps: finite losses and gradients, s/step,
+                for TRAIN_RECIPE_STEPS (3) outer steps: finite losses and gradients, s/step,
                 grad passes/s, peak memory; one more step timed and
                 under torch.profiler (kernel ms, busy share, five
                 costliest kernels), its peak memory with remat off, and
@@ -189,14 +194,14 @@ Phases, one line each (any failure exits non-zero):
                 VPS_GRAD_TOL relative L2; (b) bench_train_vps's fusion
                 finetune (64x96, 150 steps: the last loss below 0.9 of
                 the first) and bench_vps_train's full model (R-50 at
-                384x1248, tamed weights, 60 steps: finite losses that
-                fall), steps/s and peak memory; (c) one full step at
+                384x1248, tamed weights, VPS_FULL_STEPS (20) steps:
+                finite losses that fall), steps/s and peak memory; (c) one full step at
                 384x1248 timed and under torch.profiler: kernel ms,
                 launches, busy share, the five costliest kernels; (d)
                 K1-K3, P1 and P2 launched 0 times in (b) and (c)
                 ("launches_vps_train" in the kernels line).
- 12. planner  - (run after phase 5) the planner at 240x808 over 40
-                frames of bench_track's stream: classic, planner graph,
+ 12. planner  - (run after phase 5) the planner at 240x808 over
+                PLANNER_FRAMES (28) frames of bench_track's stream: classic, planner graph,
                 planner graph, classic, in turns; the eager planner on
                 the card;
                 classic and planner graph under an oracle update core.
@@ -205,13 +210,14 @@ Phases, one line each (any failure exits non-zero):
                 each path's two runs bit-equal (B5); under the oracle
                 core the planner's decisions equal the classic path's,
                 poses within 1e-3; capture fails on any host read;
-                PLANNER_SEGSUMS (42) segment-sum launches a replay and
-                PLANNER_DBA's DBA-kernel launches (12, 12, 24).
+                PLANNER_SEGSUMS (30) segment-sum launches a replay and
+                PLANNER_DBA's DBA-kernel launches (12, 12, 12).
                 Printed: ms and frames/s a run, device ms, kernels, host
                 CUDA API calls and busy share a frame, capture seconds,
                 the graph's launches a frame.
  13. demo     - the image-directory demo (scripts/demo.py) as a user
-                runs it, a subprocess: 72 frames of the synthetic scene
+                runs it, a subprocess: DEMO_FRAMES (32) frames of the
+                synthetic scene
                 at 375x1242 as PNGs with a calib.txt (240x800 after the
                 demo's resize), the loop's tamed weights saved under the
                 reference key names and passed with --weights, --stride
@@ -268,7 +274,10 @@ Phases, one line each (any failure exits non-zero):
                 and its MFU in (0, 1]; analyze_model's parameter counts
                 on the card equal to the CPU's; every number each CLI
                 returns finite. ("launches_tools" in the kernels line.)
-Then the whole run's seconds, one JSON line of kernel results (the
+After each phase its seconds and its cut of depth (DEPTH_CUTS: a
+phase's frames, steps or reps, nothing of its widths or checks). Then
+the whole run's seconds with each phase's, one JSON line of kernel
+results (the
 segment sum's and the DBA kernels' rows too), the card's name and power
 limit, and the
 contract line {"ok": true, "device": {...}}.
@@ -394,18 +403,18 @@ HARNESS = {
 # launches of them), kernel times over SEGSUM_REPS calls in a CUDA graph
 SEGSUM_REPS = 20
 # a replayed planner frame's segment-sum launches: GraphAgg's one a
-# update and the DBA's three a full iteration, 6 updates x 2 iterations
-PLANNER_SEGSUMS = 6 + 6 * 2 * 3
-# and its DBA kernels' launches: 6 updates x 2 iterations, the
-# back-substitution in two passes
-PLANNER_DBA = {"dba_linearize": 12, "dba_schur": 12, "dba_backsub": 24}
+# update and the DBA's two a full iteration, 6 updates x 2 iterations
+PLANNER_SEGSUMS = 6 + 6 * 2 * 2
+# and its DBA kernels' launches: one each an iteration, 6 updates x 2
+# iterations
+PLANNER_DBA = {"dba_linearize": 12, "dba_schur": 12, "dba_backsub": 12}
 # the DBA kernels' checks (dba_probe.SHAPES), those timed and their reps
 DBA_TIMED, DBA_REPS = ("planner", "bench_dba"), 20
 # phase 12: the planner's runs (bench_track's system at 240x808), the
 # frames tracked, the first of the timed steady ones (past the engage at
 # 13, two eager frames and the capture) and the profiled ones after them
 PLANNER_SIZE, PLANNER_FRAMES, PLANNER_STEADY, PLANNER_PROF = \
-    (240, 808), 40, 20, 2
+    (240, 808), 28, 20, 2
 # phase 5's split of terminate: the ranges read, and those that must
 # hold kernels
 TAIL_RANGES = ("vo.backend.", "vo.filler.")
@@ -432,19 +441,19 @@ LOOP_HEAD_SCALE, LOOP_MASK_BIAS = 0.2, -2.0
 # gradient relative L2 a tensor, cuDNN on and off), the default
 # protocol's steps, the recipe's outer steps
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-4, 5e-4
-TRAIN_DEFAULT_STEPS, TRAIN_RECIPE_STEPS = 200, 10
+TRAIN_DEFAULT_STEPS, TRAIN_RECIPE_STEPS = 20, 3
 # phase 11: the card's VPS training loss and gradients against the CPU's
 # (relative; relative L2 a tensor: cuDNN's f32 convolution gradients,
 # 3e-7-8e-6 relative an op, put the R-50's 5.1e-5 from the CPU's at
 # worst, fault_probe b4ops and vps), and the full bench's steps
 VPS_LOSS_TOL, VPS_GRAD_TOL = 1e-4, 2e-4
-VPS_FULL_STEPS = 60
+VPS_FULL_STEPS = 20
 # phase 13: the demo's scene (frames at 375x1242, resized by the demo to
 # 240x800) and weights (the loop's: at VOConfig's thresholds the motion
 # filter admits frames, and the tracker stays finite); the visualizer's
 # card-against-CPU check: the share of mask entries that must agree and
 # the points' bound where both keep a pixel
-DEMO_FRAMES, DEMO_MASK_EQUAL, DEMO_POINT_TOL = 72, 0.999, 1e-4
+DEMO_FRAMES, DEMO_MASK_EQUAL, DEMO_POINT_TOL = 32, 0.999, 1e-4
 # the kernels the demo's narrow stream (30x100 features) must launch:
 # K1 once a keyframe, K2 every iteration, the f32 K3 in the probe, the
 # segment sum
@@ -493,6 +502,15 @@ TOOLS_CUTS = {
     "profile_vps_pipeline": ["--frames", "4"],
 }
 TOOLS_FLOP_HW, TOOLS_FLOP_WARM = (64, 96), 14
+# the depths cut to keep the whole run near 600 s (each phase's seconds
+# are printed beside its cut): widths, checks and paths are as before
+DEPTH_CUTS = {
+    "planner": "frames 40 -> 28 (8 timed steady frames, 20..27)",
+    "vps": "timed frames a mode 20 -> 8",
+    "train": "default protocol steps 200 -> 20, recipe outer steps 10 -> 3",
+    "vps_train": "full-model steps 60 -> 20",
+    "demo": "scene frames 72 -> 32",
+}
 P2_VARIANTS = (
     (dict(), ("X2", "X3", "X4", "X5")),
     (dict(weights="bf16"), ("X2",)),
@@ -703,6 +721,9 @@ def check_dba():
                      if r.get(t) is not None}
             share = ({"share_of_bound": f"{r['bound_ms'] / min(r['ms']):.4f}",
                       "bound_by": r["bound_by"]} if "ms" in r else {})
+            if "pose_err" in r:
+                share.update(pose_absrel=f"{r['pose_err']:.3g}",
+                             pose_tol=dba_probe.POSE_TOL)
             log("kernel", name=k, shape=name, max_rel_err=f"{r['err']:.3g}",
                 tol=dba_probe.TOL, bit_stable=r["bit_stable"],
                 graph_equals_eager=r["graph_equal"], **times, **share)
@@ -1411,11 +1432,11 @@ def check_replay_counts(drv, records, replayed, prof):
 
 
 def run_planner():
-    """Phase 12: the planner (vo/planner.py) at 240x808 over 40 frames of
-    bench_track's stream, in one process. Four runs in turns: classic,
-    planner graph, planner graph, classic; then the planner's program run
-    eagerly on the card, and classic and planner graph under an oracle
-    update core (oracle_core). (fault_probe b5 runs the classic path
+    """Phase 12: the planner (vo/planner.py) at 240x808 over
+    PLANNER_FRAMES frames of bench_track's stream, in one process. Four
+    runs in turns: classic, planner graph, planner graph, classic; then
+    the planner's program run eagerly on the card, and classic and
+    planner graph under an oracle update core (oracle_core). (fault_probe b5 runs the classic path
     with the card's atomic index_add_ beside the kernel.) Held: the planner
     engages at frame 13; the graph-replayed planner equals the eager one
     bit for bit (poses, disparities, decisions, every decision record);
@@ -1773,7 +1794,7 @@ def run_export():
 
 # ------------------------------------------------------------------ vps
 
-VPS_SMALL, VPS_SIZE, VPS_FRAMES = (128, 192), (375, 1242), 20
+VPS_SMALL, VPS_SIZE, VPS_FRAMES = (128, 192), (375, 1242), 8
 # the card against the CPU, the same tamed weights, TF32 off
 VPS_SEM_EQUAL, VPS_PAN_EQUAL, VPS_TARGETS_EQUAL = 0.999, 0.995, 0.999
 VPS_BOX_TOL, VPS_SCORE_TOL = 1e-2, 1e-4
@@ -2587,7 +2608,7 @@ def demo_video_card_against_cpu(images, calib, weights):
 
 
 def run_demo():
-    """Phase 13: the image-directory demo (scripts/demo.py) on 72 frames
+    """Phase 13: the image-directory demo (scripts/demo.py) on DEMO_FRAMES
     of the synthetic scene at 375x1242 (240x800 after its resize), weights
     of tame_net(0, LOOP_HEAD_SCALE, LOOP_MASK_BIAS) passed with --weights,
     as a subprocess with --stride 1 --vis --live. Held: one finite pose a
@@ -2989,8 +3010,13 @@ def run_tools():
     log("tools", cli="profile_terminate", n_kf=term["n_kf"],
         total_s=f"{term['total_s']:.3f}", keyframes=term["keyframes"],
         filler_s=f"{term['stages']['traj_filler']:.3f}")
-    log("tools", cli="bench_filler", seconds=repr(outs["bench_filler"][
-        "seconds"]))
+    fil = outs["bench_filler"]
+    log("tools", cli="bench_filler", seconds=repr(fil["seconds"]),
+        profiled_device_ms=f"{fil['profiled']['device_ms']:.2f}",
+        profiled_kernels=fil["profiled"]["kernels"],
+        dba_range_ms_kernels=repr(fil["profiled"]["ranges"].get(
+            "vo.filler.dba")),
+        launches=repr(fil["profiled"]["launches"]))
     vo2 = outs["trace_vo2"]
     log("tools", cli="trace_vo2", iters=vo2["iters"],
         device_ms=f"{vo2['device_ms']:.2f}", kernels=vo2["launches"])
@@ -3060,21 +3086,31 @@ def main():
         print(card)
         return 0
 
-    res = check_kernels()
-    packed = check_packed()
-    check_reference()
-    launches = run_main_path()
+    seconds = {}
+
+    def phase(name):
+        t = time.perf_counter()
+        out = PHASES[name]()
+        seconds[name] = round(time.perf_counter() - t, 1)
+        log(name, phase_seconds=seconds[name],
+            depth_cut=repr(DEPTH_CUTS.get(name, "none")))
+        return out
+
+    res = phase("kernels")
+    packed = phase("packed")
+    phase("reference")
+    launches = phase("main")
     in_terminate = launches.pop("in_terminate")
-    run_planner()
-    harness = run_harnesses()
-    export = run_export()
-    run_vps()
-    loop = run_loop()
-    train = run_train()
-    vps_train = run_vps_train()
-    demo_launches = run_demo()
-    dp_launches = run_dp()
-    tools_launches = run_tools()
+    phase("planner")
+    harness = phase("harness")
+    export = phase("export")
+    phase("vps")
+    loop = phase("loop")
+    train = phase("train")
+    vps_train = phase("vps_train")
+    demo_launches = phase("demo")
+    dp_launches = phase("dp")
+    tools_launches = phase("tools")
 
     # K1 and K3 have a row for each feature type. A bf16 row's launches
     # are phase 5's (the video's features); an f32 row's are the timed
@@ -3166,7 +3202,8 @@ def main():
             "launches_demo": demo_launches[kernel],
             "launches_dp": dp_launches[kernel],
             "launches_tools": tools_launches[kernel], **extra})
-    log("run", seconds=f"{time.perf_counter() - start:.1f}")
+    log("run", seconds=f"{time.perf_counter() - start:.1f}",
+        phase_seconds=repr(seconds))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

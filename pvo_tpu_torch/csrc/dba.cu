@@ -1,10 +1,11 @@
 // The dense bundle adjustment's f32 contractions for Hopper (sm_90a):
 // the linearization of each edge, the Schur terms with the rhs
-// correction, and the depth back-substitution
+// correction, and the iteration's update after the solve (the depth
+// back-substitution and the pose retraction)
 // (pvo_tpu_torch/vo/net/cuda_dba.py, called by vo/dba.py).
 //
 // No TPU kernel matches these: the JAX package leaves this work to XLA
-// (pvo_tpu/geom/ba.py:59-93 _edge_blocks, pvo_tpu/vo/dba.py:117-270). They
+// (pvo_tpu/geom/ba.py:59-93 _edge_blocks, pvo_tpu/vo/dba.py:117-277). They
 // were einsums on the card, which cuBLAS ran as gemv and small f32 GEMMs:
 // about 21 ms of a replayed planner frame's 76.3 ms of kernels, in 228
 // launches. The work itself is small: at the planner's full regime (E=144
@@ -59,10 +60,28 @@
 //   operations where the groups are large); at the planner's shape a
 //   cluster launch (about 5-10 us empty) and the phases each job runs in
 //   turn (group, marks, sums, lanes, cluster sums, slots) are most of it.
-// dba_backsub_kernel<EDGES>: a thread a pixel. The edge pass writes each
-//   edge's Ej dx[pj] (summed per depth frame by the segment sum); the
-//   depth pass forms dz = Q (w - Ei_m dx[pm] - t_edge) and writes the
-//   updated disparities of every frame, clamped at 0.001.
+// dba_backsub_kernel<PIX>: everything after the solve in one launch. The
+//   first blocks retract the poses, a thread a frame: Exp(dx[row]) * g in
+//   f32 with the plain version's closed forms and branches (lie/so3.exp,
+//   left_jacobian, lie/se3.mul), a frame without a row copied (a zero
+//   tangent retracts exactly). Then a block a (frame, slice of PIX x 256
+//   pixels). A frame f of depth frame k = frame_k[f] >= 0 builds k's edge
+//   list from m_k, BK_THREADS edges at a time (a stable compaction in
+//   shared memory, the edges' dx rows staged beside it), and each thread
+//   sums t_edge = the edges' Ej dx[pj] in ascending edge order from
+//   +0.0f with __fadd_rn, each term the fmaf chain over d of the earlier
+//   edge pass: the order and rounding of the segment sum's zero start, so
+//   the disparities equal the earlier three launches' bit for bit. The
+//   loads of AHEAD edges' planes are issued together, then added in
+//   order. The loads that wait on nothing (frame_k, the first chunk of
+//   m_k and pj_sel, dx staged in shared memory, the disparities) are
+//   issued first, so the edges' planes are the second load a block
+//   waits on. Then dz = Q (w - Ei_m dx[pm] - t_edge), Q = 1 / (C + eta),
+//   and z + dz; every frame is clamped at 0.001 (NaN stays NaN). PIX = 4
+//   (16-byte loads) where HW % 4 == 0 and the bases allow, 2 where HW is
+//   even, else 1. Bound: the bytes of Ej, Ei_m, C, eta, w and the
+//   disparities read once and the disparities written; nothing of E x HW
+//   is written or read back any more. No atomics, no host read.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -97,10 +116,12 @@ constexpr int SC_FIN = (SC_UNITS + SC_CLUSTER - 1) / SC_CLUSTER * 36;
 constexpr int SC_STAGE = 24000;
 constexpr int SC_STAGE_MIN = 2 * SC_ROWS * 33;
 constexpr int SC_SMEM = 232448 - 4096;  // the block's shared memory, less static
-constexpr int BACK_THREADS = 256;
+constexpr int BK_THREADS = 256;  // dba_backsub's threads a block
+constexpr int BK_DX_ROWS = 256;  // dx's rows staged in shared memory at most
 constexpr float MIN_DEPTH = 0.2f;
 constexpr unsigned FULL = 0xffffffffu;
 static_assert(SC_UNITS <= SC_THREADS, "a tile pair's blocks a thread each");
+static_assert(BK_THREADS == SC_THREADS, "block_compact's warps");
 static_assert(SC_THREADS * SC_NU <= SC_STAGE_MIN,
               "the lanes' sums fit the stages");
 
@@ -820,54 +841,243 @@ __global__ void __cluster_dims__(SC_CLUSTER, 1, 1)
   }
 }
 
+// the retraction Exp(xi) * g of one pose, each operation rounded as the
+// plain version's (lie/so3.exp, left_jacobian, lie/se3.mul): no
+// contraction, IEEE division and square root, sinf/cosf
+__device__ void retract(const float* g, const float* xi, float* o) {
+  const float rho[3] = {xi[0], xi[1], xi[2]};
+  const float phi[3] = {xi[3], xi[4], xi[5]};
+  const float theta_sq = __fadd_rn(__fadd_rn(__fmul_rn(phi[0], phi[0]),
+                                             __fmul_rn(phi[1], phi[1])),
+                                   __fmul_rn(phi[2], phi[2]));
+  const bool small = theta_sq < 1e-6f;
+  const float th = __fsqrt_rn(small ? 1.f : theta_sq);
+  const float half = __fmul_rn(0.5f, th);
+  // so3.exp: q1 = [imag phi, real]
+  const float imag = small ? __fsub_rn(0.5f, __fdiv_rn(theta_sq, 48.f))
+                           : __fdiv_rn(sinf(half), th);
+  const float real = small ? __fsub_rn(1.f, __fdiv_rn(theta_sq, 8.f))
+                           : cosf(half);
+  const float v1[3] = {__fmul_rn(imag, phi[0]), __fmul_rn(imag, phi[1]),
+                       __fmul_rn(imag, phi[2])};
+  const float w1 = real;
+  // so3.left_jacobian: J = I + c1 Phi + c2 Phi Phi, t1 = J rho
+  const float th2 = __fmul_rn(th, th);
+  const float c1 = small ? __fsub_rn(0.5f, __fdiv_rn(theta_sq, 24.f))
+                         : __fdiv_rn(__fsub_rn(1.f, cosf(th)), th2);
+  const float c2 = small ? __fsub_rn(1.f / 6.f, __fdiv_rn(theta_sq, 120.f))
+                         : __fdiv_rn(__fsub_rn(th, sinf(th)), __fmul_rn(th2, th));
+  const float Phi[9] = {0.f, -phi[2], phi[1], phi[2], 0.f, -phi[0],
+                        -phi[1], phi[0], 0.f};
+  float t1[3];
+  for (int i = 0; i < 3; ++i) {
+    float s = 0.f;
+    for (int j = 0; j < 3; ++j) {
+      float pp = 0.f;
+      for (int l = 0; l < 3; ++l)
+        pp = __fadd_rn(pp, __fmul_rn(Phi[3 * i + l], Phi[3 * l + j]));
+      const float J = __fadd_rn(__fadd_rn(i == j ? 1.f : 0.f,
+                                          __fmul_rn(c1, Phi[3 * i + j])),
+                                __fmul_rn(c2, pp));
+      s = __fadd_rn(s, __fmul_rn(J, rho[j]));
+    }
+    t1[i] = s;
+  }
+  // se3.mul(exp, g): q = q1 q2, t = t1 + q1 t2
+  const float t2[3] = {g[0], g[1], g[2]};
+  const float v2[3] = {g[3], g[4], g[5]};
+  const float w2 = g[6];
+  const float dot = __fadd_rn(__fadd_rn(__fmul_rn(v1[0], v2[0]),
+                                        __fmul_rn(v1[1], v2[1])),
+                              __fmul_rn(v1[2], v2[2]));
+  o[6] = __fsub_rn(__fmul_rn(w1, w2), dot);
+  for (int i = 0; i < 3; ++i) {
+    const int a = (i + 1) % 3, b = (i + 2) % 3;
+    const float cr = __fsub_rn(__fmul_rn(v1[a], v2[b]), __fmul_rn(v1[b], v2[a]));
+    o[3 + i] = __fadd_rn(__fadd_rn(__fmul_rn(w1, v2[i]), __fmul_rn(w2, v1[i])), cr);
+  }
+  float uv[3], uuv[3];
+  for (int i = 0; i < 3; ++i) {
+    const int a = (i + 1) % 3, b = (i + 2) % 3;
+    uv[i] = __fsub_rn(__fmul_rn(v1[a], t2[b]), __fmul_rn(v1[b], t2[a]));
+  }
+  for (int i = 0; i < 3; ++i) {
+    const int a = (i + 1) % 3, b = (i + 2) % 3;
+    uuv[i] = __fsub_rn(__fmul_rn(v1[a], uv[b]), __fmul_rn(v1[b], uv[a]));
+  }
+  for (int i = 0; i < 3; ++i) {
+    const float rot = __fadd_rn(t2[i], __fmul_rn(2.f, __fadd_rn(__fmul_rn(w1, uv[i]), uuv[i])));
+    o[i] = __fadd_rn(t1[i], rot);
+  }
+}
+
 struct BackParams {
-  const float *planes, *dx;  // Ej (E,6,HW) or Ei_m (K,6,HW); dx (P,6)
-  const int64_t* sel;        // (rows,) the row of dx, -1 for none
-  // the depth pass: C, eta, w, t_edge (K,HW), disps (F,HW), frame_k (F,)
-  const float *C, *eta, *w, *t_edge, *disps;
-  const int64_t* frame_k;
-  float* out;                // (E,HW) edge terms, or (F,HW) disparities
-  int HW;
+  const float *poses, *dx;     // (F,7), (P,6)
+  const int64_t* frame_row;    // (F,) the row of dx, -1 for none
+  float* poses_out;            // (F,7)
+  // the depth update (null for a motion-only call): Ej (E,6,HW), Ei_m
+  // (K,6,HW), C, eta, w (K,HW), disps (F,HW); pj_sel (E,), m_k (E,; K
+  // where masked), pm_sel (K,), frame_k (F,)
+  const float *Ej, *Ei_m, *C, *eta, *w, *disps;
+  const int64_t *pj_sel, *m_k, *pm_sel, *frame_k;
+  float* out;                  // (F,HW)
+  int F, E, HW, P, slices, rblocks;
 };
 
-__device__ __forceinline__ float row_dot(const float* planes, int64_t row,
-                                         int HW, int h, const float* dxr) {
+// PIX neighbouring f32 values at src (PIX * 4 bytes aligned)
+template <int PIX>
+__device__ __forceinline__ void load_pix(const float* src, float* v) {
+  if constexpr (PIX == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(src));
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  } else if constexpr (PIX == 2) {
+    const float2 t = __ldg(reinterpret_cast<const float2*>(src));
+    v[0] = t.x, v[1] = t.y;
+  } else {
+    v[0] = __ldg(src);
+  }
+}
+
+// a row of six planes against dx's row, as the plain version's einsum
+// term: s = 0, then s = fmaf(plane[d], dx[d], s) for d = 0..5
+__device__ __forceinline__ float row_dot(float (*v)[4], int x,
+                                         const float* dxr) {
   float s = 0.f;
 #pragma unroll
-  for (int d = 0; d < 6; ++d) s = fmaf(__ldg(planes + (row * 6 + d) * HW + h), dxr[d], s);
+  for (int d = 0; d < 6; ++d) s = fmaf(v[d][x], dxr[d], s);
   return s;
 }
 
-template <bool EDGES>
-__global__ void __launch_bounds__(BACK_THREADS)
+// see the note at the top: blocks [0, rblocks) retract the poses, a
+// thread a frame; the others take (frame, pixel slice), PIX pixels a
+// thread
+template <int PIX>
+__global__ void __launch_bounds__(BK_THREADS)
     dba_backsub_kernel(const __grid_constant__ BackParams p) {
-  const int HW = p.HW;
-  const int h = blockIdx.x * BACK_THREADS + threadIdx.x;
-  const int64_t row = blockIdx.y;
-  if (h >= HW) return;
-  if (EDGES) {
-    const int64_t s = p.sel[row];
-    float dxr[6];
-#pragma unroll
-    for (int d = 0; d < 6; ++d) dxr[d] = s >= 0 ? __ldg(p.dx + s * 6 + d) : 0.f;
-    p.out[row * HW + h] = row_dot(p.planes, row, HW, h, dxr);
+  // edges whose loads are in flight at once (at one pixel a thread, 8
+  // edges' 48 loads were slower than 4's at 47x155 and at the backend's
+  // call: fewer blocks fit an SM)
+  constexpr int AHEAD = PIX == 1 ? 4 : 8 / PIX;
+  __shared__ int grp[BK_THREADS];
+  __shared__ float gdx[BK_THREADS][6];
+  __shared__ float sdx[BK_DX_ROWS * 6];
+  __shared__ int wsum[SC_WARPS];
+  const int tid = threadIdx.x;
+  if ((int)blockIdx.x < p.rblocks) {
+    const int f = blockIdx.x * BK_THREADS + tid;
+    if (f < p.F) {
+      const int64_t r = p.frame_row[f];
+      const float* g = p.poses + (int64_t)f * 7;
+      float* o = p.poses_out + (int64_t)f * 7;
+      if (r >= 0) {
+        float xi[6], res[7];
+        for (int d = 0; d < 6; ++d) xi[d] = __ldg(p.dx + r * 6 + d);
+        retract(g, xi, res);
+        for (int d = 0; d < 7; ++d) o[d] = res[d];
+      } else {
+        // a zero tangent retracts exactly to g
+        for (int d = 0; d < 7; ++d) o[d] = g[d];
+      }
+    }
     return;
   }
-  // row is a frame of the video; k its depth frame, -1 outside the window
-  const int64_t k = p.frame_k[row];
-  float z = __ldg(p.disps + row * HW + h);
-  if (k >= 0) {
-    const int64_t s = p.sel[k];
-    float dxr[6];
-#pragma unroll
-    for (int d = 0; d < 6; ++d) dxr[d] = s >= 0 ? __ldg(p.dx + s * 6 + d) : 0.f;
+  const int HW = p.HW;
+  const int64_t blk = blockIdx.x - p.rblocks;
+  const int64_t f = blk / p.slices;
+  const int h = ((int)(blk % p.slices) * BK_THREADS + tid) * PIX;
+  const bool px = h < HW;  // HW % PIX == 0: all PIX pixels or none
+  // the loads that wait on nothing, issued together: the frame's depth
+  // frame, the first chunk's edges, dx into shared memory (published by
+  // the compaction's barriers), the disparities
+  const int64_t k = p.frame_k[f];
+  int64_t mk = -1, sj = -1;
+  if (tid < p.E) mk = p.m_k[tid], sj = p.pj_sel[tid];
+  const bool staged = p.P <= BK_DX_ROWS;
+  if (staged)
+    for (int i = tid; i < p.P * 6; i += BK_THREADS) sdx[i] = __ldg(p.dx + i);
+  float z[PIX];
+  if (px) load_pix<PIX>(p.disps + f * HW + h, z);
+  if (k >= 0) {  // the same in the whole block
+    // the self term's operands, loaded before the edges' walk
+    float self[6][4], Cv[PIX], Ev[PIX], Wv[PIX], dxs[6];
     const int64_t o = k * HW + h;
-    const float Q = 1.f / (__ldg(p.C + o) + __ldg(p.eta + o));
-    const float t_self = row_dot(p.planes, k, HW, h, dxr);
-    z += Q * (__ldg(p.w + o) - t_self - __ldg(p.t_edge + o));
+    if (px) {
+#pragma unroll
+      for (int d = 0; d < 6; ++d)
+        load_pix<PIX>(p.Ei_m + (k * 6 + d) * HW + h, self[d]);
+      load_pix<PIX>(p.C + o, Cv);
+      load_pix<PIX>(p.eta + o, Ev);
+      load_pix<PIX>(p.w + o, Wv);
+    }
+    const int64_t sm = p.pm_sel[k];
+#pragma unroll
+    for (int d = 0; d < 6; ++d) dxs[d] = sm >= 0 ? __ldg(p.dx + sm * 6 + d) : 0.f;
+
+    // t_edge: the edges of depth frame k in ascending e, from +0.0f, a
+    // chunk of BK_THREADS edges at a time (a stable compaction of m_k)
+    float te[PIX];
+#pragma unroll
+    for (int x = 0; x < PIX; ++x) te[x] = 0.f;
+    for (int base = 0; base < p.E; base += BK_THREADS) {
+      const int e = base + tid;
+      if (base > 0) {
+        mk = sj = -1;
+        if (e < p.E) mk = p.m_k[e], sj = p.pj_sel[e];
+      }
+      const bool in = mk == k;
+      int n;
+      const int at = block_compact(in, wsum, n);
+      if (in) {
+        grp[at] = e;
+#pragma unroll
+        for (int d = 0; d < 6; ++d)
+          gdx[at][d] = sj < 0 ? 0.f : staged ? sdx[sj * 6 + d] : __ldg(p.dx + sj * 6 + d);
+      }
+      __syncthreads();
+      if (px) {
+        // AHEAD edges' planes loaded together, then added in edge order
+        for (int g0 = 0; g0 < n; g0 += AHEAD) {
+          float v[AHEAD][6][4];
+#pragma unroll
+          for (int a = 0; a < AHEAD; ++a)
+            if (g0 + a < n) {
+              const float* pl = p.Ej + (int64_t)grp[g0 + a] * 6 * HW + h;
+#pragma unroll
+              for (int d = 0; d < 6; ++d) load_pix<PIX>(pl + (int64_t)d * HW, v[a][d]);
+            }
+#pragma unroll
+          for (int a = 0; a < AHEAD; ++a)
+            if (g0 + a < n) {
+#pragma unroll
+              for (int x = 0; x < PIX; ++x)
+                te[x] = __fadd_rn(te[x], row_dot(v[a], x, gdx[g0 + a]));
+            }
+        }
+      }
+      __syncthreads();  // the lists are rewritten by the next chunk
+    }
+    if (px) {
+#pragma unroll
+      for (int x = 0; x < PIX; ++x) {
+        const float Q = 1.f / (Cv[x] + Ev[x]);
+        const float t_self = row_dot(self, x, dxs);
+        z[x] += Q * (Wv[x] - t_self - te[x]);
+      }
+    }
   }
-  // torch.clamp(min=0.001): NaN stays NaN
-  p.out[row * HW + h] = z < 0.001f ? 0.001f : z;
+  if (px) {
+    float* dst = p.out + f * HW + h;
+    // torch.clamp(min=0.001): NaN stays NaN
+#pragma unroll
+    for (int x = 0; x < PIX; ++x) z[x] = z[x] < 0.001f ? 0.001f : z[x];
+    if constexpr (PIX == 4) {
+      *reinterpret_cast<float4*>(dst) = make_float4(z[0], z[1], z[2], z[3]);
+    } else if constexpr (PIX == 2) {
+      *reinterpret_cast<float2*>(dst) = make_float2(z[0], z[1]);
+    } else {
+      dst[0] = z[0];
+    }
+  }
 }
 
 }  // namespace
@@ -924,27 +1134,42 @@ extern "C" int pvo_dba_schur(const float* Ei_m, const float* Ej,
   return (int)cudaGetLastError();
 }
 
-extern "C" int pvo_dba_backsub_edges(const float* Ej, const float* dx,
-                                     const int64_t* sel, int E, int HW,
-                                     float* te, void* stream) {
-  if (E < 1 || E > 65535 || HW < 1) return (int)cudaErrorInvalidValue;
-  const BackParams p = {Ej, dx, sel, nullptr, nullptr, nullptr, nullptr,
-                        nullptr, nullptr, te, HW};
-  dba_backsub_kernel<true><<<dim3((HW + BACK_THREADS - 1) / BACK_THREADS, E),
-                             BACK_THREADS, 0, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int pvo_dba_backsub(const float* Ei_m, const float* dx,
-                               const int64_t* sel, const float* C,
+extern "C" int pvo_dba_backsub(const float* poses, const float* dx,
+                               const int64_t* frame_row, const float* Ej,
+                               const float* Ei_m, const float* C,
                                const float* eta, const float* w,
-                               const float* t_edge, const float* disps,
-                               const int64_t* frame_k, int F, int HW,
-                               float* out, void* stream) {
-  if (F < 1 || F > 65535 || HW < 1) return (int)cudaErrorInvalidValue;
-  const BackParams p = {Ei_m, dx, sel, C, eta, w, t_edge, disps, frame_k,
-                        out, HW};
-  dba_backsub_kernel<false><<<dim3((HW + BACK_THREADS - 1) / BACK_THREADS, F),
-                              BACK_THREADS, 0, (cudaStream_t)stream>>>(p);
+                               const float* disps, const int64_t* pj_sel,
+                               const int64_t* m_k, const int64_t* pm_sel,
+                               const int64_t* frame_k, int F, int E, int HW,
+                               int P, float* poses_out, float* out,
+                               void* stream) {
+  if (F < 1 || E < 0 || HW < 1 || P < 0) return (int)cudaErrorInvalidValue;
+  const bool depth = disps != nullptr;
+  // PIX pixels a thread: 4 (16-byte loads) where HW % 4 == 0 and every
+  // plane's base is 16-byte aligned, 2 (8-byte) where HW is even and they
+  // are 8-byte aligned (30x101: a plane's stride, 12120 bytes, is 8- but
+  // not 16-byte aligned), else 1
+  int pix = 1;
+  if (depth) {
+    const uintptr_t bases = (uintptr_t)Ej | (uintptr_t)Ei_m | (uintptr_t)C |
+                            (uintptr_t)eta | (uintptr_t)w | (uintptr_t)disps |
+                            (uintptr_t)out;
+    if (HW % 4 == 0 && bases % 16 == 0) pix = 4;
+    else if (HW % 2 == 0 && bases % 8 == 0) pix = 2;
+  }
+  const int rblocks = (F + BK_THREADS - 1) / BK_THREADS;
+  const int slices = depth ? (HW / pix + BK_THREADS - 1) / BK_THREADS : 0;
+  const int64_t blocks = rblocks + (int64_t)F * slices;
+  if (blocks > 2147483647) return (int)cudaErrorInvalidValue;
+  const BackParams p = {poses, dx, frame_row, poses_out, Ej, Ei_m, C, eta, w,
+                        disps, pj_sel, m_k, pm_sel, frame_k, out, F, E, HW,
+                        P, slices, rblocks};
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (pix == 4)
+    dba_backsub_kernel<4><<<(unsigned)blocks, BK_THREADS, 0, st>>>(p);
+  else if (pix == 2)
+    dba_backsub_kernel<2><<<(unsigned)blocks, BK_THREADS, 0, st>>>(p);
+  else
+    dba_backsub_kernel<1><<<(unsigned)blocks, BK_THREADS, 0, st>>>(p);
   return (int)cudaGetLastError();
 }

@@ -13,8 +13,12 @@ script's fake keyframe state, SE3-exp poses of 0.01-scale tangents from
 keyframes' timestamps 0..n_kf-1 (and frame 0's intrinsics, which the
 filler's reprojection reads). Then ``traj_filler`` over the
 ``n_kf``-frame stream, ``reps`` times (default 3), each on the host
-clock ending in its poses' readback; the poses must be finite. One JSON
-line last.
+clock ending in its poses' readback; the poses must be finite. On the
+card one more rep under ``torch.profiler`` (``profiled``): its kernels'
+device ms and count, the same inside each ``vo.filler.*`` range
+(``tracing.range_device_ms``: the kernels PyTorch dispatched; the
+ctypes-launched ones are in no range) and the hand-written kernels'
+launches in that rep (their wrappers' counters). One JSON line last.
 """
 
 from __future__ import annotations
@@ -27,9 +31,11 @@ import numpy as np
 import torch
 
 from pvo_tpu_torch.lie import se3
+from pvo_tpu_torch.scripts import kbench
 from pvo_tpu_torch.scripts.bench_terminate import buffer_for
 from pvo_tpu_torch.scripts.bench_track import bench_system, synth_stream
 from pvo_tpu_torch.utils.device import open_device
+from pvo_tpu_torch.utils.tracing import range_device_ms
 from pvo_tpu_torch.vo.net.droidnet import normalize_images
 
 
@@ -51,6 +57,24 @@ def fake_keyframes(sysm, frames, n_kf):
     v.counter = n_kf
 
 
+def profiled_rep(sysm, frames):
+    """One more filler run under ``torch.profiler``: {"device_ms",
+    "kernels", "ranges": {range: [ms, kernels]}, "launches": the
+    hand-written kernels' launches in it}."""
+    before = kbench.launch_counts()
+    with kbench.profiled() as prof:
+        sysm.traj_filler(iter(frames)).cpu()
+        torch.cuda.synchronize(sysm.video.device)
+    after = kbench.launch_counts()
+    totals = kbench.device_op_totals(prof)
+    return {"device_ms": sum(us for us, _ in totals.values()) / 1e3,
+            "kernels": sum(n for _, n in totals.values()),
+            "ranges": {k: [ms, n] for k, (ms, n) in sorted(
+                range_device_ms(prof, ("vo.filler.",)).items())},
+            "launches": {k: after[k] - before[k] for k in after
+                         if after[k] != before[k]}}
+
+
 def run(n_kf=100, reps=3, image_size=(240, 808), device="cuda"):
     dev = open_device(device)
     H, W = image_size
@@ -68,10 +92,13 @@ def run(n_kf=100, reps=3, image_size=(240, 808), device="cuda"):
               flush=True)
         if not np.isfinite(traj).all():
             raise AssertionError("the filler gave non-finite poses")
-    return {"n_kf": n_kf, "image_size": [H, W], "poses": len(traj),
-            "seconds": secs, "warm_min_s": min(secs[1:] or secs),
-            "device": (torch.cuda.get_device_name(dev)
-                       if dev.type == "cuda" else "cpu")}
+    out = {"n_kf": n_kf, "image_size": [H, W], "poses": len(traj),
+           "seconds": secs, "warm_min_s": min(secs[1:] or secs),
+           "device": (torch.cuda.get_device_name(dev)
+                      if dev.type == "cuda" else "cpu")}
+    if dev.type == "cuda":
+        out["profiled"] = profiled_rep(sysm, frames)
+    return out
 
 
 def main(argv=None):

@@ -31,12 +31,19 @@ captured in one CUDA graph (``kbench.graph_time_ms``), the bound
 and, for the Schur terms, the library call: one ``torch.bmm`` of every
 depth frame's weighted Gram (:func:`gram_operands`, stacked and padded
 outside the timed call; the port never makes it), whose blocks are all
-the Schur rows (:func:`gram_rows`). The back-substitution's row is its
-two passes. With ``--parent PATH`` (an earlier ``dba.cu`` of the same C
-interface, for example ``git archive <commit>`` unpacked into the
-ignored ``.parent/``) each kernel is also timed against the parent's in
-turns (parent, this, this, parent) and the parent's outputs are held to
-the plain versions' too. One JSON line last. ``--record_backend`` makes
+the Schur rows (:func:`gram_rows`). The back-substitution is the
+iteration's update after the solve: its poses are also held to the
+plain version's ``se3.retr`` on the card (abs/rel ``POSE_TOL``), and the
+motion-only shape runs its retraction alone. With ``--parent PATH`` (an
+earlier ``dba.cu`` of the same C interface for linearize and the Schur
+terms, whose back-substitution is the three-launch one,
+:func:`parent_backsub`; for example ``git archive <commit>`` unpacked
+into the ignored ``.parent/``) each kernel is also timed against the
+parent's in turns (parent, this, this, parent; the back-substitution
+against the parent's three launches, and also beside them with the
+parent's eager retraction), the parent's outputs are held to the plain
+versions' too, and the back-substitution's disparities must equal the
+parent's bit for bit. One JSON line last. ``--record_backend`` makes
 ``BACKEND_CALL`` (:func:`record_backend`).
 """
 
@@ -44,6 +51,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import json
 from pathlib import Path
 
@@ -51,9 +59,10 @@ import numpy as np
 import torch
 
 from pvo_tpu_torch.geom import projective
+from pvo_tpu_torch.lie import se3
 from pvo_tpu_torch.scripts import kbench
 from pvo_tpu_torch.vo import dba as dba_mod
-from pvo_tpu_torch.vo.net import cuda_dba, cuda_segsum
+from pvo_tpu_torch.vo.net import cuda_corr, cuda_dba, cuda_segsum
 
 # the backend's largest DBA call in bench_terminate's run at 100
 # keyframes (240x808), recorded on the card by record_backend: its edges
@@ -93,6 +102,10 @@ STRICT = ("planner", "motion_only")
 FLOOR_FACTOR = 4
 # frames of disparities past the window (the back-substitution copies them)
 EXTRA_FRAMES = 8
+# the back-substitution's retracted poses against se3.retr on the card,
+# abs/rel: the same f32 operations, but for the order of the 3x3
+# products' sums (cuBLAS's) and its contractions: a few f32 roundings
+POSE_TOL = 2e-6
 
 
 def inputs(E, K, h, w, n_pairs, device, seed=0, graph=None):
@@ -210,7 +223,7 @@ def call_dba(a, iters=2, motion_only=False):
 @contextlib.contextmanager
 def plain():
     """Every DBA kernel wrapper swapped for its plain version."""
-    names = ("linearize", "schur", "edge_terms", "backsub")
+    names = ("linearize", "schur", "backsub")
     saved = {k: getattr(cuda_dba, k) for k in names}
     for k in names:
         setattr(cuda_dba, k, getattr(cuda_dba, k + "_plain"))
@@ -223,8 +236,8 @@ def plain():
 
 def stages(a, seed=1):
     """The arguments of each kernel at ``a``'s shape, from one plain
-    iteration: {"linearize": args, "schur": args, "edge_terms": args,
-    "backsub": args}; dx is seeded (P,6), 1e-2 normals."""
+    iteration: {"linearize": args, "schur": args, "backsub": args}; dx is
+    seeded (P,6), 1e-2 normals."""
     K, P = a["K"], a["P"]
     ix = dba_mod._indices(a["ii"], a["jj"], a["valid"], a["pairs_a"],
                           a["pairs_b"], a["pairs_valid"], a["t0"], a["t1"],
@@ -232,6 +245,9 @@ def stages(a, seed=1):
     lin = (a["poses"], a["disps"], a["intrinsics"], a["target"], a["weight"],
            a["ii"], a["jj"], a["valid"])
     _, _, Ei, Ej, Ck, wk = cuda_dba.linearize_plain(*lin)
+    # the kernel's layout (the plain version's Ej is a permuted view, which
+    # the wrappers would copy inside every timed call)
+    Ej = Ej.contiguous()
     C, w_m, Ei_m = cuda_segsum.sums([
         cuda_segsum.zero_sum(Ck, ix.m_k, K),
         cuda_segsum.zero_sum(wk, ix.m_k, K),
@@ -239,14 +255,47 @@ def stages(a, seed=1):
     eta = a["eta"].reshape(K, -1)
     g = torch.Generator().manual_seed(seed)
     dx = (1e-2 * torch.randn(P, 6, generator=g)).to(Ei.device)
-    t_edge = cuda_segsum.segment_sum(
-        cuda_dba.edge_terms_plain(Ej, dx, ix.pj_sel), ix.m_k, K)
     return {"linearize": lin,
             "schur": (Ei_m, Ej, C, eta, w_m, ix.m_c, a["pairs_a"],
                       a["pairs_b"], a["pairs_valid"]),
-            "edge_terms": (Ej, dx, ix.pj_sel),
-            "backsub": (Ei_m, dx, ix.pm_sel, C, eta, w_m, t_edge,
-                        a["disps"], ix.frame_k)}
+            "backsub": (a["poses"], dx, ix.frame_row, a["disps"], Ej,
+                        ix.pj_sel, ix.m_k, Ei_m, ix.pm_sel, C, eta, w_m,
+                        ix.frame_k)}
+
+
+def parent_backsub(lib, poses, dx, frame_row, disps, Ej=None, pj_sel=None,
+                   m_k=None, Ei_m=None, pm_sel=None, C=None, eta=None,
+                   w_m=None, frame_k=None, retract=True):
+    """:func:`cuda_dba.backsub` as an earlier ``dba.cu`` (``lib``, whose C
+    interface has the edge pass ``pvo_dba_backsub_edges`` and the depth
+    pass ``pvo_dba_backsub``) computed it: ``se3.retr`` of the poses (unless
+    not ``retract``: then the poses come back as given), the edge pass,
+    the segment sum of its terms and the depth pass, three launches."""
+    # bound apart from lib's attributes, which cuda_dba.load bound to
+    # the later interface
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    edges, depth = lib["pvo_dba_backsub_edges"], lib["pvo_dba_backsub"]
+    edges.argtypes = [vp, vp, vp, i, i, vp, vp]
+    depth.argtypes = [vp] * 9 + [i, i, vp, vp]
+    stream = torch.cuda.current_stream().cuda_stream
+    # contiguous, as that source's wrappers passed them
+    dx, disps, Ej, pj_sel, Ei_m, pm_sel, C, eta, w_m, frame_k = (
+        t if t is None else t.contiguous() for t in
+        (dx, disps, Ej, pj_sel, Ei_m, pm_sel, C, eta, w_m, frame_k))
+    if retract:
+        poses = se3.retr(poses, cuda_dba._dx_rows(dx, frame_row))
+    if Ej is None:
+        return poses, disps
+    (E, _, HW), K, F = Ej.shape, Ei_m.shape[0], disps.shape[0]
+    te = torch.empty((E, HW), dtype=torch.float32, device=Ej.device)
+    cuda_corr.check_rc(edges(Ej.data_ptr(), dx.data_ptr(), pj_sel.data_ptr(),
+                             E, HW, te.data_ptr(), stream), "parent edges")
+    t_edge, = cuda_segsum.sums([cuda_segsum.zero_sum(te, m_k, K)])
+    out = torch.empty(disps.shape, dtype=torch.float32, device=Ej.device)
+    cuda_corr.check_rc(depth(*(t.data_ptr() for t in (
+        Ei_m, dx, pm_sel, C, eta, w_m, t_edge, disps, frame_k)), F, HW,
+        out.data_ptr(), stream), "parent depth pass")
+    return poses, out
 
 
 def rel_err(out, ref):
@@ -338,22 +387,28 @@ def library(lib):
 def check(name, reps=0, seed=0, parent=None):
     """Each kernel at shape ``name`` against its plain version, and the
     whole call; with ``reps`` their times. Returns {kernel: {...}} with
-    "err", "bit_stable", "graph_equal" and, timed, "ms" (the kernel's
-    two), "plain_ms", "bound_ms", "bound_by", "library_ms"; with
-    ``parent`` (a library of ``cuda_dba.load``) "parent_err" and, timed,
-    "parent_ms" and "ms_vs_parent" (the parent's two around the kernel's
-    two); and "dba": the call's
-    poses' and disparities' worst abs/rel difference."""
+    "err", "bit_stable", "graph_equal" and, timed, "ms", "plain_ms",
+    "bound_ms", "bound_by", "library_ms"; the back-substitution also
+    "pose_err" (its poses against the plain version's ``se3.retr`` on the
+    card, abs/rel); with ``parent`` (a library of ``cuda_dba.load``)
+    "parent_err" and, timed, "parent_ms" and "ms_vs_parent" (the parent's
+    two around the kernel's two), and for the back-substitution
+    "parent_disps_equal" (its disparities bit-equal to the parent's three
+    launches) and "parent_all_ms" (those and the eager retraction); and
+    "dba": the call's poses' and disparities' worst abs/rel
+    difference."""
     E, K, h, w, n_pairs, motion_only = SHAPES[name]
     dev = torch.device("cuda")
     a = shape_inputs(name, dev, seed)
     st = stages(a)
+    if motion_only:
+        st["backsub"] = st["backsub"][:4]
     HW, F = h * w, a["poses"].shape[0]
     NP = a["pairs_a"].shape[0]
     kw = {"linearize": dict(motion_only=motion_only)}
     res = {}
-    for k in ("linearize", "schur", "edge_terms", "backsub"):
-        if motion_only and k != "linearize":
+    for k in ("linearize", "schur", "backsub"):
+        if motion_only and k == "schur":
             continue
         args, opts = st[k], kw.get(k, {})
         kern = (lambda args=args, opts=opts, k=k:
@@ -365,9 +420,15 @@ def check(name, reps=0, seed=0, parent=None):
                   "bit_stable": all(torch.equal(o, g)
                                     for o, g in zip(out, again)),
                   "graph_equal": _graph_equal(kern, out)}
+        if k == "backsub":
+            res[k]["pose_err"] = absrel(out[0], ref[0])
         if parent is not None:
-            with library(parent):
-                pout = _outs(kern())
+            if k == "backsub":
+                pout = _outs(parent_backsub(parent, *args))
+                res[k]["parent_disps_equal"] = torch.equal(pout[1], out[1])
+            else:
+                with library(parent):
+                    pout = _outs(kern())
             res[k]["parent_err"] = max(rel_err(o, r)
                                        for o, r in zip(pout, ref))
         if reps:
@@ -378,38 +439,37 @@ def check(name, reps=0, seed=0, parent=None):
             res[k].update(ms=[times[0], times[3]],
                           plain_ms=min(times[1:3]))
             if parent is not None:
-                def par(kern=kern):
-                    with library(parent):
-                        return kbench.graph_time_ms(kern, reps)
+                if k == "backsub":
+                    # the parent's launches alone (its retraction was
+                    # eager torch), then with the retraction
+                    def par(args=args):
+                        return kbench.graph_time_ms(
+                            lambda: parent_backsub(parent, *args,
+                                                   retract=motion_only),
+                            reps)
+                    res[k]["parent_all_ms"] = kbench.graph_time_ms(
+                        lambda: parent_backsub(parent, *args), reps)
+                else:
+                    def par(kern=kern):
+                        with library(parent):
+                            return kbench.graph_time_ms(kern, reps)
                 t = [par(), kbench.graph_time_ms(kern, reps),
                      kbench.graph_time_ms(kern, reps), par()]
                 res[k].update(parent_ms=[t[0], t[3]], ms_vs_parent=t[1:3])
-    # the back-substitution's row is its two passes
-    if "edge_terms" in res:
-        e, b = res.pop("edge_terms"), res["backsub"]
-        b.update(err=max(e["err"], b["err"]),
-                 bit_stable=e["bit_stable"] and b["bit_stable"],
-                 graph_equal=e["graph_equal"] and b["graph_equal"])
-        if parent is not None:
-            b["parent_err"] = max(e["parent_err"], b["parent_err"])
-        for t in ("ms", "parent_ms", "ms_vs_parent"):
-            if t in b:
-                b[t] = [x + y for x, y in zip(e[t], b[t])]
-        if reps:
-            b["plain_ms"] = e["plain_ms"] + b["plain_ms"]
     res = {f"dba_{k}": v for k, v in res.items()}
     if reps:
         n_valid = int(a["valid"].sum())
         n_pairs_valid = int(a["pairs_valid"].sum())
+        n_summed = 0 if motion_only else int((st["backsub"][6] < K).sum())
         bounds = {
             "dba_linearize": kbench.dba_bound(
                 "dba_linearize", E, K, HW, valid_edges=n_valid,
                 motion_only=motion_only),
             "dba_schur": kbench.dba_bound(
                 "dba_schur", E, K, HW, NP=NP, valid_pairs=n_pairs_valid),
-            "dba_backsub": kbench.bounds_sum(
-                kbench.dba_bound("dba_backsub_edges", E, K, HW),
-                kbench.dba_bound("dba_backsub", E, K, HW, F=F))}
+            "dba_backsub": kbench.dba_bound(
+                "dba_backsub", E, K, HW, F=F, P=a["P"],
+                valid_edges=n_summed, motion_only=motion_only)}
         for k, r in res.items():
             r.update(bound_ms=bounds[k]["ms"], bound_by=bounds[k]["bound_by"],
                      library_ms=None)
@@ -426,9 +486,6 @@ def check(name, reps=0, seed=0, parent=None):
 
     cpu = {k: v.cpu() if torch.is_tensor(v) else v for k, v in a.items()}
     p_cpu, d_cpu = call_dba(cpu, motion_only=motion_only)
-
-    def absrel(x, y):
-        return float(((x.cpu() - y.cpu()).abs() / (1.0 + y.cpu().abs())).max())
     res["dba"] = {"poses": absrel(p, p_ref), "disps": absrel(d, d_ref),
                   "bit_stable": bool(torch.equal(p, p2) and
                                      torch.equal(d, d2)),
@@ -441,6 +498,11 @@ def check(name, reps=0, seed=0, parent=None):
     return res
 
 
+def absrel(x, y):
+    """max |x - y| / (1 + |y|)."""
+    return float(((x.cpu() - y.cpu()).abs() / (1.0 + y.cpu().abs())).max())
+
+
 def failures(res):
     """What in :func:`check`'s result breaks its tolerances."""
     bad = []
@@ -450,7 +512,9 @@ def failures(res):
                     and r["bit_stable"]):
                 bad.append((k, r))
         elif not (r["err"] <= TOL and r["bit_stable"] and r["graph_equal"]
-                  and r.get("parent_err", 0.0) <= TOL):
+                  and r.get("parent_err", 0.0) <= TOL
+                  and r.get("pose_err", 0.0) <= POSE_TOL
+                  and r.get("parent_disps_equal", True)):
             bad.append((k, r))
     return bad
 

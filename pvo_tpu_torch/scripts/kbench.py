@@ -372,25 +372,27 @@ def segsum_jobs_bound(jobs):
 
 
 def dba_bound(name, E, K, HW, F=0, NP=0, valid_pairs=None,
-              valid_edges=None, motion_only=False):
+              valid_edges=None, motion_only=False, P=0):
     """The roofline bound of one launch of the DBA's kernels
     (``csrc/dba.cu``) at E edges, K depth frames, HW pixels a frame, F
-    frames of disparities and NP pair slots: every input read once and
-    every output written once, f32 (indices int64, masks one byte),
-    against the f32 peak.
+    frames of poses and disparities, NP pair slots and P pose rows of dx:
+    every input read once and every output written once, f32 (indices
+    int64, masks one byte), against the f32 peak.
 
     ``dba_linearize`` reads target, weight and disps[ii] of the
     ``valid_edges`` valid edges (all by default; an invalid one reads
     nothing) and writes Hblk, vblk and, unless ``motion_only``, Ei, Ej,
     Ck, wk; ``dba_schur`` reads Ei_m, Ej, C, eta, w_m and the pair slots
-    and writes K + 2E + NP rows of 36 and K + E of 6;
-    ``dba_backsub_edges`` (the edge pass) reads Ej and writes E x HW;
-    ``dba_backsub`` (the depth pass) reads Ei_m, C, eta, w_m, the edge
-    terms and F frames of disparities and writes F. The operations are
-    the products ``FlopCounterMode`` counts in the plain versions (the
-    einsums; ``trace_track.KernelFlops`` counts these): for the Schur
-    terms over ``valid_pairs`` of the NP slots (all by default, as the
-    plain version computes them; an invalid slot reads nothing)."""
+    and writes K + 2E + NP rows of 36 and K + E of 6; ``dba_backsub``
+    reads dx, F poses and their rows and writes F poses, and, unless
+    ``motion_only``, reads Ej of the ``valid_edges`` edges it sums (all by
+    default), Ei_m, C, eta, w_m, F frames of disparities and the index
+    lists, and writes F frames. The operations are the products
+    ``FlopCounterMode`` counts in the plain versions (the einsums, and
+    the retraction's 3x3 products, 72 a frame; ``trace_track.KernelFlops``
+    counts these): for the Schur terms over ``valid_pairs`` of the NP
+    slots (all by default, as the plain version computes them; an
+    invalid slot reads nothing)."""
     f = 4
     if name == "dba_linearize":
         ve = E if valid_edges is None else valid_edges
@@ -402,22 +404,17 @@ def dba_bound(name, E, K, HW, F=0, NP=0, valid_pairs=None,
         b_in = ((K + E) * 6 + 3 * K) * HW * f + E * 8 + NP * 17
         b_out = ((K + 2 * E + NP) * 36 + (K + E) * 6) * f
         flops = (72 * (K + E + vp) + 12 * (K + E)) * HW
-    elif name == "dba_backsub_edges":
-        b_in, b_out = E * (6 * HW * f + 8), E * HW * f
-        flops = 12 * E * HW
     elif name == "dba_backsub":
-        b_in = K * (10 * HW * f + 8) + F * (HW * f + 8)
-        b_out, flops = F * HW * f, 12 * K * HW
+        b_in, b_out, flops = P * 6 * f + F * (7 * f + 8), F * 7 * f, 72 * F
+        if not motion_only:
+            ve = E if valid_edges is None else valid_edges
+            b_in += (ve * 6 * HW + K * 9 * HW + F * HW) * f + \
+                (2 * E + K + F) * 8
+            b_out += F * HW * f
+            flops += 12 * (E + K) * HW
     else:
         raise ValueError(f"no DBA kernel named {name!r}")
     return _f32_bound(b_in + b_out, flops)
-
-
-def bounds_sum(*bounds):
-    """One bound for several launches: their bytes and operations
-    summed."""
-    return _f32_bound(sum(b["bytes"] for b in bounds),
-                      sum(b["flops"] for b in bounds))
 
 
 def _f32_bound(nbytes, flops):
@@ -523,15 +520,13 @@ def main():
                   f"{b['sector_ms']:.4f} ms by sectors, {b['ms']:.4f} by "
                   f"bytes")
     # the DBA's kernels at the planner's full regime (E=144, K=32, 2048
-    # pair slots, 30x101; the back-substitution's two passes over 40
-    # frames)
+    # pair slots, 30x101; the update after the solve over 40 frames)
     E, K, HW = 144, 32, 30 * 101
     for name, b in (
             ("dba_linearize", dba_bound("dba_linearize", E, K, HW)),
             ("dba_schur", dba_bound("dba_schur", E, K, HW, NP=2048)),
-            ("dba_backsub", bounds_sum(
-                dba_bound("dba_backsub_edges", E, K, HW),
-                dba_bound("dba_backsub", E, K, HW, F=40)))):
+            ("dba_backsub", dba_bound("dba_backsub", E, K, HW, F=40,
+                                      P=32))):
         print(f"{name} E={E} K={K} 30x101: {b['bytes'] / 1e9:.4f} GB, "
               f"{b['flops'] / 1e9:.3f} GFLOP, bound {b['ms']:.4f} ms "
               f"({b['bound_by']})")

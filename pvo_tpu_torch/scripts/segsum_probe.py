@@ -8,7 +8,7 @@ against an earlier source of it, on the card.
 48 update edges, the DBA's 144 edges into P = K = 32 frames and 2048
 edge pairs), about a tenth of each case's rows out of range; ``GROUPS``
 are the launches the tracker makes of them (GraphAgg's sum and counts;
-the DBA's three launches a full iteration). Each case is run in both
+the DBA's two launches a full iteration). Each case is run in both
 modes (accumulate, zero start) and each group batched, and held bit for
 bit against the CPU's ``index_add_`` (:func:`cuda_segsum.sums_plain`).
 Times are kernel times: ``kbench.graph_time_ms`` replays the calls
@@ -47,8 +47,9 @@ from pvo_tpu_torch.vo.net import cuda_corr, cuda_segsum
 # GraphAgg's sum and counts (48 edges into 32 frames); the DBA's Hessian
 # (4 x 144 blocks into 32 x 32), gradient (2 x 144 into 32), C and w
 # (144 into 32 depth frames), edge x depth (Ei), the Schur sum (32 self,
-# 2 x 144 edge terms, then the 2048 pairs), the pairs alone, the rhs
-# correction (32 + 144) and the back-substitution's edge term
+# 2 x 144 edge terms, then the 2048 pairs), the pairs alone and the rhs
+# correction (32 + 144); the back-substitution sums its edge terms itself
+# (csrc/dba.cu)
 CASES = {
     "graph_agg": (48, 32, (128, 30, 101)),
     "graph_agg_counts": (48, 32, ()),
@@ -60,16 +61,14 @@ CASES = {
     "dba_schur": (2368, 1024, (6, 6)),
     "dba_pairs": (2048, 1024, (6, 6)),
     "dba_rhs": (176, 32, (6,)),
-    "dba_t_edge": (144, 32, (3030,)),
 }
 # the launches the tracker makes of them: GraphAgg's, and the DBA's
-# three a full iteration (H, v, C, w, Ei; the Schur sum and the rhs
-# correction; the edge term)
+# two a full iteration (H, v, C, w, Ei; the Schur sum and the rhs
+# correction)
 GROUPS = {
     "graph_agg": ("graph_agg", "graph_agg_counts"),
     "dba_1": ("dba_hessian", "dba_v", "dba_c", "dba_w", "dba_ei"),
     "dba_2": ("dba_schur", "dba_rhs"),
-    "dba_3": ("dba_t_edge",),
 }
 
 

@@ -8,8 +8,9 @@ FLOPs and MFU (port of ``scripts/trace_track.py``).
 every frame a keyframe, the segment filter on, the planner engaged from
 frame 13), 42 warm-up frames, then ``n_traced_frames`` (default 5) under
 ``torch.profiler``, each frame a window of its own: the device total a
-frame and the costliest kernels (``kbench.device_op_totals``). The
-traced frames replay the planner's CUDA graph; their K1/K2/K3,
+frame, its kernels a frame and the costliest ones
+(``kbench.device_op_totals``). The traced frames replay the planner's
+CUDA graph; their K1/K2/K3,
 segment-sum and DBA-kernel launches in the trace are held equal to those
 ``FrameGraph.per_replay`` counts for them.
 
@@ -58,8 +59,8 @@ def _corr(kernel, E, H, W, C):
     return kbench.kernel_bound(kernel, E, H, W, C)["flops"]
 
 
-def _dba(kernel, E, K, HW, NP=0):
-    return kbench.dba_bound(kernel, E, K, HW, NP=NP)["flops"]
+def _dba(kernel, E, K, HW, **kw):
+    return kbench.dba_bound(kernel, E, K, HW, **kw)["flops"]
 
 
 # the wrappers of the hand-written kernels (module, function name, the
@@ -92,13 +93,13 @@ WRAPPERS = (
     (cuda_dba, "schur", "dba_schur",
      lambda Ei_m, Ej, C, eta, w_m, m_c, pairs_a, *a, **kw: _dba(
          "dba_schur", Ej.shape[0], Ei_m.shape[0], Ei_m.shape[-1],
-         pairs_a.shape[0])),
-    (cuda_dba, "edge_terms", "dba_backsub",
-     lambda Ej, *a, **kw: _dba("dba_backsub_edges", Ej.shape[0], 0,
-                               Ej.shape[-1])),
+         NP=pairs_a.shape[0])),
     (cuda_dba, "backsub", "dba_backsub",
-     lambda Ei_m, *a, **kw: _dba("dba_backsub", 0, Ei_m.shape[0],
-                                 Ei_m.shape[-1])),
+     lambda poses, dx, frame_row, disps, Ej=None, pj_sel=None, m_k=None,
+     Ei_m=None, *a, **kw: _dba(
+         "dba_backsub", 0 if Ej is None else Ej.shape[0],
+         0 if Ei_m is None else Ei_m.shape[0], disps[0].numel(),
+         F=poses.shape[0], motion_only=Ej is None)),
 )
 
 
@@ -303,7 +304,8 @@ def run(image_size=(240, 808), n_warm=42, n_trace=5, device="cuda",
                             for k, (n, f) in sorted(counter.kernels.items())},
            "plain_gflop_left_out": counter.excluded / 1e9,
            "sections": [list(p) for p in ran],
-           "device_ms_per_frame": None, "tflop_per_s": None, "mfu": None,
+           "device_ms_per_frame": None, "kernels_per_frame": None,
+           "tflop_per_s": None, "mfu": None,
            "launches_counted": None, "launches_traced": None,
            "device": (torch.cuda.get_device_name(dev)
                       if dev.type == "cuda" else "cpu")}
@@ -319,6 +321,8 @@ def run(image_size=(240, 808), n_warm=42, n_trace=5, device="cuda",
         peak = kbench.peak_flops()
         rate = counter.total / (ms / 1e3)
         out.update(device_ms_per_frame=ms, tflop_per_s=rate / 1e12,
+                   kernels_per_frame=sum(n for _, n in totals.values()) /
+                   n_trace,
                    mfu=rate / peak, peak_tflop_per_s=peak / 1e12,
                    launches_counted=counted, launches_traced=seen,
                    traced_sections=[[list(p) for p in drv.sections(r)]

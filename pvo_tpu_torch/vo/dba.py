@@ -7,13 +7,14 @@ structured terms: self x self per depth frame, self x edge, and
 edge x edge over pairs of edges sharing a source frame (built on the
 host by :func:`build_edge_pairs`, or on the device by the planner).
 The contractions are :mod:`cuda_dba`'s kernels on the card (the
-linearization, the Schur terms, the depth back-substitution in an edge
-and a depth pass; their plain versions on the CPU), called through the
-module's attributes. Scatter-sums are :func:`cuda_segsum.sums`, which
-sums in a fixed order on the card as on the CPU, three launches a full
-iteration (H, v, C, w, Ei; the Schur sum and the rhs correction; the
-depth back-substitution's edge term) and one a motion-only one; rows
-whose index is masked are dropped. The index lists depend only on the
+linearization, the Schur terms, and everything after the solve in one
+launch: the pose retraction, the depth back-substitution with its edge
+terms summed per depth frame, the disparities; their plain versions on
+the CPU), called through the module's attributes. Scatter-sums are
+:func:`cuda_segsum.sums`, which sums in a fixed order on the card as on
+the CPU, two launches a full iteration (H, v, C, w, Ei; the Schur sum
+and the rhs correction) and one a motion-only one; rows whose index is
+masked are dropped. The index lists depend only on the
 graph and the windows and are built once a call. ``t0``, ``t1`` and
 ``w0`` may be Python ints or 0-d device tensors (the planner's), so
 nothing here reads the card. Levenberg damping (diag += ep + lm*diag)
@@ -29,7 +30,6 @@ import numpy as np
 import torch
 
 from pvo_tpu_torch.geom.chol import solve_psd
-from pvo_tpu_torch.lie import se3
 from pvo_tpu_torch.vo.net import cuda_dba, cuda_segsum
 
 # the plain version's pair chunk (cuda_dba.schur_plain); the kernel needs none
@@ -129,20 +129,14 @@ def dba(poses, disps, intrinsics, target, weight, eta, ii, jj, valid,
         Sd = Sd + torch.diag(ep + lm * torch.diagonal(Sd))
         dx = solve_psd(Sd[None], rhs.reshape(1, P * D, 1)).reshape(P, D)
 
-        # pose retraction over [t0, t1)
-        dx_full = dx.new_zeros((F + 1, D))
-        dx_full[ix.pose_rows] = dx
-        new_poses = se3.retr(poses, dx_full[:F])
+        # one launch: the pose retraction over [t0, t1) and, for a full
+        # iteration, the depth back-substitution (the edge terms summed
+        # per depth frame, dz) and the disparities
         if motion_only:
-            return new_poses, disps
-
-        # depth back-substitution: the edge terms summed per depth frame
-        # (one launch), then dz and the disparities
-        t_edge, = cuda_segsum.sums([cuda_segsum.zero_sum(
-            cuda_dba.edge_terms(Ej, dx, ix.pj_sel), ix.m_k, K)])
-        new_disps = cuda_dba.backsub(Ei_m, dx, ix.pm_sel, C, eta_flat, w_m,
-                                     t_edge, disps, ix.frame_k)
-        return new_poses, new_disps
+            return cuda_dba.backsub(poses, dx, ix.frame_row, disps)
+        return cuda_dba.backsub(poses, dx, ix.frame_row, disps, Ej,
+                                ix.pj_sel, ix.m_k, Ei_m, ix.pm_sel, C,
+                                eta_flat, w_m, ix.frame_k)
 
     for _ in range(iters):
         poses, disps = one_iteration(poses, disps)
@@ -161,7 +155,7 @@ class _Indices(NamedTuple):
     ridx: torch.Tensor       # (K + E,) rhs correction rows into P
     pj_sel: torch.Tensor     # (E,) pose row of jj, -1 outside the window
     pm_sel: torch.Tensor     # (K,) pose row of each depth frame, or -1
-    pose_rows: torch.Tensor  # (P,) frame of each pose row, F past t1
+    frame_row: torch.Tensor  # (F,) pose row of each frame, or -1
     frame_k: torch.Tensor    # (F,) depth frame of each frame, or -1
 
 
@@ -185,9 +179,8 @@ def _indices(ii, jj, valid, pairs_a, pairs_b, pairs_valid, t0, t1, w0, P,
     pj_a, pj_b = pj[pairs_a], pj[pairs_b]
     ok_c = (pairs_valid & (pj_a >= 0) & (pj_a < P) & (pj_b >= 0) &
             (pj_b < P))
-    rows = torch.arange(P, device=dev) + t0
     f = torch.arange(F, device=dev)
-    k = f - w0
+    k, r = f - w0, f - t0
     return _Indices(
         hidx=torch.cat([sidx(pi, pi, ok_i), sidx(pi, pj, ok_i & ok_j),
                         sidx(pj, pi, ok_i & ok_j), sidx(pj, pj, ok_j)]),
@@ -198,5 +191,5 @@ def _indices(ii, jj, valid, pairs_a, pairs_b, pairs_valid, t0, t1, w0, P,
                          sidx(pj, pi, ok_bm), sidx(pj_a, pj_b, ok_c)]),
         ridx=torch.cat([where(ok_pm, pm, P), where(ok_j & ok_m, pj, P)]),
         pj_sel=where(ok_j, pj, -1), pm_sel=where(ok_pm, pm, -1),
-        pose_rows=where(rows < t1, rows, F),
+        frame_row=where((r >= 0) & (r < P) & (f < t1), r, -1),
         frame_k=where((k >= 0) & (k < K) & (f < t1), k, -1))

@@ -16,15 +16,17 @@ module's attributes.
   weighted Gram [Ei_m; Ej of the frame's edges] Q [..]^T. The kernel
   builds the frames' groups from ``m_c`` itself; a valid slot's two
   edges must share a depth frame, as ``dba.build_edge_pairs``' do.
-- :func:`edge_terms` and :func:`backsub` (kernel ``dba_backsub``, an
-  edge pass and a depth pass around the segment sum of the edge terms):
-  the depth back-substitution and the updated disparities.
+- :func:`backsub` (kernel ``dba_backsub``): the iteration's whole update
+  after the solve in one launch, the poses retracted by dx and, for a
+  full iteration, the edge terms summed per depth frame in edge order,
+  dz and the updated disparities.
 
 None replaces a TPU kernel: the JAX package leaves this work to XLA
 (``pvo_tpu/geom/ba.py`` ``_edge_blocks``, ``pvo_tpu/vo/dba.py``). On the
 card these were einsums that cuBLAS ran as gemv and small f32 GEMMs,
 about 21 ms of a replayed planner frame's 76.3 (ROADMAP, "Farthest from
-the bound", item 1). The source's note gives each kernel's design and
+the bound", item 1), and the retraction some 70 elementwise kernels an
+iteration. The source's note gives each kernel's design and
 bound. The wrappers launch the kernels for CUDA tensors (built like the
 corr kernels, :func:`cuda_corr.build`, on the current stream;
 ``LAUNCHES`` counts them) and take the plain versions (the einsums the
@@ -41,8 +43,9 @@ from pathlib import Path
 import torch
 
 from pvo_tpu_torch.geom.ba import _edge_blocks
+from pvo_tpu_torch.lie import se3
 
-from . import cuda_corr
+from . import cuda_corr, cuda_segsum
 
 KERNELS = ("dba_linearize", "dba_schur", "dba_backsub")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
@@ -64,10 +67,9 @@ def load(source=SOURCE):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.pvo_dba_linearize.argtypes = [p] * 8 + [i] * 3 + [p] * 7
     lib.pvo_dba_schur.argtypes = [p] * 9 + [i] * 4 + [p] * 3
-    lib.pvo_dba_backsub_edges.argtypes = [p, p, p, i, i, p, p]
-    lib.pvo_dba_backsub.argtypes = [p] * 9 + [i, i, p, p]
+    lib.pvo_dba_backsub.argtypes = [p] * 13 + [i] * 4 + [p] * 3
     for fn in (lib.pvo_dba_linearize, lib.pvo_dba_schur,
-               lib.pvo_dba_backsub_edges, lib.pvo_dba_backsub):
+               lib.pvo_dba_backsub):
         fn.restype = ctypes.c_int
     return lib
 
@@ -238,65 +240,85 @@ def _dx_rows(dx, sel):
                        dx[sel.clamp(0, dx.shape[0] - 1)], 0.0)
 
 
-def edge_terms_plain(Ej, dx, sel):
-    """The plain version of :func:`edge_terms`."""
-    return torch.einsum("edh,ed->eh", Ej, _dx_rows(dx, sel))
-
-
-def edge_terms(Ej, dx, sel):
-    """Each edge's term of the depth back-substitution, Ej dx[sel] (E,HW):
-    Ej (E,6,HW), dx (P,6), sel (E,) the edge's pose row of dx, -1 for
-    none (zeros). The edge pass of ``dba_backsub`` on the card."""
-    dev = Ej.device
-    if dev.type == "cpu":
-        return edge_terms_plain(Ej, dx, sel)
-    E, _, HW = Ej.shape
-    if tuple(Ej.shape) != (E, D, HW) or dx.shape[-1] != D or \
-            tuple(sel.shape) != (E,):
-        raise ValueError(f"dba_backsub: Ej {tuple(Ej.shape)}, dx "
-                         f"{tuple(dx.shape)}, sel {tuple(sel.shape)}")
-    ts = _checked("dba_backsub", (Ej, dx, sel.long()), dev)
-    te = torch.empty((E, HW), dtype=torch.float32, device=dev)
-    if E:
-        _launch("dba_backsub", _library().pvo_dba_backsub_edges, dev,
-                *(t.data_ptr() for t in ts), E, HW, te.data_ptr())
-    return te
-
-
-def backsub_plain(Ei_m, dx, sel, C, eta, w_m, t_edge, disps, frame_k):
-    """The plain version of :func:`backsub`."""
+def backsub_plain(poses, dx, frame_row, disps, Ej=None, pj_sel=None,
+                  m_k=None, Ei_m=None, pm_sel=None, C=None, eta=None,
+                  w_m=None, frame_k=None):
+    """The plain version of :func:`backsub`: the edge terms (an einsum),
+    their zero-start sum per depth frame (the CPU's ``index_add_``, in
+    ascending edge order), dz and the disparities, and ``se3.retr`` of
+    every pose by its row of dx (zeros where there is none)."""
+    new_poses = se3.retr(poses, _dx_rows(dx, frame_row))
+    if Ej is None:
+        return new_poses, disps
+    K = Ei_m.shape[0]
+    te = torch.einsum("edh,ed->eh", Ej, _dx_rows(dx, pj_sel))
+    t_edge = cuda_segsum.index_add_plain(te.new_zeros((K, te.shape[1])),
+                                         m_k, te)
     Q = 1.0 / (C + eta)
-    t_self = torch.einsum("kdh,kd->kh", Ei_m, _dx_rows(dx, sel))
+    t_self = torch.einsum("kdh,kd->kh", Ei_m, _dx_rows(dx, pm_sel))
     dz = Q * (w_m - t_self - t_edge)
     ok = (frame_k >= 0)[:, None]
-    dz_full = torch.where(ok, dz[frame_k.clamp(0, dz.shape[0] - 1)], 0.0)
+    dz_full = torch.where(ok, dz[frame_k.clamp(0, K - 1)], 0.0)
     new = disps + dz_full.to(disps.dtype).reshape(disps.shape)
-    return torch.clamp(new, min=0.001)
+    return new_poses, torch.clamp(new, min=0.001)
 
 
-def backsub(Ei_m, dx, sel, C, eta, w_m, t_edge, disps, frame_k):
-    """The depth back-substitution and the disparity update: dz = Q (w_m
-    - Ei_m dx[sel] - t_edge), Q = 1 / (C + eta) (all (K,HW); Ei_m
-    (K,6,HW); sel (K,) each depth frame's pose row of dx, -1 for none);
-    frame f of disps (F,h,w) takes dz[frame_k[f]] where frame_k[f] >= 0;
-    every frame is clamped at 0.001. Returns the new (F,h,w) disparities.
-    The depth pass of ``dba_backsub`` on the card."""
-    dev = Ei_m.device
+def backsub(poses, dx, frame_row, disps, Ej=None, pj_sel=None, m_k=None,
+            Ei_m=None, pm_sel=None, C=None, eta=None, w_m=None,
+            frame_k=None):
+    """The DBA iteration's update after the solve, dx (P,6): the poses
+    (F,7) retracted, frame f by dx[frame_row[f]] (Exp(dx) * g; -1: kept),
+    and, given the depth terms, the disparities (F,h,w) updated. Ej
+    (E,6,HW), pj_sel (E,) each edge's pose row of dx (-1: none), m_k (E,)
+    its depth frame (K: not summed), Ei_m (K,6,HW), pm_sel (K,) each depth
+    frame's pose row, C, eta, w_m (K,HW), frame_k (F,) each frame's depth
+    frame (-1: none): t_edge = the sum per depth frame of Ej dx[pj_sel],
+    dz = Q (w_m - Ei_m dx[pm_sel] - t_edge), Q = 1 / (C + eta), frame f
+    takes dz[frame_k[f]] where frame_k[f] >= 0, and every frame is clamped
+    at 0.001. Without them (a motion-only iteration) ``disps`` is returned
+    as given. Returns (poses, disps). One launch of ``dba_backsub`` on the
+    card, the plain version on the CPU."""
+    dev = poses.device
     if dev.type == "cpu":
-        return backsub_plain(Ei_m, dx, sel, C, eta, w_m, t_edge, disps,
-                             frame_k)
-    K, _, HW = Ei_m.shape
-    F = disps.shape[0]
-    if (tuple(Ei_m.shape) != (K, D, HW) or dx.shape[-1] != D or
-            tuple(sel.shape) != (K,) or
-            any(tuple(t.shape) != (K, HW) for t in (C, eta, w_m, t_edge)) or
-            disps[0].numel() != HW or tuple(frame_k.shape) != (F,)):
-        raise ValueError(f"dba_backsub: Ei_m {tuple(Ei_m.shape)}, disps "
-                         f"{tuple(disps.shape)}, frame_k "
-                         f"{tuple(frame_k.shape)}")
-    ts = _checked("dba_backsub", (Ei_m, dx, sel.long(), C, eta, w_m, t_edge,
-                                  disps, frame_k.long()), dev)
-    out = torch.empty(disps.shape, dtype=torch.float32, device=dev)
+        return backsub_plain(poses, dx, frame_row, disps, Ej, pj_sel, m_k,
+                             Ei_m, pm_sel, C, eta, w_m, frame_k)
+    F = poses.shape[0]
+    depth = (Ej, pj_sel, m_k, Ei_m, pm_sel, C, eta, w_m, frame_k)
+    full = Ej is not None
+    if full and any(t is None for t in depth):
+        raise ValueError("dba_backsub: the depth terms are all given or "
+                         "none")
+    shapes_ok = (tuple(poses.shape) == (F, 7) and dx.dim() == 2 and
+                 dx.shape[-1] == D and tuple(frame_row.shape) == (F,) and
+                 disps.shape[0] == F)
+    if full:
+        K, _, HW = Ei_m.shape
+        E = Ej.shape[0]
+        shapes_ok = shapes_ok and (
+            tuple(Ej.shape) == (E, D, HW) and
+            all(tuple(t.shape) == (E,) for t in (pj_sel, m_k)) and
+            tuple(pm_sel.shape) == (K,) and
+            all(tuple(t.shape) == (K, HW) for t in (C, eta, w_m)) and
+            disps[0].numel() == HW and tuple(frame_k.shape) == (F,))
+    if not shapes_ok:
+        raise ValueError(f"dba_backsub: poses {tuple(poses.shape)}, dx "
+                         f"{tuple(dx.shape)}, frame_row "
+                         f"{tuple(frame_row.shape)}, disps "
+                         f"{tuple(disps.shape)}"
+                         + (f", Ej {tuple(Ej.shape)}, Ei_m "
+                            f"{tuple(Ei_m.shape)}" if full else ""))
+    ts = _checked("dba_backsub", (poses, dx, frame_row.long()), dev)
+    new_poses = torch.empty((F, 7), dtype=torch.float32, device=dev)
+    if full:
+        dts = _checked("dba_backsub", (Ej, Ei_m, C, eta, w_m, disps,
+                                       pj_sel.long(), m_k.long(),
+                                       pm_sel.long(), frame_k.long()), dev)
+        out = torch.empty(disps.shape, dtype=torch.float32, device=dev)
+        ptrs = [t.data_ptr() for t in dts]
+    else:
+        _checked("dba_backsub", (disps,), dev)
+        E, HW, out, ptrs = 0, disps[0].numel(), None, [None] * 10
     _launch("dba_backsub", _library().pvo_dba_backsub, dev,
-            *(t.data_ptr() for t in ts), F, HW, out.data_ptr())
-    return out
+            *(t.data_ptr() for t in ts), *ptrs, F, E, HW, dx.shape[0],
+            new_poses.data_ptr(), _ptr(out))
+    return new_poses, (out if full else disps)

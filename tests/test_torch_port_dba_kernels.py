@@ -5,9 +5,10 @@ the kernels against their plain versions.
 On the CPU, on numpy inputs from a seed (4x6 and 6x10 scenes, padded
 edges and pair slots, ``t0``/``w0`` as 0-d tensors), within 1e-5:
 ``linearize_plain`` against ``pvo_tpu.geom.ba._edge_blocks`` times the
-valid mask; ``schur_plain``, ``edge_terms_plain`` and ``backsub_plain``
-against the JAX DBA's own contractions (``pvo_tpu/vo/dba.py``: the Schur
-einsums, the pair einsum, the rhs correction, the back-substitution);
+valid mask; ``schur_plain`` and ``backsub_plain`` against the JAX DBA's
+own contractions (``pvo_tpu/vo/dba.py``: the Schur einsums, the pair
+einsum, the rhs correction; the retraction, the edge-term segment sum
+and the back-substitution);
 ``dba.dba`` with 0-d window tensors against ``jdba.dba``. Also: each
 kernel's FLOP formula (``kbench.dba_bound``) equal to what
 ``FlopCounterMode`` counts in its plain version, and ``KernelFlops``
@@ -94,10 +95,28 @@ def depth_terms(h, w, E=16, K=7, n_pairs=120, P=6, F=8, seed=1):
     t_edge = rng.randn(K, HW).astype(np.float32)
     disps = (0.5 + rng.rand(F, h, w)).astype(np.float32)
     frame_k = np.where(np.arange(F) < K, np.arange(F) - 1, -1)
+    # the retraction's poses and rows, and each edge's depth frame as the
+    # back-substitution sums it (K: masked; the padded edges and a tenth)
+    q = np.concatenate([0.1 * rng.randn(F, 3), np.ones((F, 1))], 1)
+    poses = np.concatenate([0.5 * rng.randn(F, 3),
+                            q / np.linalg.norm(q, axis=1, keepdims=True)],
+                           1).astype(np.float32)
+    frame_row = np.where(rng.rand(F) < 0.75, rng.randint(0, P, F), -1)
+    m_k = np.where(valid & (rng.rand(E) < 0.9), m, K)
     return dict(Ei_m=Ei_m, Ej=Ej, C=C, eta=eta, w_m=w_m, m=m, pa=pa, pb=pb,
                 pv=pv, dx=dx, pj_sel=pj_sel.astype(np.int64),
                 pm_sel=pm_sel.astype(np.int64), t_edge=t_edge, disps=disps,
-                frame_k=frame_k.astype(np.int64))
+                frame_k=frame_k.astype(np.int64), poses=poses,
+                frame_row=frame_row.astype(np.int64),
+                m_k=m_k.astype(np.int64))
+
+
+def backsub_args(d, motion_only=False):
+    """:func:`cuda_dba.backsub`'s arguments from :func:`depth_terms`."""
+    names = ("poses", "dx", "frame_row", "disps") + (() if motion_only else (
+        "Ej", "pj_sel", "m_k", "Ei_m", "pm_sel", "C", "eta", "w_m",
+        "frame_k"))
+    return [torch.as_tensor(d[k]) for k in names]
 
 
 def close(got, want):
@@ -164,32 +183,39 @@ def test_schur_plain_is_the_jax_contractions(hw):
 
 @pytest.mark.parametrize("hw", SCENES)
 def test_backsub_plain_is_the_jax_back_substitution(hw):
+    """The fused entry's plain version (poses and disparities) against the
+    JAX DBA's retraction, edge-term segment sum and back-substitution;
+    its motion-only form retracts alone."""
     pytest.importorskip("jax")
     import jax
     import jax.numpy as jnp
+    from pvo_tpu.lie import se3 as jse3
     d = depth_terms(*hw)
     K, E, P = d["Ei_m"].shape[0], d["Ej"].shape[0], d["dx"].shape[0]
     F = d["disps"].shape[0]
     J = {k: jnp.asarray(v) for k, v in d.items()}
+    dx_f = jnp.where((J["frame_row"] >= 0)[:, None],
+                     J["dx"][jnp.clip(J["frame_row"], 0, P - 1)], 0.0)
+    poses = jse3.retr(J["poses"], dx_f)
     dx_pj = jnp.where((J["pj_sel"] >= 0)[:, None],
                       J["dx"][jnp.clip(J["pj_sel"], 0, P - 1)], 0.0)
-    te = jnp.einsum("edh,ed->eh", J["Ej"], dx_pj)
+    t_edge = jax.ops.segment_sum(jnp.einsum("edh,ed->eh", J["Ej"], dx_pj),
+                                 J["m_k"], num_segments=K + 1)[:K]
     dx_pm = jnp.where((J["pm_sel"] >= 0)[:, None],
                       J["dx"][jnp.clip(J["pm_sel"], 0, P - 1)], 0.0)
     t_self = jnp.einsum("kdh,kd->kh", J["Ei_m"], dx_pm)
     Q = 1.0 / (J["C"] + J["eta"])
-    dz = Q * (J["w_m"] - t_self - J["t_edge"])
+    dz = Q * (J["w_m"] - t_self - t_edge)
     rows = jnp.where(J["frame_k"] >= 0, jnp.arange(F), F)
     src = jnp.clip(J["frame_k"], 0, K - 1)
     dz_full = jnp.zeros((F + 1, dz.shape[1])).at[rows].set(dz[src])[:F]
     new = jnp.maximum(J["disps"] + dz_full.reshape(J["disps"].shape), 0.001)
-    T = {k: torch.from_numpy(v) for k, v in d.items()}
-    close(cuda_dba.edge_terms_plain(T["Ej"], T["dx"], T["pj_sel"]).numpy(),
-          te)
-    got = cuda_dba.backsub_plain(T["Ei_m"], T["dx"], T["pm_sel"], T["C"],
-                                 T["eta"], T["w_m"], T["t_edge"], T["disps"],
-                                 T["frame_k"])
-    close(got.numpy(), jax.device_get(new))
+    got_p, got_d = cuda_dba.backsub_plain(*backsub_args(d))
+    close(got_p.numpy(), jax.device_get(poses))
+    close(got_d.numpy(), jax.device_get(new))
+    motion = cuda_dba.backsub_plain(*backsub_args(d, motion_only=True))
+    assert torch.equal(motion[0], got_p)
+    assert torch.equal(motion[1], torch.from_numpy(d["disps"]))
 
 
 @pytest.mark.parametrize("hw", SCENES)
@@ -232,13 +258,11 @@ def test_flop_formulas_are_the_plain_versions_counts(hw):
                                       d["w_m"], d["m"], d["pa"], d["pb"],
                                       d["pv"], 7),
          kbench.dba_bound("dba_schur", E, K, HW, NP=NP)),
-        (lambda: cuda_dba.edge_terms_plain(d["Ej"], d["dx"], d["pj_sel"]),
-         kbench.dba_bound("dba_backsub_edges", E, K, HW)),
-        (lambda: cuda_dba.backsub_plain(d["Ei_m"], d["dx"], d["pm_sel"],
-                                        d["C"], d["eta"], d["w_m"],
-                                        d["t_edge"], d["disps"],
-                                        d["frame_k"]),
+        (lambda: cuda_dba.backsub_plain(*backsub_args(d)),
          kbench.dba_bound("dba_backsub", E, K, HW, F=d["disps"].shape[0])),
+        (lambda: cuda_dba.backsub_plain(*backsub_args(d, motion_only=True)),
+         kbench.dba_bound("dba_backsub", E, K, HW, F=d["disps"].shape[0],
+                          motion_only=True)),
     ]
     for fn, bound in calls:
         with FlopCounterMode(display=False) as c:
@@ -258,7 +282,7 @@ def test_kernel_flops_read_the_plain_count_of_a_dba_call():
         tdba.dba(*args, 1, 8, 0, P=7, K=7, iters=2)
     assert counter.kernels["dba_linearize"][0] == 2
     assert counter.kernels["dba_schur"][0] == 2
-    assert counter.kernels["dba_backsub"][0] == 4
+    assert counter.kernels["dba_backsub"][0] == 2
     assert counter.total - counter.kernels["segsum"][1] == \
         plain.get_total_flops()
 
@@ -277,8 +301,7 @@ def test_bounds_at_the_planners_shape():
     real = kbench.dba_bound("dba_schur", E, K, HW, NP=2048, valid_pairs=600)
     assert full["bytes"] == real["bytes"] and full["flops"] > real["flops"]
     assert full["bound_by"] == "operations" and real["bound_by"] == "bytes"
-    back = kbench.bounds_sum(kbench.dba_bound("dba_backsub_edges", E, K, HW),
-                             kbench.dba_bound("dba_backsub", E, K, HW, F=40))
+    back = kbench.dba_bound("dba_backsub", E, K, HW, F=40, P=32)
     assert back["bound_by"] == "bytes" and 14e6 < back["bytes"] < 18e6
     with pytest.raises(ValueError):
         kbench.dba_bound("dba_nothing", E, K, HW)
@@ -301,11 +324,10 @@ def test_wrappers_refuse_grad_and_shapes_off_the_cpu():
         "linearize": lin,
         "schur": [Ei_m.requires_grad_(), Ej, plane, plane, plane, idx,
                   slots, slots, meta(9, dtype=torch.bool)],
-        "edge_terms": [Ej.clone().requires_grad_(), meta(4, 6), idx],
-        "backsub": [meta(3, 6, 24), meta(4, 6), meta(3, dtype=torch.int64),
-                    plane, plane, plane, plane,
-                    meta(8, 4, 6).requires_grad_(),
-                    meta(8, dtype=torch.int64)],
+        "backsub": [meta(8, 7), meta(4, 6), meta(8, dtype=torch.int64),
+                    meta(8, 4, 6).requires_grad_(), Ej, idx, idx,
+                    meta(3, 6, 24), meta(3, dtype=torch.int64), plane,
+                    plane, plane, meta(8, dtype=torch.int64)],
     }
     before = dict(cuda_dba.LAUNCHES)
     for name, args in calls.items():
@@ -324,15 +346,15 @@ def test_counters_are_wired():
     counts = kbench.launch_counts()
     assert all(k in counts for k in cuda_dba.KERNELS)
     shimmed = {(mod, name) for mod, name, _, _ in trace_track.WRAPPERS}
-    for name in ("linearize", "schur", "edge_terms", "backsub"):
+    for name in ("linearize", "schur", "backsub"):
         assert (cuda_dba, name) in shimmed
         assert callable(getattr(cuda_dba, name + "_plain"))
 
 
     class Graph:
         def per_replay(self, ran):
-            return {"segsum": 42, "dba_linearize": 12, "dba_schur": 12,
-                    "dba_backsub": 24}
+            return {"segsum": 30, "dba_linearize": 12, "dba_schur": 12,
+                    "dba_backsub": 12}
 
     class Planner:
         frame_graph = Graph()
@@ -340,7 +362,7 @@ def test_counters_are_wired():
         def sections(self, rec):
             return ()
     counted = trace_track.replay_counted(Planner(), [None, None])
-    assert counted["dba_backsub"] == 48 and counted["segsum"] == 84
+    assert counted["dba_backsub"] == 24 and counted["segsum"] == 60
 
 
 def test_indices_are_built_once_a_call(monkeypatch):
@@ -404,12 +426,13 @@ def test_kernels_against_plain_on_the_card(dev, name):
 
 @pytest.mark.cuda
 def test_segment_sums_unchanged_a_full_iteration(dev):
-    """Three segment-sum launches a full iteration and, with the kernels,
-    one linearization, one Schur launch and two back-substitution passes."""
+    """Two segment-sum launches a full iteration and, with the kernels,
+    one linearization, one Schur launch and one back-substitution (the
+    update after the solve: no edge-term sum, no eager retraction)."""
     a = dba_probe.inputs(48, 32, 30, 101, 512, dev)
     cuda_segsum.reset_launches()
     cuda_dba.reset_launches()
     dba_probe.call_dba(a, iters=2)
-    assert cuda_segsum.LAUNCHES["segsum"] == 6
+    assert cuda_segsum.LAUNCHES["segsum"] == 4
     assert cuda_dba.LAUNCHES == {"dba_linearize": 2, "dba_schur": 2,
-                                 "dba_backsub": 4}
+                                 "dba_backsub": 2}

@@ -4,7 +4,7 @@
 On the CPU: the zero-start and batched plain entries bit-equal to
 sequential ``Tensor.index_add_`` at every ``SITES`` shape of
 ``test_torch_port_segsum.py``, about a tenth of the rows out of range;
-the groups ``vo/dba.py`` forms (three launches a full iteration, one a
+the groups ``vo/dba.py`` forms (two launches a full iteration, one a
 motion-only one; E=12, P=K=8, h, w = 4, 6), each equal to its jobs one by
 one; ``dba.dba`` bit-equal to a copy, kept here, of its earlier sequence
 of nine sums an iteration; the wrapper's refusals before any launch (on
@@ -124,8 +124,9 @@ DBA_CASES = [
 @pytest.mark.parametrize("case", DBA_CASES)
 def test_dba_launches_three_groups(monkeypatch, case):
     """The sums dba.dba makes: (H, v, C, w, Ei), (the Schur sum, the rhs
-    correction), (the edge term) a full iteration, (H, v) a motion-only
-    one; every job zero-start; each call equal to its jobs one by one."""
+    correction) a full iteration (the edge term is summed in the
+    back-substitution's launch), (H, v) a motion-only one; every job
+    zero-start; each call equal to its jobs one by one."""
     calls = []
     plain = cuda_segsum.sums
 
@@ -144,7 +145,7 @@ def test_dba_launches_three_groups(monkeypatch, case):
         per_iter = [[(P * P, D, D), (P, D)]]
     else:
         per_iter = [[(P * P, D, D), (P, D), (K, HW), (K, HW), (K, D, HW)],
-                    [(P * P, D, D), (P, D)], [(K, HW)]]
+                    [(P * P, D, D), (P, D)]]
     assert calls == per_iter * case["iters"]
 
 
@@ -167,7 +168,7 @@ def test_dba_equals_nine_call_sequence(monkeypatch, case, chunk):
 
 def test_fault_probe_swaps_every_sum(monkeypatch):
     """fault_probe's scatter_sums reaches the batched sums too: every job
-    of the DBA's three launches a full iteration runs through the chosen
+    of the DBA's two launches a full iteration runs through the chosen
     variant, which gives the same sums here; the entry comes back
     after."""
     from pvo_tpu_torch.scripts import fault_probe
@@ -183,7 +184,7 @@ def test_fault_probe_swaps_every_sum(monkeypatch):
     with fault_probe.scatter_sums("atomic"):
         got = dba_mod.dba(*args, **DBA_CASES[0])
     assert cuda_segsum.sums is entry
-    assert len(seen) == DBA_CASES[0]["iters"] * (5 + 2 + 1)
+    assert len(seen) == DBA_CASES[0]["iters"] * (5 + 2)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 

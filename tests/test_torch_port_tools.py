@@ -132,6 +132,7 @@ def test_bench_filler(capsys):
     out = _last_json(capsys)
     assert out["n_kf"] == 3 and out["poses"] == 3
     assert len(out["seconds"]) == 1 and out["warm_min_s"] > 0
+    assert "profiled" not in out  # the profiled rep traces the card only
 
 
 def test_profile_terminate(capsys):

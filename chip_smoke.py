@@ -54,17 +54,21 @@ Phases, one line each (any failure exits non-zero):
                 tracker's batched launches (GraphAgg's; the DBA's two
                 a full iteration), with its kernel time (a CUDA graph
                 of calls) beside the card's index_add_ and its bound.
-                The DBA's kernels (dba.cu: linearize, Schur terms,
-                the update after the solve: the back-substitution with
+                The DBA's kernels (dba.cu: linearize, Schur terms, the
+                damped solve, the update after the solve: the
+                back-substitution with
                 its edge terms summed per depth frame and the pose
                 retraction, one launch) at dba_probe.SHAPES (30x101 with
                 E=144, K=P=32, 2048 pair slots; E=48; 47x156; 128x40;
                 E=1; motion-only; E=48 at 47x155, an odd pixel count;
-                the backend's recorded call, E=1008 over K=100 frames;
-                crowded: E=958 over 32 frames, about 30 edges a
-                frame): each output within 1e-4 of the plain
-                version relative to its largest magnitude, two calls
-                bit-equal, a CUDA-graph replay equal to the eager call,
+                the backend's recorded call, E=1008 over K=100 frames,
+                and at 40 keyframes, the P (about 39) that phase 5
+                gives the solve; crowded: E=958 over 32 frames, about
+                30 edges a frame; the filler's P=16 motion-only; P =
+                K = cuda_dba.SOLVE_MAX_P): each output within 1e-4 of
+                the plain version relative to its largest magnitude,
+                two calls bit-equal, a CUDA-graph replay equal to the
+                eager call,
                 the back-substitution's poses within dba_probe.POSE_TOL
                 abs/rel of se3.retr on the card,
                 dba.dba's poses and disparities after 2 iterations
@@ -73,7 +77,19 @@ Phases, one line each (any failure exits non-zero):
                 own card-against-CPU difference, if larger); times by
                 CUDA graph beside the plain versions', the bound and,
                 for the Schur terms, one bmm of every depth frame's
-                weighted Gram (whose blocks are all its rows);
+                weighted Gram (whose blocks are all its rows). The
+                solve (dba_probe.check_solve) at every shape up to
+                cuda_dba.SOLVE_MAX_P (also the filler's, P=16
+                motion-only): dx within 1e-4 of the plain version, or 4x
+                the plain version's own card-against-CPU difference
+                where larger, bit-equal to the numpy emulation of its
+                order (scripts/dba_solve_emul.py), its backward error
+                against the f64 system within twice the plain
+                version's plus 1e-7, two calls bit-equal, a replay
+                equal to eager; timed (planner, bench_dba, filler)
+                beside the plain version and cholesky_ex +
+                cholesky_solve; at the backend's P=99 the library
+                route's launches and time;
   4. reference- the port's loop with the kernels (the DBA's too) against
                 the same loop with their plain versions, on the card:
                 64x96, 8 frames
@@ -138,7 +154,7 @@ Phases, one line each (any failure exits non-zero):
                 375x1242 (padded 384x1248), f32 and bf16, plain, fusion
                 with device-resident flow and depth, and the file protocol
                 (host flow and 1/8-res depth, staged): one warm-up,
-                VPS_FRAMES (8) frames with one in flight: vps_frames_per_sec, ms/frame,
+                VPS_FRAMES (5) frames with one in flight: vps_frames_per_sec, ms/frame,
                 peak memory, valid detections and pasted instances per
                 frame (both > 0); one fused frame under torch.profiler:
                 device ms by layer, NMS/ROIAlign/splat/stitch device and
@@ -179,7 +195,7 @@ Phases, one line each (any failure exits non-zero):
                 steps/s, the loss ratio, peak memory; (c) the reference
                 recipe at full size (semisup, 15 iterations, 6 frames,
                 200x400 crop, restart loop, remat) on a synthetic scene
-                for TRAIN_RECIPE_STEPS (3) outer steps: finite losses and gradients, s/step,
+                for TRAIN_RECIPE_STEPS (2) outer steps: finite losses and gradients, s/step,
                 grad passes/s, peak memory; one more step timed and
                 under torch.profiler (kernel ms, busy share, five
                 costliest kernels), its peak memory with remat off, and
@@ -211,7 +227,7 @@ Phases, one line each (any failure exits non-zero):
                 core the planner's decisions equal the classic path's,
                 poses within 1e-3; capture fails on any host read;
                 PLANNER_SEGSUMS (30) segment-sum launches a replay and
-                PLANNER_DBA's DBA-kernel launches (12, 12, 12).
+                PLANNER_DBA's DBA-kernel launches (12, 12, 12, 12).
                 Printed: ms and frames/s a run, device ms, kernels, host
                 CUDA API calls and busy share a frame, capture seconds,
                 the graph's launches a frame.
@@ -407,9 +423,19 @@ SEGSUM_REPS = 20
 PLANNER_SEGSUMS = 6 + 6 * 2 * 2
 # and its DBA kernels' launches: one each an iteration, 6 updates x 2
 # iterations
-PLANNER_DBA = {"dba_linearize": 12, "dba_schur": 12, "dba_backsub": 12}
+PLANNER_DBA = {"dba_linearize": 12, "dba_schur": 12, "dba_backsub": 12,
+               "dba_solve": 12}
 # the DBA kernels' checks (dba_probe.SHAPES), those timed and their reps
-DBA_TIMED, DBA_REPS = ("planner", "bench_dba"), 20
+# (dba_probe alone times them at every shape); the
+# solve is also timed at bench_dba's, the filler's P=16 and, on the
+# library's route, the backend's P=99
+DBA_TIMED, DBA_REPS = ("planner",), 20
+DBA_SOLVE_TIMED = ("planner", "bench_dba", "filler", "backend")
+# the TPU-side code each DBA kernel stands in for
+DBA_REPLACES = {
+    "dba_solve": "none: XLA's cholesky and solve_triangular in "
+                 "pvo_tpu/geom/chol.py:21-32, called at pvo_tpu/vo/dba.py:247",
+}
 # phase 12: the planner's runs (bench_track's system at 240x808), the
 # frames tracked, the first of the timed steady ones (past the engage at
 # 13, two eager frames and the capture) and the profiled ones after them
@@ -441,7 +467,7 @@ LOOP_HEAD_SCALE, LOOP_MASK_BIAS = 0.2, -2.0
 # gradient relative L2 a tensor, cuDNN on and off), the default
 # protocol's steps, the recipe's outer steps
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-4, 5e-4
-TRAIN_DEFAULT_STEPS, TRAIN_RECIPE_STEPS = 20, 3
+TRAIN_DEFAULT_STEPS, TRAIN_RECIPE_STEPS = 20, 2
 # phase 11: the card's VPS training loss and gradients against the CPU's
 # (relative; relative L2 a tensor: cuDNN's f32 convolution gradients,
 # 3e-7-8e-6 relative an op, put the R-50's 5.1e-5 from the CPU's at
@@ -486,16 +512,16 @@ DP_FLOOR_FACTOR = 4
 # where its own protocol takes 42. Its card-against-CPU FLOP check, which
 # traces nothing, runs in this process: 64x96, 14 warm frames (the
 # engage at 13), the count frame next
-TOOLS_TRACE_ARGV = ["--warm", "20"]
+TOOLS_TRACE_ARGV = ["2", "--warm", "20"]
 TOOLS_CUTS = {
     "analyze_model": [],
     "bench_corr": [],
     "bench_dba": [],
     "bench_step_parts": [],
-    "bench_filler": ["40", "1"],
+    "bench_filler": ["24", "1"],
     "profile_vo": [],
-    "profile_track": ["--frames", "20", "10"],
-    "profile_terminate": ["40"],
+    "profile_track": ["--frames", "20", "4"],
+    "profile_terminate": ["30"],
     "trace_vo2": ["3"],
     "trace_vps": [],
     "profile_vps": ["--reps", "4"],
@@ -505,9 +531,14 @@ TOOLS_FLOP_HW, TOOLS_FLOP_WARM = (64, 96), 14
 # the depths cut to keep the whole run near 600 s (each phase's seconds
 # are printed beside its cut): widths, checks and paths are as before
 DEPTH_CUTS = {
+    "kernels": "the DBA kernels timed at the planner's shape alone, "
+               "not also at bench_dba's",
     "planner": "frames 40 -> 28 (8 timed steady frames, 20..27)",
-    "vps": "timed frames a mode 20 -> 8",
-    "train": "default protocol steps 200 -> 20, recipe outer steps 10 -> 3",
+    "vps": "timed frames a mode 20 -> 5",
+    "train": "default protocol steps 200 -> 20, recipe outer steps 10 -> 2",
+    "tools": "trace_track 5 -> 2 traced frames, profile_track 10 -> 4 "
+             "timed frames, profile_terminate 40 -> 30 and bench_filler "
+             "40 -> 24 keyframes",
     "vps_train": "full-model steps 60 -> 20",
     "demo": "scene frames 72 -> 32",
 }
@@ -706,8 +737,13 @@ def check_dba():
     of all."""
     rows = {k: {"err": 0.0} for k in cuda_dba.KERNELS}
     for name in dba_probe.SHAPES:
-        res = dba_probe.check(name, DBA_REPS if name in DBA_TIMED else 0)
+        res = dba_probe.check(
+            name, DBA_REPS if name in DBA_TIMED else 0,
+            solve_reps=DBA_REPS if name in DBA_SOLVE_TIMED else 0)
         for k, r in res.items():
+            if k == "dba_solve":
+                check_solve_row(name, r, rows[k])
+                continue
             if k == "dba":
                 log("kernel", name="dba", shape=name,
                     poses_absrel=f"{r['poses']:.3g}",
@@ -737,6 +773,46 @@ def check_dba():
         if bad:
             raise AssertionError(f"DBA kernels at {name}: {bad}")
     return rows
+
+
+def check_solve_row(name, r, row):
+    """Phase 3, the damped solve at dba_probe shape ``name``
+    (dba_probe.check_solve's ``r``): its line, and into ``row`` the worst
+    error and, at the planner's shape, the times; at the backend's P=99
+    (the library's route) ``row["library_route"]``."""
+    times = {t: (f"{r[t]:.4f}" if isinstance(r[t], float) else
+                 "/".join(f"{v:.4f}" for v in r[t]))
+             for t in ("ms", "plain_ms", "bound_ms", "library_ms") if t in r}
+    if "ms" in r:
+        times.update(share_of_bound=f"{r['bound_ms'] / min(r['ms']):.5f}",
+                     bound_by=r["bound_by"])
+    errs = dict(fwd_err_f64=f"{r['fwd_plain']:.3g}",
+                eta_f64=f"{r['eta_plain']:.3g}")
+    if r["route"] == "dba_solve":
+        log("kernel", name="dba_solve", shape=name,
+            max_rel_err=f"{r['err']:.3g}", limit=f"{r['limit']:.3g}",
+            plain_card_against_cpu=f"{r['plain_card_cpu']:.3g}",
+            fwd_err_f64=f"{r['fwd']:.3g}",
+            plain_fwd_err_f64=errs["fwd_err_f64"],
+            eta_f64=f"{r['eta']:.3g}", plain_eta_f64=errs["eta_f64"],
+            eta_floor=dba_probe.SOLVE_ETA_FLOOR,
+            bit_stable=r["bit_stable"], graph_equals_eager=r["graph_equal"],
+            emulation_bit_equal=r["emulation_equal"], **times)
+        row["err"] = max(row["err"], r["err"])
+        if name == "planner":
+            row.update(ms=min(r["ms"]), plain_ms=r["plain_ms"],
+                       bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                       library_ms=r["library_ms"])
+    else:
+        log("kernel", name="dba_solve", shape=name, route=r["route"],
+            library_route_launches=r["library_launches"],
+            plain_card_against_cpu=f"{r['plain_card_cpu']:.3g}",
+            plain_fwd_err_f64=errs["fwd_err_f64"],
+            plain_eta_f64=errs["eta_f64"], **times)
+        if "ms" in r:
+            row["library_route"] = {"shape": name, "ms": min(r["ms"]),
+                                    "library_ms": r["library_ms"],
+                                    "launches": r["library_launches"]}
 
 
 def check_segsum():
@@ -1296,8 +1372,11 @@ def run_main_path():
     launches.update({F32_ROWS[k]: v for k, v in f32_launches.items()})
     for k in cuda_corr.F32_KERNELS:
         launches[k] -= f32_launches[k]
+    # the solve's library route (P above SOLVE_MAX_P) is no kernel: the
+    # main path's backend at 40 frames stays on dba_solve
     missing = [k for k, v in launches.items()
-               if v == 0 and k != "build_volumes_f32"]
+               if v == 0 and k not in ("build_volumes_f32",
+                                       "dba_solve_library")]
     if missing or launches["build_volumes_f32"]:
         raise AssertionError(f"launches on the main path: {launches}; never "
                              f"launched: {missing}")
@@ -1794,7 +1873,7 @@ def run_export():
 
 # ------------------------------------------------------------------ vps
 
-VPS_SMALL, VPS_SIZE, VPS_FRAMES = (128, 192), (375, 1242), 8
+VPS_SMALL, VPS_SIZE, VPS_FRAMES = (128, 192), (375, 1242), 5
 # the card against the CPU, the same tamed weights, TF32 off
 VPS_SEM_EQUAL, VPS_PAN_EQUAL, VPS_TARGETS_EQUAL = 0.999, 0.995, 0.999
 VPS_BOX_TOL, VPS_SCORE_TOL = 1e-2, 1e-4
@@ -2337,7 +2416,7 @@ def train_profile(trainer, batch, remat_off):
         one()
         torch.cuda.synchronize()
     kernel_ms, n_kernels = kernel_rows(prof)
-    rows = sorted((r for r in prof.key_averages()
+    rows = sorted((r for r in kbench.averages(prof)
                    if r.device_type == torch.autograd.DeviceType.CUDA
                    and not r.key.startswith(RANGE_PREFIXES)),
                   key=lambda r: -r.self_device_time_total)[:5]
@@ -2480,7 +2559,7 @@ def vps_train_profile():
     log("vps_train", step="profiled", wall_ms=f"{wall_ms:.1f}",
         kernel_ms=f"{kernel_ms:.1f}", kernels=n_kernels,
         busy_share=f"{kernel_ms / wall_ms:.3f}")
-    rows = sorted((r for r in prof.key_averages()
+    rows = sorted((r for r in kbench.averages(prof)
                    if r.device_type == torch.autograd.DeviceType.CUDA
                    and not r.key.startswith(RANGE_PREFIXES)),
                   key=lambda r: -r.self_device_time_total)[:5]
@@ -3161,15 +3240,24 @@ def main():
         "launches_demo": demo_launches["segsum"],
         "launches_dp": dp_launches["segsum"],
         "launches_tools": tools_launches["segsum"]})
-    # the DBA's kernels: phase 5's launches (terminate's within them)
+    # the DBA's kernels: phase 5's launches (terminate's within them); the
+    # solve's library route (P above SOLVE_MAX_P) beside it
     for row in cuda_dba.KERNELS:
+        extra = {}
+        if row == "dba_solve":
+            extra = {"launches_library_route":
+                     launches["dba_solve_library"],
+                     "library_route_at_backend":
+                     res[row].get("library_route")}
         kernels.append({
             "name": row, "route": "cuda",
             "source": "pvo_tpu_torch/csrc/dba.cu",
-            "replaces": "none: XLA einsums in pvo_tpu/vo/dba.py",
+            "replaces": DBA_REPLACES.get(
+                row, "none: XLA einsums in pvo_tpu/vo/dba.py"),
             "launches": launches[row], "max_abs_err": res[row]["err"],
             **{k: res[row][k] for k in ("ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")},
+            **extra,
             "launches_in_terminate": in_terminate[row],
             "launches_loop": loop[row], "launches_train": train[row],
             "launches_vps_train": vps_train[row],

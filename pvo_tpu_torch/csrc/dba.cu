@@ -1,8 +1,9 @@
-// The dense bundle adjustment's f32 contractions for Hopper (sm_90a):
-// the linearization of each edge, the Schur terms with the rhs
-// correction, and the iteration's update after the solve (the depth
-// back-substitution and the pose retraction)
-// (pvo_tpu_torch/vo/net/cuda_dba.py, called by vo/dba.py).
+// The dense bundle adjustment's f32 work for Hopper (sm_90a): the
+// linearization of each edge, the Schur terms with the rhs correction,
+// the damped dense solve of the reduced camera system, and the
+// iteration's update after the solve (the depth back-substitution and
+// the pose retraction) (pvo_tpu_torch/vo/net/cuda_dba.py, called by
+// vo/dba.py).
 //
 // No TPU kernel matches these: the JAX package leaves this work to XLA
 // (pvo_tpu/geom/ba.py:59-93 _edge_blocks, pvo_tpu/vo/dba.py:117-277). They
@@ -82,6 +83,41 @@
 //   even, else 1. Bound: the bytes of Ej, Ei_m, C, eta, w and the
 //   disparities read once and the disparities written; nothing of E x HW
 //   is written or read back any more. No atomics, no host read.
+// dba_solve_kernel: the damped solve of the reduced camera system,
+//   (H - S_sum) damped x = v - corr_v, in one block of 512 threads (it
+//   replaces XLA's cholesky and triangular solves,
+//   pvo_tpu/geom/chol.py:21-32, called at pvo_tpu/vo/dba.py:247; on the
+//   card those were cuSOLVER's potrf and two trsv with some 26 small
+//   kernels around them, about 1.2 ms of a replayed planner frame). The
+//   system is 6P x 6P, padded to whole 32 x 32 tiles with the identity;
+//   its lower triangle's tiles (row stride 33), b and the pivots'
+//   reciprocal square roots live in shared memory (192,384 bytes at P =
+//   SV_MAX_P = 48). The blocks on and below the diagonal of H and S_sum
+//   are staged by cp.async (double-buffered) and scattered to the tiles,
+//   the diagonal damped as d + (ep + lm d) with the plain version's
+//   roundings. The factorization goes by 32-column panels,
+//   right-looking: warp 0 factors the diagonal tile, a lane a row, b
+//   riding along as an extra row (y = L^-1 b comes out of the same
+//   sweep), each step's next pivot formed first so that the chain from
+//   pivot to pivot is a shuffle, a reciprocal square root and two
+//   roundings; a thread a row solves the panel below and takes its y out
+//   of b; a warp a trailing tile updates it, 4 x 8 values a lane, warps
+//   1-4 first the next diagonal tile, 8 rows each, which they hand to
+//   warp 0 (a named barrier) to factor while the other warps update the
+//   rest. The diagonal tile's L and the panel's rows are also kept
+//   transposed, so those loops read four values a load. Then L^T x = y
+//   by the same tiles from the last, with the same hand-off, and
+//   solve_psd's mask: x = 0 where a pivot was <= 0 or not finite, or x
+//   is not finite. Every operation is an explicitly rounded f32
+//   intrinsic (__fmaf_rn, __fmul_rn, __fadd_rn) in a fixed order, the
+//   reciprocal square roots too (sv_rsqrt: a bit-level guess and three
+//   Newton steps), no atomics: numpy repeats the order bit for bit
+//   (scripts/dba_solve_emul.py), and two calls are bit-equal. Bound:
+//   M^3/3 + 2 M^2 + M operations (M = 6P) against the f32 peak, and the
+//   lower triangles read once (bytes bound it up to P = 32); but the
+//   factorization is a chain of M dependent column steps on one SM, so
+//   against the whole card's bound it reads about 0.1%
+//   (scripts/solve_phases.py shows where its cycles go).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -118,6 +154,15 @@ constexpr int SC_STAGE_MIN = 2 * SC_ROWS * 33;
 constexpr int SC_SMEM = 232448 - 4096;  // the block's shared memory, less static
 constexpr int BK_THREADS = 256;  // dba_backsub's threads a block
 constexpr int BK_DX_ROWS = 256;  // dx's rows staged in shared memory at most
+constexpr int SV_THREADS = 512;    // dba_solve's threads, its one block
+constexpr int SV_WARPS = SV_THREADS / 32;
+constexpr int SV_STAGE4 = 2048;    // the assembly's stage, float4s of H (of S)
+constexpr int SV_SMEM = 232448;    // a block's shared memory: dba_solve takes all
+constexpr int SV_NB = 32;          // a tile's side, the panel width
+constexpr int SV_LD = SV_NB + 1;   // a tile row's stride: odd, so a
+                                   // column's 32 values lie in 32 banks
+constexpr int SV_TILE = SV_NB * SV_LD;
+constexpr int SV_MAX_P = 48;       // cuda_dba.SOLVE_MAX_P
 constexpr float MIN_DEPTH = 0.2f;
 constexpr unsigned FULL = 0xffffffffu;
 static_assert(SC_UNITS <= SC_THREADS, "a tile pair's blocks a thread each");
@@ -1080,6 +1125,403 @@ __global__ void __launch_bounds__(BK_THREADS)
   }
 }
 
+// ---- dba_solve ----
+
+__host__ __device__ constexpr int sv_tiles(int nb) { return nb * (nb + 1) / 2; }
+
+// the shared memory of the system at P poses: the lower triangle of the
+// padded system in nb (nb + 1) / 2 tiles, b and the pivots' reciprocal
+// square roots
+__host__ __device__ constexpr size_t sv_smem_bytes(int P) {
+  return ((size_t)sv_tiles((6 * P + SV_NB - 1) / SV_NB) * SV_TILE +
+          2 * (size_t)((6 * P + SV_NB - 1) / SV_NB * SV_NB)) * sizeof(float);
+}
+static_assert(sv_smem_bytes(SV_MAX_P) <= SV_SMEM &&
+                  sv_smem_bytes(SV_MAX_P + 1) > SV_SMEM,
+              "SV_MAX_P: the most poses whose system fits a block");
+// beside it: the column broadcast, the diagonal tile transposed, and the
+// panel transposed (its nb - 1 tiles at most), whose room also holds the
+// assembly's stages
+static_assert(sv_smem_bytes(SV_MAX_P) +
+                      (2 * SV_NB + SV_NB * SV_NB) * 4 +
+                      ((6 * SV_MAX_P + SV_NB - 1) / SV_NB - 1) * SV_NB *
+                          SV_NB * 4 <= SV_SMEM,
+              "the transposed panel fits beside SV_MAX_P's system");
+static_assert(SV_NB == 32 && SV_WARPS >= 6, "a lane a row; warps 0, 1-4, rest");
+
+struct SolveParams {
+  const float *H, *S, *v, *cv;  // S, cv null: a motion-only iteration
+  float* dx;
+  float ep, lm;
+  int P;
+};
+
+__device__ __forceinline__ float* sv_tile(float* A, int I, int J) {
+  return A + (I * (I + 1) / 2 + J) * SV_TILE;
+}
+
+// the hand-off of a finished tile from ``warps`` warps to warp 0
+// (barrier 1), ordered for shared memory as bar.sync orders it
+__device__ __forceinline__ void sv_handoff_wait(int warps) {
+  asm volatile("bar.sync 1, %0;" ::"r"(32 * (warps + 1)) : "memory");
+}
+__device__ __forceinline__ void sv_handoff_arrive(int warps) {
+  asm volatile("bar.arrive 1, %0;" ::"r"(32 * (warps + 1)) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float4* dst, const float4* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+// the row p of the triangle's entry f: p (p + 1) / 2 <= f < (p + 1) (p + 2) / 2
+__device__ __forceinline__ int sv_tri_row(int f) {
+  int pp = (int)((sqrtf(fmaf(8.f, (float)f, 1.f)) - 1.f) * 0.5f);
+  if ((pp + 1) * (pp + 2) / 2 <= f) ++pp;
+  if (pp * (pp + 1) / 2 > f) --pp;
+  return pp;
+}
+
+// one element (R, C), R >= C, of the damped system from H - S
+__device__ __forceinline__ void sv_put(float* A, const SolveParams& p, int R,
+                                       int C, float h, float s) {
+  float x = p.S ? __fsub_rn(h, s) : h;
+  if (R == C) x = __fadd_rn(x, __fadd_rn(p.ep, __fmul_rn(p.lm, x)));
+  sv_tile(A, R / SV_NB, C / SV_NB)[(R % SV_NB) * SV_LD + C % SV_NB] = x;
+}
+
+// 1 / sqrt(d) in f32 operations alone, so that numpy repeats it bit for
+// bit: the exponent-halving first guess, then three Newton steps
+// r (1.5 - (d / 2) r^2) (the guess is within 3.5%, the steps square the
+// error: about 2e-3, 5e-6, then the last step's roundings)
+__device__ __forceinline__ float sv_rsqrt(float d) {
+  const float h = __fmul_rn(0.5f, d);
+  float r = __uint_as_float(0x5f3759dfu - (__float_as_uint(d) >> 1));
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    r = __fmul_rn(r, __fmaf_rn(-h, __fmul_rn(r, r), 1.5f));
+  return r;
+}
+
+// warp 0: factor the diagonal tile Dk = L L^T in place, lane i holding row
+// i in registers, and y = L^-1 y with it (y: 32 values of b); rdk takes
+// the pivots' reciprocal square roots (the back-solve and the panel scale
+// by them; the tile's diagonal is not read again). The chain from pivot
+// to pivot is a shuffle, sv_rsqrt, a product and a fused multiply-add:
+// each step forms the next pivot from lane j + 1's own row first and
+// starts its reciprocal square root before the step's other updates,
+// which are issued under that latency. Above the diagonal a lane's
+// registers take the same updates unread, so no update is predicated but
+// y's; column j reaches the lanes through ``col`` (64 floats, 16-byte
+// aligned), four values a load. The tile's L also goes to DkT transposed
+// (DkT[j][i] = L[i][j], i > j), for the panel's rows to read four values
+// a load. One copy (noinline), so the code is fetched once. Returns whether
+// a pivot was <= 0 or not finite.
+__device__ __noinline__ bool sv_factor_tile(float* Dk, float* y_s, float* rdk,
+                                            float* col, float* DkT, int lane) {
+  float a[SV_NB];
+#pragma unroll
+  for (int c = 0; c < SV_NB; ++c) a[c] = Dk[lane * SV_LD + c];
+  float y = y_s[lane], rj = 0.f;
+  float d = __shfl_sync(FULL, a[0], 0);
+  bool bad = !(d > 0.f) || !isfinite(d);
+  float r = sv_rsqrt(d);
+#pragma unroll
+  for (int j = 0; j < SV_NB; ++j) {
+    const float Lj = __fmul_rn(a[j], r);  // L[lane][j] on the lanes > j
+    float rn = 0.f;
+    if (j + 1 < SV_NB) {
+      d = __shfl_sync(FULL, __fmaf_rn(-Lj, Lj, a[j + 1]), j + 1);
+      bad |= !(d > 0.f) || !isfinite(d);
+      rn = sv_rsqrt(d);
+    }
+    rj = lane == j ? r : rj;
+    const float yj = __fmul_rn(__shfl_sync(FULL, y, j), r);
+    y = lane > j ? __fmaf_rn(-Lj, yj, y) : lane == j ? yj : y;
+    a[j] = Lj;
+    // column j to every lane through shared memory (two buffers by step:
+    // one __syncwarp a step keeps a write off the other buffer's reads),
+    // four values a load
+    float* cb = col + (j & 1) * SV_NB;
+    cb[lane] = Lj;
+    __syncwarp();
+#pragma unroll
+    for (int g = (j + 1) / 4; g < SV_NB / 4; ++g) {
+      const float4 v = reinterpret_cast<const float4*>(cb)[g];
+      const float vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        if (4 * g + m > j) a[4 * g + m] = __fmaf_rn(-Lj, vv[m], a[4 * g + m]);
+    }
+    r = rn;
+  }
+#pragma unroll
+  for (int c = 0; c < SV_NB; ++c) {
+    if (c <= lane) Dk[lane * SV_LD + c] = a[c];
+    if (c < lane) DkT[c * SV_NB + lane] = a[c];
+  }
+  y_s[lane] = y;
+  rdk[lane] = rj;
+  return bad;
+}
+
+// warp 0: L_II^T x = z for the diagonal tile DI, z (32 values of b) in
+// place, from the last row
+__device__ __forceinline__ void sv_back_tile(const float* DI, float* z_s,
+                                             const float* rdI, int lane) {
+  float z = z_s[lane];
+  const float r = rdI[lane];
+#pragma unroll
+  for (int j = SV_NB - 1; j >= 0; --j) {
+    const float xj = __shfl_sync(FULL, __fmul_rn(z, r), j);
+    z = lane == j ? xj
+        : lane < j ? __fmaf_rn(-DI[j * SV_LD + lane], xj, z) : z;
+  }
+  z_s[lane] = z;
+}
+
+// one warp: the trailing tile (I, J) less L_Ik L_Jk^T, 4 x 8 values a
+// lane, each summed over the panel's 32 columns in order; the panel's
+// rows are read transposed (PI, PJ: 32 x 32, column j of L_Ik a row),
+// four values a load
+__device__ __forceinline__ void sv_update_tile(float* A, const float* PI,
+                                               const float* PJ, int I, int J,
+                                               int lane) {
+  const int r0 = (lane % 8) * 4, c0 = (lane / 8) * 8;
+  if (I == J && c0 > r0 + 3) return;  // above the diagonal
+  float* T = sv_tile(A, I, J) + r0 * SV_LD + c0;
+  float acc[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[i][c] = T[i * SV_LD + c];
+#pragma unroll 4
+  for (int kk = 0; kk < SV_NB; ++kk) {
+    const float4 a4 = *reinterpret_cast<const float4*>(PI + kk * SV_NB + r0);
+    const float4 b4 = *reinterpret_cast<const float4*>(PJ + kk * SV_NB + c0);
+    const float4 c4 =
+        *reinterpret_cast<const float4*>(PJ + kk * SV_NB + c0 + 4);
+    const float li[4] = {a4.x, a4.y, a4.z, a4.w};
+    const float lj[8] = {b4.x, b4.y, b4.z, b4.w, c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        acc[i][c] = __fmaf_rn(-li[i], lj[c], acc[i][c]);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) T[i * SV_LD + c] = acc[i][c];
+}
+
+// one warp: rows [rb, rb + 8) of the diagonal tile (I, I) less L_Ik L_Ik^T,
+// a lane a row and 8 columns, each summed over the panel's columns in
+// order (the same sums as sv_update_tile's)
+__device__ __forceinline__ void sv_update_band(float* A, const float* PI,
+                                               int I, int rb, int lane) {
+  const int r = rb + lane / 4, c0 = (lane % 4) * 8;
+  if (c0 > r) return;  // above the diagonal
+  float* T = sv_tile(A, I, I) + r * SV_LD + c0;
+  float acc[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) acc[c] = T[c];
+#pragma unroll 4
+  for (int kk = 0; kk < SV_NB; ++kk) {
+    const float li = PI[kk * SV_NB + r];
+    const float4 b4 = *reinterpret_cast<const float4*>(PI + kk * SV_NB + c0);
+    const float4 c4 =
+        *reinterpret_cast<const float4*>(PI + kk * SV_NB + c0 + 4);
+    const float lj[8] = {b4.x, b4.y, b4.z, b4.w, c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[c] = __fmaf_rn(-li, lj[c], acc[c]);
+  }
+#pragma unroll
+  for (int c = 0; c < 8; ++c) T[c] = acc[c];
+}
+
+// b[t] less L_IJ^T x_I over the column t of tile J = t / 32, summed over
+// the tile's 32 rows in order (x_I: 32 values of b)
+__device__ __forceinline__ void sv_back_column(float* A, float* b, int I,
+                                               int t) {
+  const float* L = sv_tile(A, I, t / SV_NB) + t % SV_NB;
+  const float* x = b + I * SV_NB;
+  float z = b[t];
+#pragma unroll 8
+  for (int r = 0; r < SV_NB; ++r) z = __fmaf_rn(-L[r * SV_LD], x[r], z);
+  b[t] = z;
+}
+
+__global__ void __launch_bounds__(SV_THREADS, 1)
+    dba_solve_kernel(const SolveParams p) {
+  extern __shared__ float4 sv_smem4[];
+  const int M = 6 * p.P, nb = (M + SV_NB - 1) / SV_NB, Mp = nb * SV_NB;
+  float* A = reinterpret_cast<float*>(sv_smem4);
+  float* b = A + sv_tiles(nb) * SV_TILE;
+  float* rd = b + Mp;  // the pivots' reciprocal square roots
+  float* col = rd + Mp;  // the factor's column broadcast, 2 x 32
+  float* DkT = col + 2 * SV_NB;  // the diagonal tile's L transposed
+  // the rest: the assembly's stages, then the panel's L transposed
+  float* rest = DkT + SV_NB * SV_NB;
+  float4* stage = reinterpret_cast<float4*>(rest);
+  float* PT = rest;
+  const int stg4 = min(SV_STAGE4, (int)((SV_SMEM - (rest - A) * 4) / 64));
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  // assemble: Sd[6p + a][6q + c] = (H - S)[p P + q][a][c], the lower
+  // triangle only, the diagonal damped as d + (ep + lm d); rows and
+  // columns [M, Mp) the identity's; b = v - cv, zeros past M. The blocks
+  // on and below the diagonal (block q <= p of row p: the triangle's
+  // block p (p + 1) / 2 + q) are staged by cp.async in stages of
+  // stg4 / 9 blocks, double-buffered (the next stage in flight while this
+  // one is scattered to the tiles), a thread a float4 when staged and a
+  // row of a block when scattered
+  {
+    const int nblk = p.P * (p.P + 1) / 2, sb = stg4 / 9;
+    auto issue = [&](int f0, int buf) {
+      float4* dH = stage + buf * 2 * stg4;
+      const int n = min(sb, nblk - f0) * 9;
+      for (int i = tid; i < n; i += SV_THREADS) {
+        const int fb = f0 + i / 9, pp = sv_tri_row(fb);
+        const int g = (pp * p.P + fb - pp * (pp + 1) / 2) * 9 + i % 9;
+        cp_async16(dH + i, reinterpret_cast<const float4*>(p.H) + g);
+        if (p.S)
+          cp_async16(dH + stg4 + i, reinterpret_cast<const float4*>(p.S) + g);
+      }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    };
+    issue(0, 0);
+    for (int f0 = 0, buf = 0; f0 < nblk; f0 += sb, buf ^= 1) {
+      if (f0 + sb < nblk) {
+        issue(f0 + sb, buf ^ 1);
+        asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      } else {
+        asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      }
+      __syncthreads();
+      const float* sH = reinterpret_cast<const float*>(stage + buf * 2 * stg4);
+      const float* sS = sH + 4 * stg4;
+      for (int w = tid; w < min(sb, nblk - f0) * 6; w += SV_THREADS) {
+        const int fb = f0 + w / 6, pp = sv_tri_row(fb);
+        const int q = fb - pp * (pp + 1) / 2, R = 6 * pp + w % 6;
+#pragma unroll
+        for (int c = 0; c < 6; ++c)
+          if (6 * q + c <= R)
+            sv_put(A, p, R, 6 * q + c, sH[w * 6 + c],
+                   p.S ? sS[w * 6 + c] : 0.f);
+      }
+      __syncthreads();
+    }
+  }
+  for (int f = tid; f < (Mp - M) * Mp; f += SV_THREADS) {
+    const int R = M + f / Mp, C = f % Mp;
+    if (C <= R)
+      sv_tile(A, R / SV_NB, C / SV_NB)[(R % SV_NB) * SV_LD + C % SV_NB] =
+          R == C ? 1.f : 0.f;
+  }
+  for (int R = tid; R < Mp; R += SV_THREADS)
+    b[R] = R >= M ? 0.f : p.cv ? __fsub_rn(p.v[R], p.cv[R]) : p.v[R];
+  __syncthreads();
+
+  // L L^T = Sd by 32-column panels, right-looking, y = L^-1 b riding along
+  // as the extra row. Warp 0 factors each diagonal tile; a thread a row
+  // solves the panel below it and takes its y out of b; a warp a trailing
+  // tile updates them, warps 1-4 first the next diagonal tile, which they
+  // hand to warp 0 to factor while the others update the rest
+  bool bad = false;  // warp 0: a pivot <= 0 or not finite
+  if (warp == 0) bad = sv_factor_tile(A, b, rd, col, DkT, lane);
+  __syncthreads();
+  for (int k = 0; k + 1 < nb; ++k) {
+    // the panel's rows also go to PT transposed (PT[I - k - 1][j][r] =
+    // L[32 I + r][32 k + j]), for the trailing update to read four a load
+    for (int t = tid; t < (nb - 1 - k) * SV_NB; t += SV_THREADS) {
+      const int I = k + 1 + t / SV_NB, r = t % SV_NB;
+      float* row = sv_tile(A, I, k) + r * SV_LD;
+      float* pt = PT + (t / SV_NB) * SV_NB * SV_NB + r;
+      float x[SV_NB];
+#pragma unroll
+      for (int c = 0; c < SV_NB; ++c) x[c] = row[c];
+#pragma unroll
+      for (int j = 0; j < SV_NB; ++j) {
+        x[j] = __fmul_rn(x[j], rd[k * SV_NB + j]);
+#pragma unroll
+        for (int g = (j + 1) / 4; g < SV_NB / 4; ++g) {
+          const float4 v = reinterpret_cast<const float4*>(DkT + j * SV_NB)[g];
+          const float vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int m = 0; m < 4; ++m)
+            if (4 * g + m > j)
+              x[4 * g + m] = __fmaf_rn(-x[j], vv[m], x[4 * g + m]);
+        }
+      }
+      float bb = b[I * SV_NB + r];
+#pragma unroll
+      for (int j = 0; j < SV_NB; ++j) {
+        row[j] = x[j];
+        pt[j * SV_NB] = x[j];
+        bb = __fmaf_rn(-x[j], b[k * SV_NB + j], bb);
+      }
+      b[I * SV_NB + r] = bb;
+    }
+    __syncthreads();
+    const int m = nb - 1 - k;
+    if (warp == 0) {
+      sv_handoff_wait(4);
+      float* D1 = sv_tile(A, k + 1, k + 1);
+      bad |= sv_factor_tile(D1, b + (k + 1) * SV_NB, rd + (k + 1) * SV_NB,
+                            col, DkT, lane);
+    } else {
+      // warps 1..4 first the next diagonal tile, a band of 8 rows each;
+      // then every warp the other tiles (tile 0 of the trailing triangle,
+      // row-major, is (k + 1, k + 1))
+      if (warp <= 4) {
+        sv_update_band(A, PT, k + 1, (warp - 1) * 8, lane);
+        __syncwarp();
+        sv_handoff_arrive(4);
+      }
+      for (int tile = warp; tile < m * (m + 1) / 2; tile += SV_WARPS - 1) {
+        int I = 0;
+        while ((I + 1) * (I + 2) / 2 <= tile) ++I;
+        const int J = tile - I * (I + 1) / 2;
+        sv_update_tile(A, PT + I * SV_NB * SV_NB, PT + J * SV_NB * SV_NB,
+                       k + 1 + I, k + 1 + J, lane);
+      }
+    }
+    __syncthreads();
+  }
+
+  // L^T x = y by the same tiles from the last: warp 0 solves a diagonal
+  // tile; the columns above it take x_I out of b, warp 1 first those of
+  // the next diagonal tile, which it hands to warp 0
+  if (warp == 0) sv_back_tile(sv_tile(A, nb - 1, nb - 1), b + (nb - 1) * SV_NB,
+                              rd + (nb - 1) * SV_NB, lane);
+  __syncthreads();
+  for (int I = nb - 1; I > 0; --I) {
+    if (warp == 0) {
+      sv_handoff_wait(1);
+      sv_back_tile(sv_tile(A, I - 1, I - 1), b + (I - 1) * SV_NB,
+                   rd + (I - 1) * SV_NB, lane);
+    } else if (warp == 1) {
+      sv_back_column(A, b, I, (I - 1) * SV_NB + lane);
+      __syncwarp();
+      sv_handoff_arrive(1);
+    } else {
+      for (int t = tid - 2 * 32; t < (I - 1) * SV_NB;
+           t += SV_THREADS - 2 * 32)
+        sv_back_column(A, b, I, t);
+    }
+    __syncthreads();
+  }
+
+  // solve_psd's mask: zeros where a pivot failed or x is not finite
+  bool ok = !bad;
+  for (int R = tid; R < M; R += SV_THREADS) ok = ok && isfinite(b[R]);
+  ok = __syncthreads_and(ok);
+  for (int R = tid; R < M; R += SV_THREADS) p.dx[R] = ok ? b[R] : 0.f;
+}
+
 }  // namespace
 
 // pvo_tpu_torch/vo/net/cuda_dba.py holds each function's shapes. Each
@@ -1171,5 +1613,22 @@ extern "C" int pvo_dba_backsub(const float* poses, const float* dx,
     dba_backsub_kernel<2><<<(unsigned)blocks, BK_THREADS, 0, st>>>(p);
   else
     dba_backsub_kernel<1><<<(unsigned)blocks, BK_THREADS, 0, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int pvo_dba_solve(const float* H, const float* S, const float* v,
+                             const float* cv, int P, float ep, float lm,
+                             float* dx, void* stream) {
+  if (P < 1 || P > SV_MAX_P) return (int)cudaErrorInvalidValue;
+  // the blocks are staged by 16-byte copies
+  if (((uintptr_t)H | (uintptr_t)S) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const size_t smem = SV_SMEM;
+  // the kernel's limit, set with every launch (as allowed in a capture)
+  const cudaError_t err = cudaFuncSetAttribute(
+      dba_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const SolveParams p = {H, S, v, cv, dx, ep, lm, P};
+  dba_solve_kernel<<<1, SV_THREADS, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }

@@ -11,7 +11,9 @@ Gauss-Newton iterations, the edge pairs of ``dba.build_edge_pairs`` at
 card's kernel (``csrc/segsum.cu``). Prints the kernels' device ms of one
 traced call (``kbench.breakdown``) and the 25 costliest kernels: the
 measurement to take before writing a DBA kernel. On the CPU only the
-host ms. One JSON line last.
+host ms. ``dba_launches``: the DBA kernels' launches in one call (the
+damped solve's library route, above ``cuda_dba.SOLVE_MAX_P``, as
+``dba_solve_library``). One JSON line last.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 from pvo_tpu_torch.scripts import kbench
 from pvo_tpu_torch.utils.device import open_device
 from pvo_tpu_torch.vo import dba as dba_mod
+from pvo_tpu_torch.vo.net import cuda_dba
 
 
 def dba_inputs(E, K, device):
@@ -64,7 +67,11 @@ def run(E=48, P=32, K=32, iters=2, device="cuda"):
     def call():
         return dba_mod.dba(*args, 0, 25, 0, P=P, K=K, iters=iters)
 
+    before = dict(cuda_dba.LAUNCHES)
     poses, disps = call()
+    # the DBA kernels' launches in one call (on the CPU their plain
+    # versions: zeros)
+    dba_launches = {k: n - before[k] for k, n in cuda_dba.LAUNCHES.items()}
     if not (torch.isfinite(poses).all() and torch.isfinite(disps).all()):
         raise AssertionError("the DBA gave non-finite poses or disparities")
     res = kbench.breakdown(call, dev, top=TOP)
@@ -72,7 +79,10 @@ def run(E=48, P=32, K=32, iters=2, device="cuda"):
     print(f"dba E={E} P={P} K={K} iters={iters}: "
           + (f"{ms:.3f} ms device, {res['launches']} kernels"
              if ms is not None else f"{res['host_ms']:.3f} ms host (CPU)"))
+    print("DBA kernel launches a call: " + ", ".join(
+        f"{k} {n}" for k, n in dba_launches.items()))
     return {"E": E, "P": P, "K": K, "iters": iters, **res,
+            "dba_launches": dba_launches,
             "device": (torch.cuda.get_device_name(dev)
                        if dev.type == "cuda" else "cpu")}
 

@@ -33,7 +33,7 @@ import json
 import numpy as np
 import torch
 
-from pvo_tpu_torch.scripts.kbench import RANGE_PREFIXES, profiled
+from pvo_tpu_torch.scripts.kbench import RANGE_PREFIXES, averages, profiled
 from pvo_tpu_torch.utils.config import VOConfig
 from pvo_tpu_torch.utils.device import open_device
 from pvo_tpu_torch.utils.tracing import StepTimer
@@ -125,7 +125,7 @@ def bench_system(image_size, buffer, device, pipeline=True):
 
 def kernel_rows(prof):
     """(device ms, launches) of every kernel in a finished profile."""
-    rows = [r for r in prof.key_averages()
+    rows = [r for r in averages(prof)
             if r.device_type == torch.autograd.DeviceType.CUDA
             and not r.key.startswith(RANGE_PREFIXES)]
     return (sum(r.self_device_time_total for r in rows) / 1e3,
@@ -135,7 +135,7 @@ def kernel_rows(prof):
 def api_calls(prof):
     """The CUDA runtime calls of a finished profile (its host rows whose
     names start with ``cuda``)."""
-    return sum(r.count for r in prof.key_averages()
+    return sum(r.count for r in averages(prof)
                if r.device_type == torch.autograd.DeviceType.CPU
                and r.key.startswith("cuda"))
 
@@ -144,7 +144,7 @@ def corr_rows(prof):
     """{K1, K2, K3_bf16, K3_f32: (device ms, launches)} of a profile."""
     out = {}
     for tag, names in CORR_KERNELS.items():
-        rows = [r for r in prof.key_averages()
+        rows = [r for r in averages(prof)
                 if r.device_type == torch.autograd.DeviceType.CUDA
                 and any(n in r.key for n in names)]
         out[tag] = (sum(r.self_device_time_total for r in rows) / 1e3,

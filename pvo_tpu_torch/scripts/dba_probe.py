@@ -3,7 +3,7 @@ plain versions on the card, at the tracker's shapes.
 
     python -m pvo_tpu_torch.scripts.dba_probe [shape ...] [--reps N]
         [--parent PATH]
-    python -m pvo_tpu_torch.scripts.dba_probe --record_backend
+    python -m pvo_tpu_torch.scripts.dba_probe --record_backend [--n_kf 40]
 
 ``SHAPES`` are DBA calls from numpy (:func:`inputs`): the planner's full
 regime at 240x808 (E=144 edges, P = K = 32, 2048 pair slots, 30x101),
@@ -13,10 +13,14 @@ shape motion-only, ``odd_hw``: E=48 at 47x155 (376x1240 images, an odd
 pixel count), ``backend``: the backend's largest call at 100 keyframes
 as it was recorded on the card (``BACKEND_CALL``: its 1008 edges over
 K = 100 depth frames and P = 99 pose frames, every pair slot of
-``build_edge_pairs``), and ``crowded``: E=958 packed into K=32 frames
-(about 30 edges a frame; the recorded call's largest frame has 14),
-whose frames' Grams span several row tiles. For each kernel (:func:`stages`
-makes the inputs of the Schur terms and the back-substitution from one
+``build_edge_pairs``), ``backend40``: the same at 40 keyframes, as many
+as ``chip_smoke.py``'s main path tracks (its P on the solve kernel's
+route), ``crowded``: E=958 packed into K=32 frames (about 30 edges
+a frame; the recorded call's largest frame has 14), whose frames' Grams
+span several row tiles, ``filler``: the trajectory filler's motion-only
+update of 16 poses, and ``solve_max``: P = K = ``cuda_dba.SOLVE_MAX_P``,
+the solve kernel's largest. For each kernel (:func:`stages` makes the
+inputs of the Schur terms, the solve and the back-substitution from one
 plain iteration): the largest difference from the plain version
 relative to the largest magnitude of that output (:func:`rel_err`;
 within ``TOL``), whether two calls are bit-equal, and whether a
@@ -34,17 +38,29 @@ outside the timed call; the port never makes it), whose blocks are all
 the Schur rows (:func:`gram_rows`). The back-substitution is the
 iteration's update after the solve: its poses are also held to the
 plain version's ``se3.retr`` on the card (abs/rel ``POSE_TOL``), and the
-motion-only shape runs its retraction alone. With ``--parent PATH`` (an
-earlier ``dba.cu`` of the same C interface for linearize and the Schur
-terms, whose back-substitution is the three-launch one,
-:func:`parent_backsub`; for example ``git archive <commit>`` unpacked
+motion-only shape runs its retraction alone. The damped solve
+(:func:`check_solve`) at P <= ``cuda_dba.SOLVE_MAX_P``: the kernel
+against the plain version within ``TOL`` or ``FLOOR_FACTOR`` times the
+plain version's card-against-CPU difference, bit-equal to the numpy
+emulation of its order (``dba_solve_emul``), its backward error against
+the f64 system within twice the plain version's plus
+``SOLVE_ETA_FLOOR``; its library yardstick ``cholesky_ex`` +
+``cholesky_solve`` timed beside it; above, at ``backend`` (P = 99), the
+library route's launches and time. With ``--parent PATH`` (an
+earlier ``dba.cu`` of the same C interface for linearize, the Schur
+terms and the back-substitution, or an earlier one whose
+back-substitution is the three-launch one (``pvo_dba_backsub_edges``),
+:func:`parent_backsub`; for example
+``git archive <commit>`` unpacked
 into the ignored ``.parent/``) each kernel is also timed against the
-parent's in turns (parent, this, this, parent; the back-substitution
-against the parent's three launches, and also beside them with the
-parent's eager retraction), the parent's outputs are held to the plain
-versions' too, and the back-substitution's disparities must equal the
-parent's bit for bit. One JSON line last. ``--record_backend`` makes
-``BACKEND_CALL`` (:func:`record_backend`).
+parent's in turns (parent, this, this, parent; against a three-launch
+source the back-substitution against its three launches, and also
+beside them with its eager retraction), the parent's outputs are held
+to the plain versions' too, and the back-substitution's disparities
+must equal the parent's bit for bit; the solve, which an earlier source
+lacks, is timed beside the plain version (the parent's route) and the
+library call. One JSON line last. ``--record_backend`` makes
+``BACKEND_CALLS[n_kf]`` (:func:`record_backend`).
 """
 
 from __future__ import annotations
@@ -60,22 +76,26 @@ import torch
 
 from pvo_tpu_torch.geom import projective
 from pvo_tpu_torch.lie import se3
-from pvo_tpu_torch.scripts import kbench
+from pvo_tpu_torch.scripts import dba_solve_emul, kbench
 from pvo_tpu_torch.vo import dba as dba_mod
 from pvo_tpu_torch.vo.net import cuda_corr, cuda_dba, cuda_segsum
 
 # the backend's largest DBA call in bench_terminate's run at 100
 # keyframes (240x808), recorded on the card by record_backend: its edges
-# (ii, jj, all valid), windows (t0, t1, w0, P, K) and feature size
+# (ii, jj, all valid), windows (t0, t1, w0, P, K) and feature size; and
+# at 40 keyframes, as many as phase 5 of chip_smoke.py tracks (its P on
+# the solve kernel's route)
 BACKEND_CALL = Path(__file__).with_name("dba_backend_call.json")
+BACKEND_CALLS = {100: BACKEND_CALL,
+                 40: BACKEND_CALL.with_name("dba_backend40_call.json")}
 
 
-def backend_call():
-    """``BACKEND_CALL`` as a dict."""
-    return json.loads(BACKEND_CALL.read_text())
+def backend_call(n_kf=100):
+    """``BACKEND_CALLS[n_kf]`` as a dict."""
+    return json.loads(BACKEND_CALLS[n_kf].read_text())
 
 
-_BACKEND = backend_call()
+_BACKEND, _BACKEND40 = backend_call(), backend_call(40)
 # (E, K, h, w, pair slots, motion_only); P = K except at "backend" (its
 # recorded P); None: the slots that build_edge_pairs gives, unpadded
 SHAPES = {
@@ -88,10 +108,19 @@ SHAPES = {
     "odd_hw": (48, 32, 47, 155, 512, False),
     "backend": (len(_BACKEND["ii"]), _BACKEND["K"], *_BACKEND["hw"], None,
                 False),
+    "backend40": (len(_BACKEND40["ii"]), _BACKEND40["K"], *_BACKEND40["hw"],
+                  None, False),
     "crowded": (958, 32, 30, 101, None, False),
+    # the trajectory filler's motion-only update: its batch of 16 frames
+    # (P = 16), two edges a frame
+    "filler": (32, 16, 30, 101, None, True),
+    # the largest P on the solve kernel's route (the loop's backend
+    # reaches it): three edges a frame
+    "solve_max": (3 * cuda_dba.SOLVE_MAX_P, cuda_dba.SOLVE_MAX_P, 30, 101,
+                  None, False),
 }
 # the shapes whose edges are a recorded graph, not drawn from the seed
-GRAPHS = {"backend": _BACKEND}
+GRAPHS = {"backend": _BACKEND, "backend40": _BACKEND40}
 TOL = 1e-4
 # the whole call against the plain versions' within TOL at these shapes;
 # at the others within TOL or FLOOR_FACTOR times the plain versions'
@@ -106,6 +135,12 @@ EXTRA_FRAMES = 8
 # abs/rel: the same f32 operations, but for the order of the 3x3
 # products' sums (cuBLAS's) and its contractions: a few f32 roundings
 POSE_TOL = 2e-6
+# the solve's backward error (dba_solve_emul.backward_error) at most
+# twice the plain version's plus SOLVE_ETA_FLOOR, a few f32 roundings: a
+# stable f32 solve keeps it there at any condition, where its forward
+# error is the condition (1e5-3e6 at these shapes) times its roundings,
+# and two f32 solves' forward errors differ by factors of 0.4-3 by chance
+SOLVE_ETA_FLOOR = 1e-7
 
 
 def inputs(E, K, h, w, n_pairs, device, seed=0, graph=None):
@@ -167,10 +202,11 @@ def shape_inputs(name, device, seed=0, hw=None):
     return inputs(E, K, h, w, n_pairs, device, seed, graph=GRAPHS.get(name))
 
 
-def record_backend(path=BACKEND_CALL, n_kf=100, image_size=(240, 808)):
+def record_backend(n_kf=100, path=None, image_size=(240, 808)):
     """Track ``n_kf`` frames with ``bench_terminate``'s system on the
     card, run ``terminate`` and write the backend's largest ``dba.dba``
-    call to ``path`` as JSON: its edges ``ii``, ``jj`` (every one valid),
+    call to ``path`` (``BACKEND_CALLS[n_kf]`` if None) as JSON: its
+    edges ``ii``, ``jj`` (every one valid),
     ``t0``, ``t1``, ``w0``, ``P``, ``K``, the feature size ``hw``, the
     frames ``F`` and the edges of each backend call. Returns that dict.
     With random weights the graph differs from run to run: the file
@@ -208,7 +244,8 @@ def record_backend(path=BACKEND_CALL, n_kf=100, image_size=(240, 808)):
         dba_mod.dba = real
     call = max(calls, key=lambda c: len(c["ii"]))
     call["backend_edges"] = list(dict.fromkeys(len(c["ii"]) for c in calls))
-    Path(path).write_text(json.dumps(call, separators=(",", ":")) + "\n")
+    Path(path or BACKEND_CALLS[n_kf]).write_text(
+        json.dumps(call, separators=(",", ":")) + "\n")
     return call
 
 
@@ -223,7 +260,7 @@ def call_dba(a, iters=2, motion_only=False):
 @contextlib.contextmanager
 def plain():
     """Every DBA kernel wrapper swapped for its plain version."""
-    names = ("linearize", "schur", "backsub")
+    names = ("linearize", "schur", "solve", "backsub")
     saved = {k: getattr(cuda_dba, k) for k in names}
     for k in names:
         setattr(cuda_dba, k, getattr(cuda_dba, k + "_plain"))
@@ -236,15 +273,16 @@ def plain():
 
 def stages(a, seed=1):
     """The arguments of each kernel at ``a``'s shape, from one plain
-    iteration: {"linearize": args, "schur": args, "backsub": args}; dx is
-    seeded (P,6), 1e-2 normals."""
+    iteration: {"linearize": args, "schur": args, "solve": args,
+    "backsub": args}; the solve's summed blocks H, S_sum, v, corr_v and P
+    are the iteration's, dx is seeded (P,6), 1e-2 normals."""
     K, P = a["K"], a["P"]
     ix = dba_mod._indices(a["ii"], a["jj"], a["valid"], a["pairs_a"],
                           a["pairs_b"], a["pairs_valid"], a["t0"], a["t1"],
                           a["w0"], P, K, a["poses"].shape[0])
     lin = (a["poses"], a["disps"], a["intrinsics"], a["target"], a["weight"],
            a["ii"], a["jj"], a["valid"])
-    _, _, Ei, Ej, Ck, wk = cuda_dba.linearize_plain(*lin)
+    Hblk, vblk, Ei, Ej, Ck, wk = cuda_dba.linearize_plain(*lin)
     # the kernel's layout (the plain version's Ej is a permuted view, which
     # the wrappers would copy inside every timed call)
     Ej = Ej.contiguous()
@@ -255,9 +293,20 @@ def stages(a, seed=1):
     eta = a["eta"].reshape(K, -1)
     g = torch.Generator().manual_seed(seed)
     dx = (1e-2 * torch.randn(P, 6, generator=g)).to(Ei.device)
+    schur = (Ei_m, Ej, C, eta, w_m, ix.m_c, a["pairs_a"], a["pairs_b"],
+             a["pairs_valid"])
+    rows, rc = cuda_dba.schur_plain(*schur)
+    H, v, S_sum, corr_v = cuda_segsum.sums([
+        cuda_segsum.zero_sum(torch.cat([Hblk[:, :6, :6], Hblk[:, :6, 6:],
+                                        Hblk[:, 6:, :6], Hblk[:, 6:, 6:]]),
+                             ix.hidx, P * P),
+        cuda_segsum.zero_sum(torch.cat([vblk[:, :6], vblk[:, 6:]]), ix.vidx,
+                             P),
+        cuda_segsum.zero_sum(rows, ix.s_idx, P * P),
+        cuda_segsum.zero_sum(rc, ix.ridx, P)])
     return {"linearize": lin,
-            "schur": (Ei_m, Ej, C, eta, w_m, ix.m_c, a["pairs_a"],
-                      a["pairs_b"], a["pairs_valid"]),
+            "schur": schur,
+            "solve": (H, S_sum, v, corr_v, P),
             "backsub": (a["poses"], dx, ix.frame_row, a["disps"], Ej,
                         ix.pj_sel, ix.m_k, Ei_m, ix.pm_sel, C, eta, w_m,
                         ix.frame_k)}
@@ -384,7 +433,7 @@ def library(lib):
         cuda_dba._lib = saved
 
 
-def check(name, reps=0, seed=0, parent=None):
+def check(name, reps=0, seed=0, parent=None, solve_reps=None):
     """Each kernel at shape ``name`` against its plain version, and the
     whole call; with ``reps`` their times. Returns {kernel: {...}} with
     "err", "bit_stable", "graph_equal" and, timed, "ms", "plain_ms",
@@ -394,15 +443,20 @@ def check(name, reps=0, seed=0, parent=None):
     "parent_err" and, timed, "parent_ms" and "ms_vs_parent" (the parent's
     two around the kernel's two), and for the back-substitution
     "parent_disps_equal" (its disparities bit-equal to the parent's three
-    launches) and "parent_all_ms" (those and the eager retraction); and
-    "dba": the call's poses' and disparities' worst abs/rel
-    difference."""
+    launches) and "parent_all_ms" (those and the eager retraction);
+    "dba_solve": :func:`check_solve`'s, timed with ``solve_reps`` where
+    given, else ``reps`` (an earlier source has no solve:
+    with ``parent`` the solve is timed beside the plain version, the
+    earlier route); and "dba": the call's poses' and disparities' worst
+    abs/rel difference."""
     E, K, h, w, n_pairs, motion_only = SHAPES[name]
     dev = torch.device("cuda")
     a = shape_inputs(name, dev, seed)
     st = stages(a)
     if motion_only:
         st["backsub"] = st["backsub"][:4]
+        H, _, v, _, P = st["solve"]
+        st["solve"] = (H, None, v, None, P)
     HW, F = h * w, a["poses"].shape[0]
     NP = a["pairs_a"].shape[0]
     kw = {"linearize": dict(motion_only=motion_only)}
@@ -422,13 +476,19 @@ def check(name, reps=0, seed=0, parent=None):
                   "graph_equal": _graph_equal(kern, out)}
         if k == "backsub":
             res[k]["pose_err"] = absrel(out[0], ref[0])
+        # a source whose back-substitution is three launches
+        three = (k == "backsub" and parent is not None and
+                 hasattr(parent, "pvo_dba_backsub_edges"))
         if parent is not None:
-            if k == "backsub":
+            if three:
                 pout = _outs(parent_backsub(parent, *args))
                 res[k]["parent_disps_equal"] = torch.equal(pout[1], out[1])
             else:
                 with library(parent):
                     pout = _outs(kern())
+                if k == "backsub":
+                    res[k]["parent_disps_equal"] = torch.equal(pout[-1],
+                                                               out[-1])
             res[k]["parent_err"] = max(rel_err(o, r)
                                        for o, r in zip(pout, ref))
         if reps:
@@ -439,7 +499,7 @@ def check(name, reps=0, seed=0, parent=None):
             res[k].update(ms=[times[0], times[3]],
                           plain_ms=min(times[1:3]))
             if parent is not None:
-                if k == "backsub":
+                if three:
                     # the parent's launches alone (its retraction was
                     # eager torch), then with the retraction
                     def par(args=args):
@@ -456,6 +516,8 @@ def check(name, reps=0, seed=0, parent=None):
                 t = [par(), kbench.graph_time_ms(kern, reps),
                      kbench.graph_time_ms(kern, reps), par()]
                 res[k].update(parent_ms=[t[0], t[3]], ms_vs_parent=t[1:3])
+    res["solve"] = check_solve(st["solve"],
+                               reps if solve_reps is None else solve_reps)
     res = {f"dba_{k}": v for k, v in res.items()}
     if reps:
         n_valid = int(a["valid"].sum())
@@ -471,8 +533,9 @@ def check(name, reps=0, seed=0, parent=None):
                 "dba_backsub", E, K, HW, F=F, P=a["P"],
                 valid_edges=n_summed, motion_only=motion_only)}
         for k, r in res.items():
-            r.update(bound_ms=bounds[k]["ms"], bound_by=bounds[k]["bound_by"],
-                     library_ms=None)
+            if k in bounds:
+                r.update(bound_ms=bounds[k]["ms"],
+                         bound_by=bounds[k]["bound_by"], library_ms=None)
         if "dba_schur" in res:
             MQ, M, _ = gram_operands(*st["schur"][:6])
             Mt = M.transpose(1, 2)
@@ -498,6 +561,77 @@ def check(name, reps=0, seed=0, parent=None):
     return res
 
 
+def check_solve(args, reps=0):
+    """The damped solve at ``args`` (H, S_sum, v, corr_v, P of
+    :func:`stages`; S_sum, corr_v None: motion-only) on its route
+    (``cuda_dba.solve_route``). Always: the plain version on the card
+    against it on the CPU ("plain_card_cpu", relative to the largest
+    |dx|), and its forward error against the f64 solve of the same f32
+    system and its backward error ("fwd_plain", "eta_plain",
+    ``dba_solve_emul``). On the kernel's route: "err" (the kernel against
+    the plain version on the card) within "limit" (``TOL``, or
+    ``FLOOR_FACTOR`` times the plain version's own card-against-CPU
+    difference where that is larger: the f32 solve's spread at this
+    system's condition), "bit_stable", "graph_equal", "emulation_equal"
+    (bit-equal to ``dba_solve_emul.emulate``, the kernel's order in
+    numpy), "fwd" and "eta". On the library's: "library_launches" of one
+    ``cuda_dba.solve_library`` call. With ``reps``: "ms" (the kernel in
+    turns with the plain version, or the library route), "plain_ms" and
+    "library_ms" (``torch.linalg.cholesky_ex`` and ``torch.cholesky_solve``
+    on the damped matrix made outside the timed call, the yardstick),
+    "bound_ms" and "bound_by" (``kbench.dba_bound``)."""
+    H, S_sum, v, corr_v, P = args
+    host = [None if t is None else t.cpu().numpy()
+            for t in (H, S_sum, v, corr_v)]
+    x64 = dba_solve_emul.solve64(*host, P)
+    plain = cuda_dba.solve_plain(*args)
+    cpu = cuda_dba.solve_plain(*(t.cpu() if torch.is_tensor(t) else t
+                                 for t in args))
+    r = {"route": cuda_dba.solve_route(P),
+         "plain_card_cpu": rel_err(plain.cpu(), cpu),
+         "fwd_plain": dba_solve_emul.forward_error(plain.cpu(), x64),
+         "eta_plain": dba_solve_emul.backward_error(*host, P, plain.cpu())}
+
+    def kern():
+        return cuda_dba.solve(*args)
+    if r["route"] == "dba_solve":
+        out, again = kern(), kern()
+        got = out.cpu().numpy()
+        r.update(err=rel_err(out, plain),
+                 limit=max(TOL, FLOOR_FACTOR * r["plain_card_cpu"]),
+                 bit_stable=torch.equal(out, again),
+                 graph_equal=_graph_equal(kern, [out]),
+                 emulation_equal=bool(np.array_equal(
+                     got, dba_solve_emul.emulate(*host, P))),
+                 fwd=dba_solve_emul.forward_error(got, x64),
+                 eta=dba_solve_emul.backward_error(*host, P, got))
+    else:
+        n0 = cuda_dba.LAUNCHES["dba_solve_library"]
+        cuda_dba.solve_library(*args)
+        r["library_launches"] = cuda_dba.LAUNCHES["dba_solve_library"] - n0
+    if reps:
+        Sd = cuda_dba.damped(H, S_sum, P)
+        b = (v if corr_v is None else v - corr_v).reshape(-1, 1)
+
+        def library():
+            return torch.cholesky_solve(b, torch.linalg.cholesky_ex(Sd)[0])
+
+        def plain_fn():
+            return cuda_dba.solve_plain(*args)
+        fast = kern if r["route"] == "dba_solve" else (
+            lambda: cuda_dba.solve_library(*args))
+        n0 = cuda_dba.LAUNCHES["dba_solve_library"]
+        t = [kbench.graph_time_ms(f, reps)
+             for f in (fast, plain_fn, library, library, plain_fn, fast)]
+        cuda_dba.LAUNCHES["dba_solve_library"] = n0
+        bound = kbench.dba_bound("dba_solve", P=P,
+                                 motion_only=S_sum is None)
+        r.update(ms=[t[0], t[5]], plain_ms=min(t[1], t[4]),
+                 library_ms=min(t[2], t[3]), bound_ms=bound["ms"],
+                 bound_by=bound["bound_by"])
+    return r
+
+
 def absrel(x, y):
     """max |x - y| / (1 + |y|)."""
     return float(((x.cpu() - y.cpu()).abs() / (1.0 + y.cpu().abs())).max())
@@ -507,7 +641,16 @@ def failures(res):
     """What in :func:`check`'s result breaks its tolerances."""
     bad = []
     for k, r in res.items():
-        if k == "dba":
+        if k == "dba_solve":
+            if r["route"] == "dba_solve_library":
+                ok = r["library_launches"] == 1
+            else:
+                ok = (r["err"] <= r["limit"] and r["bit_stable"] and
+                      r["graph_equal"] and r["emulation_equal"] and
+                      r["eta"] <= 2 * r["eta_plain"] + SOLVE_ETA_FLOOR)
+            if not ok:
+                bad.append((k, r))
+        elif k == "dba":
             if not (r["poses"] <= r["limit"] and r["disps"] <= r["limit"]
                     and r["bit_stable"]):
                 bad.append((k, r))
@@ -526,13 +669,15 @@ def main(argv=None):
     p.add_argument("--parent", default=None,
                    help="an earlier dba.cu to time in turns with this one")
     p.add_argument("--record_backend", action="store_true",
-                   help="track bench_terminate's 100 keyframes and write "
-                        "the backend's largest DBA call to BACKEND_CALL "
-                        "(nothing else)")
+                   help="track bench_terminate's n_kf keyframes and write "
+                        "the backend's largest DBA call to "
+                        "BACKEND_CALLS[n_kf] (nothing else)")
+    p.add_argument("--n_kf", type=int, default=100,
+                   choices=sorted(BACKEND_CALLS))
     args = p.parse_args(argv)
     kbench.require_cuda()
     if args.record_backend:
-        call = record_backend()
+        call = record_backend(args.n_kf)
         print(json.dumps({k: v for k, v in call.items()
                           if k not in ("ii", "jj")}))
         return call

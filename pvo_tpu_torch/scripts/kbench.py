@@ -142,13 +142,24 @@ def peak_flops(card=None):
     return CARD_PEAK_FLOP_S[card]["bf16"]
 
 
+def averages(prof):
+    """``prof.key_averages()`` of a finished ``torch.profiler`` run,
+    computed at the first call and kept on ``prof``: each call of
+    ``key_averages`` walks every event again, and several helpers read
+    one run's rows."""
+    rows = getattr(prof, "_pvo_key_averages", None)
+    if rows is None:
+        rows = prof._pvo_key_averages = prof.key_averages()
+    return rows
+
+
 def device_op_totals(prof):
     """{kernel name: (total us, launches)} over the kernel rows of a
     finished ``torch.profiler`` run (its CUDA rows, the ranges'
     annotation rows left out; the ctypes-launched kernels and those a
     CUDA graph replays included)."""
     out = {}
-    for r in prof.key_averages():
+    for r in averages(prof):
         if r.device_type != torch.autograd.DeviceType.CUDA or \
                 r.key.startswith(RANGE_PREFIXES):
             continue
@@ -371,7 +382,7 @@ def segsum_jobs_bound(jobs):
     return _f32_bound(b, f)
 
 
-def dba_bound(name, E, K, HW, F=0, NP=0, valid_pairs=None,
+def dba_bound(name, E=0, K=0, HW=0, F=0, NP=0, valid_pairs=None,
               valid_edges=None, motion_only=False, P=0):
     """The roofline bound of one launch of the DBA's kernels
     (``csrc/dba.cu``) at E edges, K depth frames, HW pixels a frame, F
@@ -392,7 +403,13 @@ def dba_bound(name, E, K, HW, F=0, NP=0, valid_pairs=None,
     the retraction's 3x3 products, 72 a frame; ``trace_track.KernelFlops``
     counts these): for the Schur terms over ``valid_pairs`` of the NP
     slots (all by default, as the plain version computes them; an
-    invalid slot reads nothing)."""
+    invalid slot reads nothing). ``dba_solve`` (M = 6P) reads the lower
+    triangles of H and, unless ``motion_only``, S_sum (M (M + 1) / 2
+    values each: a Cholesky factorization reads no more), v and corr_v,
+    and writes dx; its operations are the factorization's M^3/3, the two
+    triangular solves' 2 M^2 and the damping's M, which
+    ``FlopCounterMode`` does not count in the plain version (cuSOLVER's
+    potrf and trsv)."""
     f = 4
     if name == "dba_linearize":
         ve = E if valid_edges is None else valid_edges
@@ -412,6 +429,11 @@ def dba_bound(name, E, K, HW, F=0, NP=0, valid_pairs=None,
                 (2 * E + K + F) * 8
             b_out += F * HW * f
             flops += 12 * (E + K) * HW
+    elif name == "dba_solve":
+        M, terms = 6 * P, 1 if motion_only else 2
+        b_in = terms * (M * (M + 1) // 2 + M) * f
+        b_out = M * f
+        flops = M ** 3 // 3 + 2 * M * M + M
     else:
         raise ValueError(f"no DBA kernel named {name!r}")
     return _f32_bound(b_in + b_out, flops)
@@ -526,7 +548,8 @@ def main():
             ("dba_linearize", dba_bound("dba_linearize", E, K, HW)),
             ("dba_schur", dba_bound("dba_schur", E, K, HW, NP=2048)),
             ("dba_backsub", dba_bound("dba_backsub", E, K, HW, F=40,
-                                      P=32))):
+                                      P=32)),
+            ("dba_solve", dba_bound("dba_solve", P=32))):
         print(f"{name} E={E} K={K} 30x101: {b['bytes'] / 1e9:.4f} GB, "
               f"{b['flops'] / 1e9:.3f} GFLOP, bound {b['ms']:.4f} ms "
               f"({b['bound_by']})")

@@ -59,7 +59,7 @@ def _corr(kernel, E, H, W, C):
     return kbench.kernel_bound(kernel, E, H, W, C)["flops"]
 
 
-def _dba(kernel, E, K, HW, **kw):
+def _dba(kernel, E=0, K=0, HW=0, **kw):
     return kbench.dba_bound(kernel, E, K, HW, **kw)["flops"]
 
 
@@ -68,7 +68,9 @@ def _dba(kernel, E, K, HW, **kw):
 # the plain stand-in of K3 in the motion filter's probe on the CPU;
 # cuda_segsum.sums is the entry of every segment sum (index_add and
 # segment_sum call it); the DBA's kernels count the einsums of their plain
-# versions, every pair slot included
+# versions, every pair slot included, and the solve (on either route) the
+# factorization's and triangular solves' operations, which the counter
+# does not see in the plain version
 WRAPPERS = (
     (cuda_corr, "build_volumes", "build_volumes",
      lambda f1, f2, *a, **kw: _corr("build_volumes", *f1.shape)),
@@ -94,6 +96,12 @@ WRAPPERS = (
      lambda Ei_m, Ej, C, eta, w_m, m_c, pairs_a, *a, **kw: _dba(
          "dba_schur", Ej.shape[0], Ei_m.shape[0], Ei_m.shape[-1],
          NP=pairs_a.shape[0])),
+    (cuda_dba, "solve", "dba_solve",
+     lambda H, S_sum, v, corr_v, P, *a, **kw: _dba(
+         "dba_solve", P=P, motion_only=S_sum is None)),
+    (cuda_dba, "solve_library", "dba_solve_library",
+     lambda H, S_sum, v, corr_v, P, *a, **kw: _dba(
+         "dba_solve", P=P, motion_only=S_sum is None)),
     (cuda_dba, "backsub", "dba_backsub",
      lambda poses, dx, frame_row, disps, Ej=None, pj_sel=None, m_k=None,
      Ei_m=None, *a, **kw: _dba(
@@ -214,12 +222,13 @@ def count_frame(sysm, frame, sections=None):
 def replay_counted(drv, records):
     """{kernel: launches} of replayed frames with records ``records`` as
     ``FrameGraph.per_replay`` counts them: K1, K2, K3, the segment sum and
-    the DBA's kernels."""
+    the DBA's kernels (not the solve's library route, no kernel)."""
     counted = dict.fromkeys(("build_volumes", "corr_extract", "corr_lookup",
                              "segsum", *cuda_dba.KERNELS), 0)
     for rec in records:
         for k, v in drv.frame_graph.per_replay(drv.sections(rec)).items():
-            counted[k] += v
+            if k != "dba_solve_library":
+                counted[k] += v
     return counted
 
 
@@ -229,7 +238,7 @@ def profile_launches(prof):
     rows = {k: n for k, (_, n) in corr_rows(prof).items()}
 
     def named(name):
-        return sum(r.count for r in prof.key_averages()
+        return sum(r.count for r in kbench.averages(prof)
                    if r.device_type == torch.autograd.DeviceType.CUDA
                    and name in r.key)
     return {"build_volumes": rows["K1"], "corr_extract": rows["K2"],

@@ -7,10 +7,14 @@ structured terms: self x self per depth frame, self x edge, and
 edge x edge over pairs of edges sharing a source frame (built on the
 host by :func:`build_edge_pairs`, or on the device by the planner).
 The contractions are :mod:`cuda_dba`'s kernels on the card (the
-linearization, the Schur terms, and everything after the solve in one
-launch: the pose retraction, the depth back-substitution with its edge
-terms summed per depth frame, the disparities; their plain versions on
-the CPU), called through the module's attributes. Scatter-sums are
+linearization, the Schur terms, the damped solve from the summed blocks
+to dx, and everything after the solve in one launch: the pose
+retraction, the depth back-substitution with its edge terms summed per
+depth frame, the disparities; their plain versions on the CPU), called
+through the module's attributes. The solve takes the kernel up to
+``cuda_dba.SOLVE_MAX_P`` poses (its system fits one block's shared
+memory) and the library's factorization above it
+(``cuda_dba.solve_route``, a rule of the Python int P). Scatter-sums are
 :func:`cuda_segsum.sums`, which sums in a fixed order on the card as on
 the CPU, two launches a full iteration (H, v, C, w, Ei; the Schur sum
 and the rhs correction) and one a motion-only one; rows whose index is
@@ -29,7 +33,6 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from pvo_tpu_torch.geom.chol import solve_psd
 from pvo_tpu_torch.vo.net import cuda_dba, cuda_segsum
 
 # the plain version's pair chunk (cuda_dba.schur_plain); the kernel needs none
@@ -77,7 +80,6 @@ def dba(poses, disps, intrinsics, target, weight, eta, ii, jj, valid,
     F = poses.shape[0]
     h, w = disps.shape[-2:]
     HW = h * w
-    D = 6
     as_long = (lambda a: torch.as_tensor(a, device=dev).long())
     ii, jj = as_long(ii), as_long(jj)
     valid = torch.as_tensor(valid, device=dev).bool()
@@ -86,6 +88,8 @@ def dba(poses, disps, intrinsics, target, weight, eta, ii, jj, valid,
     eta_flat = eta.reshape(K, HW)
     ix = _indices(ii, jj, valid, pairs_a, pairs_b, pairs_valid, t0, t1, w0,
                   P, K, F)
+    solve = (cuda_dba.solve if cuda_dba.solve_route(P) == "dba_solve" else
+             cuda_dba.solve_library)
 
     def one_iteration(poses, disps):
         Hblk, vblk, Ei, Ej, Ck, wk = cuda_dba.linearize(
@@ -106,9 +110,8 @@ def dba(poses, disps, intrinsics, target, weight, eta, ii, jj, valid,
                      cuda_segsum.zero_sum(Ei, ix.m_ki, K)]
         H, v, *depth = cuda_segsum.sums(jobs)
 
-        if motion_only:
-            S, rhs = H, v
-        else:
+        S_sum = corr_v = None
+        if not motion_only:
             C, w_m, Ei_m = depth          # (K, HW), (K, HW), (K, 6, HW)
             # (a) self x self per depth frame, (b) self x edge and its
             # transpose, (c) edge x edge over same-source pairs; the rhs
@@ -121,13 +124,10 @@ def dba(poses, disps, intrinsics, target, weight, eta, ii, jj, valid,
             S_sum, corr_v = cuda_segsum.sums([
                 cuda_segsum.zero_sum(rows, ix.s_idx, P * P),
                 cuda_segsum.zero_sum(rc, ix.ridx, P)])
-            S = H - S_sum
-            rhs = v - corr_v
 
-        # damped dense solve
-        Sd = S.reshape(P, P, D, D).permute(0, 2, 1, 3).reshape(P * D, P * D)
-        Sd = Sd + torch.diag(ep + lm * torch.diagonal(Sd))
-        dx = solve_psd(Sd[None], rhs.reshape(1, P * D, 1)).reshape(P, D)
+        # one launch: the damped dense solve (H - S_sum) dx = v - corr_v;
+        # the library's above cuda_dba.SOLVE_MAX_P poses
+        dx = solve(H, S_sum, v, corr_v, P, ep, lm)
 
         # one launch: the pose retraction over [t0, t1) and, for a full
         # iteration, the depth back-substitution (the edge terms summed

@@ -16,19 +16,29 @@ module's attributes.
   weighted Gram [Ei_m; Ej of the frame's edges] Q [..]^T. The kernel
   builds the frames' groups from ``m_c`` itself; a valid slot's two
   edges must share a depth frame, as ``dba.build_edge_pairs``' do.
+- :func:`solve` (kernel ``dba_solve``): the damped solve of the reduced
+  camera system from the summed blocks to dx in one launch of one
+  block: Sd = H - S_sum in the (6P x 6P) order, its diagonal damped,
+  factored in shared memory with b = v - corr_v riding along, both
+  triangular solves and ``solve_psd``'s failure mask. P up to
+  ``SOLVE_MAX_P``; :func:`solve_route` sends a larger P to
+  :func:`solve_library` (the plain version, counted as
+  ``dba_solve_library``).
 - :func:`backsub` (kernel ``dba_backsub``): the iteration's whole update
   after the solve in one launch, the poses retracted by dx and, for a
   full iteration, the edge terms summed per depth frame in edge order,
   dz and the updated disparities.
 
 None replaces a TPU kernel: the JAX package leaves this work to XLA
-(``pvo_tpu/geom/ba.py`` ``_edge_blocks``, ``pvo_tpu/vo/dba.py``). On the
-card these were einsums that cuBLAS ran as gemv and small f32 GEMMs,
-about 21 ms of a replayed planner frame's 76.3 (ROADMAP, "Farthest from
-the bound", item 1), and the retraction some 70 elementwise kernels an
-iteration. The source's note gives each kernel's design and
-bound. The wrappers launch the kernels for CUDA tensors (built like the
-corr kernels, :func:`cuda_corr.build`, on the current stream;
+(``pvo_tpu/geom/ba.py`` ``_edge_blocks``, ``pvo_tpu/vo/dba.py``; the
+solve ``pvo_tpu/geom/chol.py:21-32``). On the card these were einsums
+that cuBLAS ran as gemv and small f32 GEMMs, about 21 ms of a replayed
+planner frame's 76.3 (ROADMAP, "Farthest from the bound", item 1), the
+retraction some 70 elementwise kernels an iteration, and the solve
+cuSOLVER's potrf and two trsv with some 26 small kernels around them.
+The source's note gives each kernel's design and bound. The wrappers
+launch the kernels for CUDA tensors (built like the corr kernels,
+:func:`cuda_corr.build`, on the current stream;
 ``LAUNCHES`` counts them) and take the plain versions (the einsums the
 DBA ran before) only for tensors on the CPU. The kernels have no
 backward: a CUDA input that requires grad raises. Training
@@ -43,20 +53,27 @@ from pathlib import Path
 import torch
 
 from pvo_tpu_torch.geom.ba import _edge_blocks
+from pvo_tpu_torch.geom.chol import solve_psd
 from pvo_tpu_torch.lie import se3
 
 from . import cuda_corr, cuda_segsum
 
-KERNELS = ("dba_linearize", "dba_schur", "dba_backsub")
-LAUNCHES = dict.fromkeys(KERNELS, 0)
+KERNELS = ("dba_linearize", "dba_schur", "dba_backsub", "dba_solve")
+# and the solves above SOLVE_MAX_P, which take the library route on the card
+LAUNCHES = dict.fromkeys((*KERNELS, "dba_solve_library"), 0)
 SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "dba.cu"
 D = 6
+# the most poses dba_solve takes: the padded system's lower triangle in
+# 32 x 32 tiles of row stride 33, b and the pivots' 1/sqrt, 192,384
+# bytes of the 232,448 a block may have at P = 48 (M = 288, 45 tiles);
+# P = 49 would need 234,880 (csrc/dba.cu SV_MAX_P)
+SOLVE_MAX_P = 48
 
 _lib = None
 
 
 def reset_launches():
-    for k in KERNELS:
+    for k in LAUNCHES:
         LAUNCHES[k] = 0
 
 
@@ -68,8 +85,13 @@ def load(source=SOURCE):
     lib.pvo_dba_linearize.argtypes = [p] * 8 + [i] * 3 + [p] * 7
     lib.pvo_dba_schur.argtypes = [p] * 9 + [i] * 4 + [p] * 3
     lib.pvo_dba_backsub.argtypes = [p] * 13 + [i] * 4 + [p] * 3
-    for fn in (lib.pvo_dba_linearize, lib.pvo_dba_schur,
-               lib.pvo_dba_backsub):
+    fns = [lib.pvo_dba_linearize, lib.pvo_dba_schur, lib.pvo_dba_backsub]
+    # an earlier source (dba_probe --parent) may have no solve
+    if hasattr(lib, "pvo_dba_solve"):
+        f = ctypes.c_float
+        lib.pvo_dba_solve.argtypes = [p] * 4 + [i, f, f, p, p]
+        fns.append(lib.pvo_dba_solve)
+    for fn in fns:
         fn.restype = ctypes.c_int
     return lib
 
@@ -230,6 +252,87 @@ def schur(Ei_m, Ej, C, eta, w_m, m_c, pairs_a, pairs_b, pairs_valid,
             *(t.data_ptr() for t in ts), K, E, NP, HW, rows.data_ptr(),
             rc.data_ptr())
     return rows, rc
+
+
+# ---- dba_solve ----
+
+def solve_route(P):
+    """Which route solves a system of ``P`` poses on the card: the kernel
+    (``"dba_solve"``) up to ``SOLVE_MAX_P``, whose system fits one block's
+    shared memory, and the library (``"dba_solve_library"``:
+    :func:`solve_library`, cuSOLVER) above it, the backend beyond 48
+    keyframes. A rule of the size alone, decided on the host; never a
+    fallback: on the kernel's route a failed build or launch raises."""
+    return "dba_solve" if P <= SOLVE_MAX_P else "dba_solve_library"
+
+
+def damped(H, S_sum, P, ep=0.1, lm=1e-4):
+    """The (6P x 6P) matrix :func:`solve` factors: S = H - S_sum (H where
+    S_sum is None) in the pose blocks' order, its diagonal damped as
+    d + (ep + lm d)."""
+    S = H if S_sum is None else H - S_sum
+    Sd = S.reshape(P, P, D, D).permute(0, 2, 1, 3).reshape(P * D, P * D)
+    return Sd + torch.diag(ep + lm * torch.diagonal(Sd))
+
+
+def solve_plain(H, S_sum, v, corr_v, P, ep=0.1, lm=1e-4):
+    """The plain version of :func:`solve`: the :func:`damped` matrix,
+    rhs = v - corr_v (v where corr_v is None) and ``geom.chol.solve_psd``.
+    Returns dx (P, 6)."""
+    rhs = v if corr_v is None else v - corr_v
+    return solve_psd(damped(H, S_sum, P, ep, lm)[None],
+                     rhs.reshape(1, P * D, 1)).reshape(P, D)
+
+
+def solve_library(H, S_sum, v, corr_v, P, ep=0.1, lm=1e-4):
+    """:func:`solve_plain` as the route above ``SOLVE_MAX_P`` (cuSOLVER's
+    factorization on the card), counted under
+    ``LAUNCHES["dba_solve_library"]`` there."""
+    if H.device.type == "cuda":
+        LAUNCHES["dba_solve_library"] += 1
+    return solve_plain(H, S_sum, v, corr_v, P, ep, lm)
+
+
+def solve(H, S_sum, v, corr_v, P, ep=0.1, lm=1e-4):
+    """The DBA iteration's damped solve: H, S_sum (P*P, 6, 6) the summed
+    pose blocks and Schur terms (block p*P + q holds rows 6p.., columns
+    6q.. of the system), v, corr_v (P, 6); S_sum and corr_v None for a
+    motion-only iteration. Solves (H - S_sum) x = v - corr_v with the
+    diagonal damped as d + (ep + lm d), reading only the lower triangle,
+    and returns dx (P, 6), zeros where the factorization failed (a pivot
+    <= 0 or not finite) or x is not finite. One launch of ``dba_solve`` on
+    the card (P <= ``SOLVE_MAX_P``), the plain version on the CPU."""
+    dev = H.device
+    if dev.type == "cpu":
+        return solve_plain(H, S_sum, v, corr_v, P, ep, lm)
+    if not 1 <= P <= SOLVE_MAX_P:
+        raise ValueError(f"dba_solve: P={P} outside [1, {SOLVE_MAX_P}] "
+                         "(solve_route)")
+    if (S_sum is None) != (corr_v is None):
+        raise ValueError("dba_solve: S_sum and corr_v are both given or "
+                         "neither")
+    blocks = (H,) if S_sum is None else (H, S_sum)
+    if (any(tuple(t.shape) != (P * P, D, D) for t in blocks) or
+            any(tuple(t.shape) != (P, D)
+                for t in ((v,) if corr_v is None else (v, corr_v)))):
+        raise ValueError(f"dba_solve: H {tuple(H.shape)}, v "
+                         f"{tuple(v.shape)} at P={P}")
+    ts = _checked("dba_solve", [t for t in (H, S_sum, v, corr_v)
+                                if t is not None], dev)
+    if any(t.dtype != torch.float32 for t in ts):
+        raise TypeError("dba_solve: the blocks and vectors are float32")
+    # the kernel stages the blocks by 16-byte copies (the segment sum's
+    # outputs are allocations of their own, so aligned)
+    ts = [t.clone() if t.data_ptr() % 16 else t for t in ts]
+    if S_sum is None:
+        H, v = ts
+    else:
+        H, S_sum, v, corr_v = ts
+    dx = torch.empty((P, D), dtype=torch.float32, device=dev)
+    _launch("dba_solve", _library().pvo_dba_solve, dev, H.data_ptr(),
+            _ptr(S_sum), v.data_ptr(), _ptr(corr_v), P, ep, lm,
+            dx.data_ptr())
+    return dx
 
 
 # ---- dba_backsub ----

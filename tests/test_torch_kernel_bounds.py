@@ -14,7 +14,7 @@ from pathlib import Path
 import pytest
 
 from pvo_tpu.utils.config import VOConfig as JaxVOConfig
-from pvo_tpu_torch.scripts import kbench
+from pvo_tpu_torch.scripts import dba_probe, kbench
 from pvo_tpu_torch.utils.config import VOConfig
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -97,6 +97,24 @@ def test_packed_bounds(name, E):
     assert b["bound_by"] == "bytes"
     twin = "corr_lookup" if "lookup" in name else "corr_extract"
     assert b["bytes_in"] == kbench.kernel_bound(twin, E, 30, 101)["bytes_in"]
+
+
+@pytest.mark.parametrize("shape", sorted(dba_probe.SHAPES))
+def test_solve_bound_at_the_probe_shapes(shape):
+    """``dba_solve``'s bound at each probe shape's P (motion-only where the
+    shape is): positive and finite; M^3/3 + 2 M^2 + M operations and the
+    lower triangles (M (M + 1) / 2 values of H and, on a full iteration,
+    S_sum), v, corr_v and dx, f32."""
+    motion_only = dba_probe.SHAPES[shape][-1]
+    # P = K but at the backend's recorded calls
+    P = (dba_probe.GRAPHS[shape]["P"] if shape in dba_probe.GRAPHS else
+         dba_probe.SHAPES[shape][1])
+    b = kbench.dba_bound("dba_solve", P=P, motion_only=motion_only)
+    M, terms = 6 * P, 1 if motion_only else 2
+    assert b["flops"] == M ** 3 // 3 + 2 * M * M + M
+    assert b["bytes"] == 4 * (terms * (M * (M + 1) // 2 + M) + M)
+    assert 0 < b["ms"] < float("inf")
+    assert b["bound_by"] in ("bytes", "operations")
 
 
 def test_bound_scales_and_rejects_unknown():

@@ -283,8 +283,12 @@ def test_kernel_flops_read_the_plain_count_of_a_dba_call():
     assert counter.kernels["dba_linearize"][0] == 2
     assert counter.kernels["dba_schur"][0] == 2
     assert counter.kernels["dba_backsub"][0] == 2
-    assert counter.total - counter.kernels["segsum"][1] == \
-        plain.get_total_flops()
+    assert counter.kernels["dba_solve"] == [
+        2, 2 * kbench.dba_bound("dba_solve", P=7)["flops"]]
+    # the counter sees neither the segment sums' adds nor the solve's
+    # factorization and triangular solves
+    assert counter.total - counter.kernels["segsum"][1] - \
+        counter.kernels["dba_solve"][1] == plain.get_total_flops()
 
 
 def test_bounds_at_the_planners_shape():
@@ -341,12 +345,15 @@ def test_wrappers_refuse_grad_and_shapes_off_the_cpu():
 
 
 def test_counters_are_wired():
-    assert cuda_dba.KERNELS == ("dba_linearize", "dba_schur", "dba_backsub")
+    assert cuda_dba.KERNELS == ("dba_linearize", "dba_schur", "dba_backsub",
+                                "dba_solve")
+    assert set(cuda_dba.LAUNCHES) == {*cuda_dba.KERNELS, "dba_solve_library"}
     assert cuda_dba.LAUNCHES in graph_capture.COUNTERS
     counts = kbench.launch_counts()
     assert all(k in counts for k in cuda_dba.KERNELS)
     shimmed = {(mod, name) for mod, name, _, _ in trace_track.WRAPPERS}
-    for name in ("linearize", "schur", "backsub"):
+    assert (cuda_dba, "solve_library") in shimmed
+    for name in ("linearize", "schur", "backsub", "solve"):
         assert (cuda_dba, name) in shimmed
         assert callable(getattr(cuda_dba, name + "_plain"))
 
@@ -354,7 +361,8 @@ def test_counters_are_wired():
     class Graph:
         def per_replay(self, ran):
             return {"segsum": 30, "dba_linearize": 12, "dba_schur": 12,
-                    "dba_backsub": 12}
+                    "dba_backsub": 12, "dba_solve": 12,
+                    "dba_solve_library": 0}
 
     class Planner:
         frame_graph = Graph()
@@ -363,6 +371,7 @@ def test_counters_are_wired():
             return ()
     counted = trace_track.replay_counted(Planner(), [None, None])
     assert counted["dba_backsub"] == 24 and counted["segsum"] == 60
+    assert counted["dba_solve"] == 24 and "dba_solve_library" not in counted
 
 
 def test_indices_are_built_once_a_call(monkeypatch):
@@ -427,12 +436,14 @@ def test_kernels_against_plain_on_the_card(dev, name):
 @pytest.mark.cuda
 def test_segment_sums_unchanged_a_full_iteration(dev):
     """Two segment-sum launches a full iteration and, with the kernels,
-    one linearization, one Schur launch and one back-substitution (the
-    update after the solve: no edge-term sum, no eager retraction)."""
+    one linearization, one Schur launch, one solve and one
+    back-substitution (the update after the solve: no edge-term sum, no
+    eager retraction)."""
     a = dba_probe.inputs(48, 32, 30, 101, 512, dev)
     cuda_segsum.reset_launches()
     cuda_dba.reset_launches()
     dba_probe.call_dba(a, iters=2)
     assert cuda_segsum.LAUNCHES["segsum"] == 4
     assert cuda_dba.LAUNCHES == {"dba_linearize": 2, "dba_schur": 2,
-                                 "dba_backsub": 2}
+                                 "dba_backsub": 2, "dba_solve": 2,
+                                 "dba_solve_library": 0}

@@ -22,9 +22,10 @@ package before the card sees it.
   shape's groups of about 30 edges, which span several row tiles.
 - The library yardstick's rows (``dba_probe.gram_operands`` /
   ``gram_rows``, one bmm of every frame's Gram) equal ``schur_plain``'s.
-- ``dba_probe``'s ``backend`` shape is the recorded call: its edges,
-  windows and pair slots are those the backend's graph builder and
-  ``FactorGraph._update`` make.
+- ``dba_probe``'s ``backend`` and ``backend40`` shapes are the recorded
+  calls (at 100 and 40 keyframes): their edges, windows and pair slots
+  are those the backend's graph builder and ``FactorGraph._update``
+  make.
 
 The kernel builds its groups itself from ``m_c`` in shared memory, so
 ``vo/dba.py`` builds no new index lists.
@@ -297,16 +298,31 @@ def test_backend_shape_is_the_recorded_backend_call():
     edges that ``add_proximity_factors`` makes (both directions of each
     pair, every neighbour within the backend radius), all valid, and
     every pair slot of ``build_edge_pairs`` unpadded."""
+    K = check_recorded_call("backend", dba_probe.backend_call())
+    assert K > 64
+
+
+def test_backend40_shape_is_the_recorded_call_at_40_keyframes():
+    """The same of ``backend40``, the backend's call at the 40 keyframes
+    that ``chip_smoke.py``'s main path tracks: P = 39, on the solve
+    kernel's route."""
+    call = dba_probe.backend_call(40)
+    check_recorded_call("backend40", call)
+    assert call["P"] == 39 <= cuda_dba.SOLVE_MAX_P
+
+
+def check_recorded_call(name, call):
+    """The checks of the recorded-call tests on shape ``name``; returns
+    its K."""
     from pvo_tpu_torch.utils.config import VOConfig
-    call = dba_probe.backend_call()
     ii, jj = np.asarray(call["ii"]), np.asarray(call["jj"])
-    E, K, h, w, n_pairs, motion_only = dba_probe.SHAPES["backend"]
+    E, K, h, w, n_pairs, motion_only = dba_probe.SHAPES[name]
     assert (E, K, [h, w], n_pairs, motion_only) == (
         len(ii), call["K"], call["hw"], None, False)
     assert call["w0"] == ii.min() and K == ii.max() - ii.min() + 1
     assert call["t0"] == max(1, ii.min() + 1) and call["P"] == \
         call["t1"] - call["t0"]
-    assert len(ii) == max(call["backend_edges"]) and K > 64
+    assert len(ii) == max(call["backend_edges"])
     # each pair in both directions (a pair both a neighbour and a
     # proximity candidate comes twice, as add_proximity_factors adds it)
     edges = Counter(zip(ii.tolist(), jj.tolist()))
@@ -315,7 +331,7 @@ def test_backend_shape_is_the_recorded_backend_call():
     rad = VOConfig().backend_radius
     assert all((i, j) in edges for i in range(call["t1"])
                for j in range(i + 1, min(i + rad + 1, call["t1"])))
-    a = dba_probe.shape_inputs("backend", "cpu", hw=(4, 6))
+    a = dba_probe.shape_inputs(name, "cpu", hw=(4, 6))
     assert torch.equal(a["ii"], torch.from_numpy(ii)) and \
         torch.equal(a["jj"], torch.from_numpy(jj))
     assert bool(a["valid"].all())
@@ -324,3 +340,4 @@ def test_backend_shape_is_the_recorded_backend_call():
     pa, pb, pv = tdba.build_edge_pairs(ii, np.ones(E, bool))
     assert torch.equal(a["pairs_a"], torch.from_numpy(pa)) and \
         torch.equal(a["pairs_b"], torch.from_numpy(pb)) and bool(pv.all())
+    return K

@@ -13,7 +13,7 @@ import json
 
 import pytest
 
-from pvo_tpu_torch.scripts import profile_track, trace_track
+from pvo_tpu_torch.scripts import kbench, profile_track, trace_track
 from pvo_tpu_torch.vo import planner
 
 from torch_one_thread import one_thread  # noqa: F401
@@ -68,6 +68,24 @@ def test_frame_flops_corr_part_by_hand(traced):
     assert out["frame_gflop"] == pytest.approx(total, rel=1e-12)
     # the plain versions' own products were counted and left out
     assert out["plain_gflop_left_out"] > 0
+
+
+def test_frame_flops_count_the_solves(traced):
+    """Each DBA iteration of the frame counts one damped solve at the
+    planner's P=32 by ``kbench.dba_bound``'s formula (FlopCounterMode
+    sees nothing of the plain version's cholesky_ex and triangular
+    solves): 12 a frame with the full regime's 6 updates of 2
+    iterations, one a backsub in any case."""
+    out, _ = traced
+    kf = out["kernel_flops"]
+    n = kf["dba_backsub"]["calls"]
+    assert kf["dba_solve"]["calls"] == n > 0
+    assert "dba_solve_library" not in kf
+    per = kbench.dba_bound("dba_solve", P=32)["flops"]  # PlannerProgram.P
+    assert kf["dba_solve"]["gflop"] == pytest.approx(n * per / 1e9,
+                                                     rel=1e-12)
+    if ("update", "full") in [tuple(p) for p in out["sections"]]:
+        assert n == 12
 
 
 def test_forced_sections_count_the_same(traced):

@@ -3,9 +3,9 @@
     python3 chip_smoke.py            the whole run
     python3 chip_smoke.py main       only the named phases (kernels,
                                      packed, reference, main, planner,
-                                     harness, export, vps, loop, train,
-                                     vps_train, demo, dp, tools), without
-                                     the result lines
+                                     planner_wide, harness, export, vps,
+                                     loop, train, vps_train, demo, dp,
+                                     tools), without the result lines
 
 Phases, one line each (any failure exits non-zero):
   1. device   - requires CUDA; prints the card's name and power limit;
@@ -21,7 +21,9 @@ Phases, one line each (any failure exits non-zero):
                 pad columns exactly 0; K2 must also reproduce, bit for
                 bit, the output of the kernel it replaced on a saved
                 case. K3 <= 1e-4 at 30x101 with E in {1, 48, 256}, wide
-                47x156 and tall 128x40, for bf16 features (bf16
+                47x156 with E in {2, 256} (the backend's chunk on a
+                wide stream; its plain version on slices of the edges)
+                and tall 128x40, for bf16 features (bf16
                 products) and f32 ones (three TF32 passes), through both
                 entries (gathered features, and frames + pyramid + edge
                 indices in the kernel), on smooth, scattered, mixed,
@@ -49,21 +51,26 @@ Phases, one line each (any failure exits non-zero):
                 (segsum.cu, B5) bit-equal to the CPU's index_add_ at
                 the planner's full-width shapes (GraphAgg's sum and
                 counts; the DBA's Hessian, gradient, C, w, edge x
-                depth, Schur, pair and rhs sums), each in
+                depth, Schur, pair and rhs sums; GraphAgg's, C, w and
+                edge x depth also at 376x1248, 47x156), each in
                 both modes (accumulate, zero start), and in the
                 tracker's batched launches (GraphAgg's; the DBA's two
-                a full iteration), with its kernel time (a CUDA graph
-                of calls) beside the card's index_add_ and its bound.
+                a full iteration; the first two at 376x1248 too), with
+                its kernel time (a CUDA graph of calls) beside the
+                card's index_add_ and its bound.
                 The DBA's kernels (dba.cu: linearize, Schur terms, the
                 damped solve, the update after the solve: the
                 back-substitution with
                 its edge terms summed per depth frame and the pose
                 retraction, one launch) at dba_probe.SHAPES (30x101 with
-                E=144, K=P=32, 2048 pair slots; E=48; 47x156; 128x40;
+                E=144, K=P=32, 2048 pair slots, and the same at 47x156,
+                planner_wide; E=48; 47x156; 128x40;
                 E=1; motion-only; E=48 at 47x155, an odd pixel count;
                 the backend's recorded call, E=1008 over K=100 frames,
                 and at 40 keyframes, the P (about 39) that phase 5
-                gives the solve; crowded: E=958 over 32 frames, about
+                gives the solve, and at 40 keyframes of a 376x1248
+                stream (planner_wide's terminate); crowded: E=958 over
+                32 frames, about
                 30 edges a frame; the filler's P=16 motion-only; P =
                 K = cuda_dba.SOLVE_MAX_P): each output within 1e-4 of
                 the plain version relative to its largest magnitude,
@@ -77,7 +84,9 @@ Phases, one line each (any failure exits non-zero):
                 own card-against-CPU difference, if larger); times by
                 CUDA graph beside the plain versions', the bound and,
                 for the Schur terms, one bmm of every depth frame's
-                weighted Gram (whose blocks are all its rows). The
+                weighted Gram (whose blocks are all its rows); at
+                planner_wide each call timed with the L2 cleared before
+                it (DBA_COLD). The
                 solve (dba_probe.check_solve) at every shape up to
                 cuda_dba.SOLVE_MAX_P (also the filler's, P=16
                 motion-only): dx within 1e-4 of the plain version, or 4x
@@ -227,10 +236,43 @@ Phases, one line each (any failure exits non-zero):
                 core the planner's decisions equal the classic path's,
                 poses within 1e-3; capture fails on any host read;
                 PLANNER_SEGSUMS (30) segment-sum launches a replay and
-                PLANNER_DBA's DBA-kernel launches (12, 12, 12, 12).
+                PLANNER_DBA's DBA-kernel launches (12, 12, 12, 12);
+                K3's route counters hold every (block, level) pair of
+                the replays' K3 launches (the probe's f32 K3 here).
                 Printed: ms and frames/s a run, device ms, kernels, host
                 CUDA API calls and busy share a frame, capture seconds,
                 the graph's launches a frame.
+ 12b. planner_wide - (after phase 12, in a process of its own: after
+                earlier graphs and profiles in a process the profiler can
+                name a later graph's kernels wrongly) the same runs at
+                376x1248 (47x156
+                features: the "indexed" route, an update's 2E frames
+                gathered and pooled once, K3 bf16 on every step; the
+                classic runs take the classic frontend's wide route)
+                over WIDE_FRAMES (26) frames. Held as in phase 12, and:
+                no K1 and no K2 a replay, K3 bf16 once per update step
+                that ran; K3's route counters hold every pair of the
+                replays' launches; K3 on the engaged planner's own
+                operands (lookup_operands, the update's coordinates)
+                within 1e-4 of its plain version. A second stream of
+                WIDE_RM_FRAMES (18) frames at keyframe_thresh
+                WIDE_KF_THRESH (6.0): graph bit-equal to eager; under
+                the oracle core the planner removes at least two
+                keyframes and equals the classic path (the same removed
+                timestamps, poses within 1e-3). Then the first graph
+                run tracks on to WIDE_TERM_FRAMES (40) frames, the
+                planner re-engaging on its graph, and terminates
+                (image_stream, backend_steps=(7, 12)): finite
+                trajectory, get_depth() and get_flow() at (counter, 376,
+                1248[, 2]), no K1 or K2. Printed: each
+                run's numbers as in phase 12, the regime of each update
+                frame, K3 at E=48 47x156 (kernel alone by CUDA events,
+                plain, bound, routes, launches a replay), the ms of an
+                update call's lookup_operands and lookup_pyramid,
+                terminate_s, backend_s, K3's calls by edges (the
+                backend's 256-edge chunks) and the peak memory, and
+                trace_track at 376x1248 in a process of its
+                own (kernel ms, kernels, GFLOP and MFU a replayed frame).
  13. demo     - the image-directory demo (scripts/demo.py) as a user
                 runs it, a subprocess: DEMO_FRAMES (32) frames of the
                 synthetic scene
@@ -348,6 +390,7 @@ from pvo_tpu_torch.scripts.test_vo2 import export_pair
 from pvo_tpu_torch.utils.config import VOConfig
 from pvo_tpu_torch.utils.tracing import range_device_ms
 from pvo_tpu_torch.vo import factor_graph, graph_capture
+from pvo_tpu_torch.vo import planner as planner_mod
 from pvo_tpu_torch.vo.factor_graph import FactorGraph
 from pvo_tpu_torch.vo.net import corr as corr_plain
 from pvo_tpu_torch.vo.net import cuda_corr
@@ -400,7 +443,11 @@ F32_ROWS = {"build_volumes": "build_volumes_f32",
             "corr_lookup": "corr_lookup_f32"}
 # K3's checks: (E, H, W) and the coordinates of kbench.lookup_coords
 K3_SHAPES = ((1, 30, 101), (48, 30, 101), (256, 30, 101), (2, 47, 156),
-             (2, 128, 40))
+             (256, 47, 156), (2, 128, 40))
+# the plain K3's f32 volumes (every level's) at most this many bytes at
+# once: beyond it (the backend's 256-edge chunk at 47x156 would take
+# 73 GB) it runs on slices of the edges (lookup_plain)
+PLAIN_VOLUME_BYTES = 16 << 30
 # the harness shapes of P1 (X1) and P2 (X2-X5), for their bounds
 HARNESS_E = {"corr_lookup_packed": 64, "corr_extract_packed": 32}
 # the corr experiment harnesses: TPU kernel -> (harness module, kernel,
@@ -429,7 +476,12 @@ PLANNER_DBA = {"dba_linearize": 12, "dba_schur": 12, "dba_backsub": 12,
 # (dba_probe alone times them at every shape); the
 # solve is also timed at bench_dba's, the filler's P=16 and, on the
 # library's route, the backend's P=99
-DBA_TIMED, DBA_REPS = ("planner",), 20
+DBA_TIMED, DBA_REPS = ("planner", "planner_wide"), 20
+# the timed shapes whose calls are timed with the L2 cleared before each
+# (kbench.graph_time_ms's flush): planner_wide's 35 MB of a call fit the
+# 50 MB L2, so back to back its kernels read it from there and beat the
+# bound from the memory's rate (backsub at 105-110% of it)
+DBA_COLD = ("planner_wide",)
 DBA_SOLVE_TIMED = ("planner", "bench_dba", "filler", "backend")
 # the TPU-side code each DBA kernel stands in for
 DBA_REPLACES = {
@@ -441,6 +493,22 @@ DBA_REPLACES = {
 # 13, two eager frames and the capture) and the profiled ones after them
 PLANNER_SIZE, PLANNER_FRAMES, PLANNER_STEADY, PLANNER_PROF = \
     (240, 808), 28, 20, 2
+# planner_wide: the same runs at 376x1248 (47x156 features: the card's
+# "indexed" route, K3 on every update step), with as many frames tracked
+# before the timed steady ones (the engage at 13, two eager frames, the
+# capture at 16) and as many timed (8)
+WIDE_SIZE, WIDE_FRAMES, WIDE_STEADY, WIDE_PROF = (376, 1248), 26, 18, 2
+# the second wide stream, which removes keyframes: its frames, the first
+# timed one and the keyframe threshold. Under the oracle core
+# neighbouring frames lie 4.32 apart at this size (frame_distance at the
+# oracle's poses and unit disparity; 8.65 two apart), so above that the
+# newest keyframe goes on every update
+WIDE_RM_FRAMES, WIDE_RM_STEADY, WIDE_KF_THRESH = 18, 16, 6.0
+# the frames the terminated wide run has seen: it tracks on after its
+# 28 (re-engaging the planner's graph) so that the backend holds more than
+# its 256-edge chunk and takes K3 on chunks (at 240x808, 40 frames gave
+# 344-376 edges)
+WIDE_TERM_FRAMES = 40
 # phase 5's split of terminate: the ranges read, and those that must
 # hold kernels
 TAIL_RANGES = ("vo.backend.", "vo.filler.")
@@ -528,12 +596,17 @@ TOOLS_CUTS = {
     "profile_vps_pipeline": ["--frames", "4"],
 }
 TOOLS_FLOP_HW, TOOLS_FLOP_WARM = (64, 96), 14
-# the depths cut to keep the whole run near 600 s (each phase's seconds
+# planner_wide's trace_track: two traced replays at 376x1248 after 20
+# warm frames (the capture at 16), a process of its own
+WIDE_TRACE_ARGV = ["2", "--warm", "20", "--image_size", "376", "1248"]
+# the depths cut to keep the whole run under 800 s (each phase's seconds
 # are printed beside its cut): widths, checks and paths are as before
 DEPTH_CUTS = {
     "kernels": "the DBA kernels timed at the planner's shape alone, "
                "not also at bench_dba's",
     "planner": "frames 40 -> 28 (8 timed steady frames, 20..27)",
+    "planner_wide": "frames 40 -> 26 (8 timed steady frames, 18..25), "
+                    "trace_track 5 -> 2 traced frames",
     "vps": "timed frames a mode 20 -> 5",
     "train": "default protocol steps 200 -> 20, recipe outer steps 10 -> 2",
     "tools": "trace_track 5 -> 2 traced frames, profile_track 10 -> 4 "
@@ -721,28 +794,33 @@ def check_kernels():
 def check_dba():
     """Phase 3, the DBA's kernels (csrc/dba.cu): at each of
     dba_probe.SHAPES (the planner's full regime at 30x101, E=144, K=P=32,
-    2048 pair slots; bench_dba's E=48; 47x156; 128x40; one edge; the
+    2048 pair slots, and at 47x156, planner_wide, also timed; bench_dba's
+    E=48; 47x156; 128x40; one edge; the
     planner's shape motion-only; odd_hw, E=48 at 47x155; backend, the
     backend's recorded call at 100 keyframes, E=1008 over K=100 frames;
-    crowded, E=958 over 32 frames; the last three untimed) each kernel
-    within dba_probe.TOL of its
-    plain version relative to the output's largest magnitude, bit-equal
+    backend40 and backend40_wide, its calls at 40 keyframes at 240x808
+    and 376x1248; crowded, E=958 over 32 frames; the last three untimed)
+    each kernel within dba_probe.TOL of its plain version relative to
+    the output's largest magnitude, bit-equal
     twice, a CUDA-graph replay equal to the eager call; dba.dba's poses
     and disparities after 2 iterations within its limit of the plain
     versions' (dba_probe.failures). At DBA_TIMED the kernel times (a
-    CUDA graph of DBA_REPS calls, kernel and plain in turns) beside the
-    bound and, for the Schur terms, one torch.bmm of every depth frame's
-    weighted Gram on operands stacked outside the timed call.
+    CUDA graph of DBA_REPS calls, kernel and plain in turns; at DBA_COLD
+    with the L2 cleared before each call) beside the bound and, for the
+    Schur terms, one torch.bmm of every depth frame's weighted Gram on
+    operands stacked outside the timed call.
     Returns the rows' numbers at the planner's shape with the worst error
     of all."""
     rows = {k: {"err": 0.0} for k in cuda_dba.KERNELS}
     for name in dba_probe.SHAPES:
         res = dba_probe.check(
             name, DBA_REPS if name in DBA_TIMED else 0,
-            solve_reps=DBA_REPS if name in DBA_SOLVE_TIMED else 0)
+            solve_reps=DBA_REPS if name in DBA_SOLVE_TIMED else 0,
+            cold=name in DBA_COLD)
+        l2 = {"l2": "cleared"} if name in DBA_COLD else {}
         for k, r in res.items():
             if k == "dba_solve":
-                check_solve_row(name, r, rows[k])
+                check_solve_row(name, r, rows[k], l2)
                 continue
             if k == "dba":
                 log("kernel", name="dba", shape=name,
@@ -762,7 +840,8 @@ def check_dba():
                              pose_tol=dba_probe.POSE_TOL)
             log("kernel", name=k, shape=name, max_rel_err=f"{r['err']:.3g}",
                 tol=dba_probe.TOL, bit_stable=r["bit_stable"],
-                graph_equals_eager=r["graph_equal"], **times, **share)
+                graph_equals_eager=r["graph_equal"], **times, **share,
+                **(l2 if "ms" in r else {}))
             rows[k]["err"] = max(rows[k]["err"], r["err"])
             if name == "planner":
                 rows[k].update(ms=min(r["ms"]), plain_ms=r["plain_ms"],
@@ -775,9 +854,10 @@ def check_dba():
     return rows
 
 
-def check_solve_row(name, r, row):
+def check_solve_row(name, r, row, l2):
     """Phase 3, the damped solve at dba_probe shape ``name``
-    (dba_probe.check_solve's ``r``): its line, and into ``row`` the worst
+    (dba_probe.check_solve's ``r``; its times, where it has them, taken
+    as ``l2`` says): its line, and into ``row`` the worst
     error and, at the planner's shape, the times; at the backend's P=99
     (the library's route) ``row["library_route"]``."""
     times = {t: (f"{r[t]:.4f}" if isinstance(r[t], float) else
@@ -797,7 +877,8 @@ def check_solve_row(name, r, row):
             eta_f64=f"{r['eta']:.3g}", plain_eta_f64=errs["eta_f64"],
             eta_floor=dba_probe.SOLVE_ETA_FLOOR,
             bit_stable=r["bit_stable"], graph_equals_eager=r["graph_equal"],
-            emulation_bit_equal=r["emulation_equal"], **times)
+            emulation_bit_equal=r["emulation_equal"], **times,
+            **(l2 if "ms" in r else {}))
         row["err"] = max(row["err"], r["err"])
         if name == "planner":
             row.update(ms=min(r["ms"]), plain_ms=r["plain_ms"],
@@ -856,6 +937,20 @@ def check_segsum():
     return row
 
 
+def lookup_plain(f1, f2, coords):
+    """corr_lookup_plain(f1, f2, coords) on slices of the edges whose
+    volumes fit PLAIN_VOLUME_BYTES: an edge's lookup reads its own
+    features alone, so the slices give the same values but for the
+    order of the volumes' f32 sums."""
+    E, H, W, _ = coords.shape
+    per_edge = 4 * H * W * sum(
+        h * w for h, w in cuda_corr.level_shapes(H, W, 4))
+    n = max(1, PLAIN_VOLUME_BYTES // per_edge)
+    return torch.cat([cuda_corr.corr_lookup_plain(f1[s:s + n], f2[s:s + n],
+                                                  coords[s:s + n])
+                      for s in range(0, E, n)])
+
+
 def check_lookup(shape, dtype, record):
     """K3 at one shape and feature dtype, on every kind of coordinates,
     through both entries. The frames are the edges' own f1, f2 stacked;
@@ -875,8 +970,7 @@ def check_lookup(shape, dtype, record):
         cuda_corr.reset_routes()
         out = cuda_corr.corr_lookup(f1, f2, coords)
         routes = cuda_corr.routes()
-        err = kbench.lookup_err(out,
-                                cuda_corr.corr_lookup_plain(f1, f2, coords))
+        err = kbench.lookup_err(out, lookup_plain(f1, f2, coords))
         # the indexed entry: against its plain version, or (E=256, where
         # that costs 16 GB of volumes again) against the kernel on the
         # gathered features, which the line above has checked
@@ -902,7 +996,7 @@ def check_lookup(shape, dtype, record):
             record("corr_lookup", shape, err,
                    lambda: cuda_corr.corr_lookup_indexed(frames, pyr, ii, jj,
                                                          coords),
-                   lambda: cuda_corr.corr_lookup_plain(f1, f2, coords),
+                   lambda: lookup_plain(f1, f2, coords),
                    plain_reps=3, features=feats, coords=kind,
                    entry="indexed", tensor_core_pairs=routes[0],
                    per_pixel_pairs=routes[1])
@@ -1423,18 +1517,27 @@ def oracle_core(n):
     return core
 
 
-def planner_run(path, frames, oracle=False, prof_frames=True):
-    """One run of bench_track's system (240x808, tame_net(0), every frame
-    a keyframe, the segment filter on) over ``frames`` on ``path``:
-    "classic" (pipeline=False), "graph" (the planner, replayed as a CUDA
-    graph) or "eager" (the planner's program run eagerly on the card, the
-    reference the graph is held against). The first PLANNER_FRAMES frames
-    are tracked, the steady ones among them (from PLANNER_STEADY) timed
-    as one block with one synchronize at the end (bench.py's protocol);
-    the rest under torch.profiler. Returns the run's decisions, state and
-    numbers."""
-    sysm = bench_system(PLANNER_SIZE, 128, "cuda",
-                        pipeline=path != "classic")
+def planner_run(path, frames, oracle=False, prof_frames=True,
+                cell=(PLANNER_SIZE, PLANNER_FRAMES, PLANNER_STEADY),
+                kf_thresh=0.0, probe=None, keep=False):
+    """One run of bench_track's system (tame_net(0), the segment filter
+    on, every frame a keyframe unless ``kf_thresh`` removes some) at
+    ``cell``'s size over ``frames`` on ``path``: "classic"
+    (pipeline=False), "graph" (the planner, replayed as a CUDA graph) or
+    "eager" (the planner's program run eagerly on the card, the reference
+    the graph is held against). ``cell`` = (size, frames tracked, first
+    steady frame): the steady frames among those tracked are timed as one
+    block with one synchronize at the end (bench.py's protocol); the rest
+    of ``frames`` run under torch.profiler. K3's route counters are read
+    over the steady and profiled frames. ``probe(sysm)`` runs on the
+    engaged planner after the last frame; ``keep`` returns the system
+    too. Returns the run's decisions, state and numbers."""
+    size, n_track, steady = cell
+    if not 0 < steady < n_track <= len(frames):
+        raise ValueError(f"planner_run: steady frame {steady}, {n_track} "
+                         f"tracked of {len(frames)}")
+    sysm = bench_system(size, 128, "cuda", pipeline=path != "classic",
+                        keyframe_thresh=kf_thresh)
     drv = sysm.planner
     drv.use_graph = path == "graph"
     records, replayed = [], []
@@ -1450,20 +1553,23 @@ def planner_run(path, frames, oracle=False, prof_frames=True):
     with patched(factor_graph, "update_core",
                  oracle_core(len(frames)) if oracle
                  else factor_graph.update_core):
-        for t, img, intr, segm in frames[:PLANNER_FRAMES]:
-            if t == PLANNER_STEADY:
+        for t, img, intr, segm in frames[:n_track]:
+            if t == steady:
                 torch.cuda.synchronize()
+                cuda_corr.reset_routes()
                 t0 = time.perf_counter()
             sysm.track(t, img, intr, segments=segm)
             if engaged_at is None and drv.engaged:
                 engaged_at = t
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / (PLANNER_FRAMES - PLANNER_STEADY)
+        wall = (time.perf_counter() - t0) / (n_track - steady)
         with profiled() if prof_frames else contextlib.nullcontext() as prof:
-            for t, img, intr, segm in frames[PLANNER_FRAMES:]:
+            for t, img, intr, segm in frames[n_track:]:
                 sysm.track(t, img, intr, segments=segm)
             torch.cuda.synchronize()
-    n_prof = len(frames) - PLANNER_FRAMES
+        routes = cuda_corr.routes()
+        probed = probe(sysm) if probe is not None else None
+    n_prof = len(frames) - n_track
     device_ms, kernels = ((v / n_prof for v in kernel_rows(prof))
                           if prof_frames else (None, None))
     capture_s = drv.frame_graph.capture_s if drv.frame_graph else None
@@ -1479,7 +1585,9 @@ def planner_run(path, frames, oracle=False, prof_frames=True):
     sysm.frontend.resolve()
     g, v = sysm.frontend.graph, sysm.video
     n = v.counter
-    return {
+    # the records of the frames since the routes were reset
+    since = len(frames) - steady
+    out = {
         "engaged_at": engaged_at, "records": records,
         "decisions": (n, sysm.frontend.t1,
                       sorted(zip(g.ii.tolist(), g.jj.tolist(),
@@ -1491,7 +1599,65 @@ def planner_run(path, frames, oracle=False, prof_frames=True):
         "api_calls": api_calls(prof) / n_prof if prof_frames else None,
         "busy": device_ms / (1e3 * wall) if prof_frames else None,
         "capture_s": capture_s,
-        "launches_per_replay": launches}
+        "launches_per_replay": launches, "n_removed": drv.n_removed,
+        "routes": routes, "probe": probed,
+        "route_pairs": (route_pairs(drv, records[-since:], v.h, v.w)
+                        if drv.frame_graph and all(replayed[-since:])
+                        else None),
+        "k3_bf16_per_replay": ([k3_bf16_launches(drv, r)
+                                for r in records[-since:]]
+                               if drv.frame_graph else None)}
+    if keep:
+        out["sys"] = sysm
+    return out
+
+
+def replay_launches(drv, rec, kernel, f32=False):
+    """``kernel``'s launches in one replay of ``drv``'s frame graph that
+    ran the sections of record ``rec`` (of them, its f32 kernel's with
+    ``f32``)."""
+    fgr, k = drv.frame_graph, 1 if f32 else 0
+    return sum(fgr.launches[p][k].get(kernel, 0)
+               for p in ((),) + drv.sections(rec) if p in fgr.launches)
+
+
+def k3_bf16_launches(drv, rec):
+    """(K3 bf16 launches, update steps that ran) of one replay."""
+    bf16 = (replay_launches(drv, rec, "corr_lookup") -
+            replay_launches(drv, rec, "corr_lookup", f32=True))
+    prog = drv.program
+    steps = (prog.steps + prog.steps2 * int(rec[planner_mod.R_STEPS2])
+             if rec[planner_mod.R_RAN] else 0)
+    return bf16, steps
+
+
+def route_pairs(drv, records, h, w):
+    """The (block, level) pairs K3's route counters must hold after
+    replays with ``records``: each launch's
+    (cuda_corr.lookup_route_pairs) at the regime's edge width for the
+    bf16 kernel, one edge for the f32 probe."""
+    total = 0
+    for rec in records:
+        E = (planner_mod.EB_S if rec[planner_mod.R_SMALL] else drv.EBMAX)
+        f32 = replay_launches(drv, rec, "corr_lookup", f32=True)
+        bf16 = replay_launches(drv, rec, "corr_lookup") - f32
+        total += (bf16 * cuda_corr.lookup_route_pairs(E, h, w, True) +
+                  f32 * cuda_corr.lookup_route_pairs(1, h, w, False))
+    return total
+
+
+def same_run(a, b):
+    """Two planner_run results bit-equal: decisions, poses, disparities."""
+    return (a["decisions"] == b["decisions"] and
+            torch.equal(a["poses"], b["poses"]) and
+            torch.equal(a["disps"], b["disps"]))
+
+
+def against_classic(p, c):
+    """(decisions equal, max pose difference) of planner_run results."""
+    diff = (float((p["poses"] - c["poses"]).abs().max())
+            if p["poses"].shape == c["poses"].shape else float("inf"))
+    return p["decisions"] == c["decisions"], diff
 
 
 def check_replay_counts(drv, records, replayed, prof):
@@ -1510,35 +1676,37 @@ def check_replay_counts(drv, records, replayed, prof):
                              f"profiled {seen}")
 
 
-def run_planner():
-    """Phase 12: the planner (vo/planner.py) at 240x808 over
-    PLANNER_FRAMES frames of bench_track's stream, in one process. Four
-    runs in turns: classic, planner graph, planner graph, classic; then
-    the planner's program run eagerly on the card, and classic and
-    planner graph under an oracle update core (oracle_core). (fault_probe b5 runs the classic path
-    with the card's atomic index_add_ beside the kernel.) Held: the planner
-    engages at frame 13; the graph-replayed planner equals the eager one
-    bit for bit (poses, disparities, decisions, every decision record);
-    each path's two runs are bit-equal (B5); under the oracle core the
-    planner's decisions (keyframes, t1, edges with their ages, inactive
-    edges, timestamps) equal the classic path's and its poses are within
-    1e-3 (with the network, its padded widths reorder f32 sums and the
-    difference is printed). Capture fails on any host read inside the
-    captured frame, and the run with it. Each run's ms a frame (the
-    steady frames, one synchronize), device ms, kernels and host CUDA API
-    calls a frame and the busy share (torch.profiler, PLANNER_PROF more
-    frames), and the graph's launches of each kernel a frame, those
-    counted for the profiled replays held against their profile
-    (check_replay_counts)."""
-    t_phase = time.perf_counter()
-    H, W = PLANNER_SIZE
-    frames = list(synth_stream(PLANNER_FRAMES + PLANNER_PROF, H, W))
-    by = {}
+def planner_runs(tag, frames, cell, probe=None):
+    """The runs of phases 12 and planner_wide at ``cell``'s size (as
+    planner_run takes it) over ``frames``: classic, planner graph,
+    planner graph, classic, in turns, each logged; then the planner's
+    program run eagerly on the card, and classic and planner graph under
+    the oracle core (oracle_core). ``probe`` runs on the first graph
+    run's engaged planner (its result's "probe"); that run's system is
+    kept (its "sys"). Held, for both phases: every planner run engages at
+    frame 13 and no classic run engages; the graph-replayed planner
+    equals the eager one bit for bit (poses, disparities, decisions,
+    every decision record); each path's two runs are bit-equal (B5);
+    under the oracle core the planner's decisions (keyframes, t1, edges
+    with their ages, inactive edges, timestamps) equal the classic
+    path's and its poses are within 1e-3 (with the network, its padded
+    widths reorder f32 sums and the difference is printed); a replay
+    launches PLANNER_SEGSUMS segment sums and PLANNER_DBA's DBA kernels;
+    K3's route counters hold every (block, level) pair of the replays'
+    K3 launches (check_routes). Returns {"classic": [c1, c2], "graph":
+    [p1, p2], "eager": ..., "oracle": {"classic": ..., "graph": ...}}."""
+    (H, W), _, _ = cell
     fmt = (lambda v, f: None if v is None else format(v, f))
+    by = {}
     for path in ("classic", "graph", "graph", "classic"):
-        r = planner_run(path, frames)
+        first_graph = path == "graph" and "graph" not in by
+        # the first graph run's system (and its graph) stays alive: with
+        # it freed before the second graph run, torch.profiler named
+        # that run's replayed kernels wrongly (more than the graph holds)
+        r = planner_run(path, frames, cell=cell, keep=first_graph,
+                        probe=probe if first_graph else None)
         by.setdefault(path, []).append(r)
-        log("planner", path=path, engaged_at=r["engaged_at"],
+        log(tag, path=path, image=f"{H}x{W}", engaged_at=r["engaged_at"],
             keyframes=r["decisions"][0], ms_per_frame=f"{r['ms']:.2f}",
             fps=f"{1e3 / r['ms']:.3f}",
             device_ms_per_frame=fmt(r["device_ms"], ".2f"),
@@ -1546,52 +1714,331 @@ def run_planner():
             kernels_per_frame=fmt(r["kernels"], ".0f"),
             host_api_calls_per_frame=fmt(r["api_calls"], ".1f"),
             capture_s=fmt(r["capture_s"], ".2f"),
-            graph_launches_per_frame=r["launches_per_replay"])
-    eager = planner_run("eager", frames, prof_frames=False)
-    oracle = {path: planner_run(path, frames, oracle=True, prof_frames=False)
-              for path in ("classic", "graph")}
+            graph_launches_per_frame=r["launches_per_replay"],
+            regimes="".join("c" if rec[planner_mod.R_SMALL] else "f"
+                            for rec in r["records"]
+                            if rec[planner_mod.R_RAN]))
+        gc.collect()
+        torch.cuda.empty_cache()
+    runs = {**by,
+            "eager": planner_run("eager", frames, cell=cell,
+                                 prof_frames=False),
+            "oracle": {path: planner_run(path, frames, oracle=True,
+                                         prof_frames=False, cell=cell)
+                       for path in ("classic", "graph")}}
     c1, c2 = by["classic"]
     p1, p2 = by["graph"]
-
-    def same(a, b):
-        return (a["decisions"] == b["decisions"] and
-                torch.equal(a["poses"], b["poses"]) and
-                torch.equal(a["disps"], b["disps"]))
-
-    def against_classic(p, c):
-        diff = (float((p["poses"] - c["poses"]).abs().max())
-                if p["poses"].shape == c["poses"].shape else float("inf"))
-        return p["decisions"] == c["decisions"], diff
-
-    graph_eager = same(p1, eager) and p1["records"] == eager["records"]
-    b5 = {"classic": same(c1, c2), "planner": same(p1, p2)}
+    eager, oracle = runs["eager"], runs["oracle"]
+    for r in by["graph"]:
+        check_routes(r, tag)
+    graph_eager = same_run(p1, eager) and p1["records"] == eager["records"]
+    b5 = {"classic": same_run(c1, c2), "planner": same_run(p1, p2)}
     net_equal, net_diff = against_classic(p1, c1)
     decisions, pose_diff = against_classic(oracle["graph"], oracle["classic"])
-    log("planner", engaged_at=p1["engaged_at"],
+    log(tag, engaged_at=p1["engaged_at"],
         graph_equals_eager=graph_eager, repeats_b5=b5,
         oracle_decisions_equal_classic=decisions,
         oracle_max_pose_diff_classic=f"{pose_diff:.3g}",
         network_decisions_equal_classic=net_equal,
-        network_max_pose_diff_classic=f"{net_diff:.3g}",
-        seconds=f"{time.perf_counter() - t_phase:.1f}")
-    if not (p1["engaged_at"] == p2["engaged_at"] ==
-            oracle["graph"]["engaged_at"] == 13 and c1["engaged_at"] is None):
-        raise AssertionError("the planner did not engage at frame 13")
+        network_max_pose_diff_classic=f"{net_diff:.3g}")
+    engaged = [r["engaged_at"] for r in (p1, p2, eager, oracle["graph"])]
+    never = [r["engaged_at"] for r in (c1, c2, oracle["classic"])]
+    if set(engaged) != {13} or any(t is not None for t in never):
+        raise AssertionError(f"{tag}: the planner engaged at {engaged}, "
+                             f"the classic path at {never}")
     if not graph_eager:
-        raise AssertionError("graph replay differs from the eager planner")
+        raise AssertionError(f"{tag}: graph replay differs from the eager "
+                             "planner")
     if not (b5["classic"] and b5["planner"]):
-        raise AssertionError(f"tracking does not repeat itself: {b5}")
+        raise AssertionError(f"{tag}: tracking does not repeat itself: "
+                             f"{b5}")
     for r in by["graph"]:
         per = r["launches_per_replay"]
         if per["segsum"] != PLANNER_SEGSUMS or \
                 any(per[k] != n for k, n in PLANNER_DBA.items()):
             raise AssertionError(
-                f"segment sums and DBA kernels a replay {per}, expected "
-                f"{PLANNER_SEGSUMS} and {PLANNER_DBA}")
+                f"{tag}: segment sums and DBA kernels a replay {per}, "
+                f"expected {PLANNER_SEGSUMS} and {PLANNER_DBA}")
     if not decisions or not pose_diff < 1e-3:
-        raise AssertionError(f"planner against classic (oracle core): "
-                             f"decisions equal {decisions}, poses "
+        raise AssertionError(f"{tag}: planner against classic (oracle "
+                             f"core): decisions equal {decisions}, poses "
                              f"{pose_diff}")
+    return runs
+
+
+def run_planner():
+    """Phase 12: the planner (vo/planner.py) at 240x808 over
+    PLANNER_FRAMES frames of bench_track's stream, in one process: the
+    runs and checks of planner_runs. (fault_probe b5 runs the classic
+    path with the card's atomic index_add_ beside the kernel.) Capture
+    fails on any host read inside the captured frame, and the run with
+    it. Each run's ms a frame (the steady frames, one synchronize),
+    device ms, kernels and host CUDA API calls a frame and the busy
+    share (torch.profiler, PLANNER_PROF more frames), and the graph's
+    launches of each kernel a frame, those counted for the profiled
+    replays held against their profile (check_replay_counts)."""
+    t_phase = time.perf_counter()
+    H, W = PLANNER_SIZE
+    frames = list(synth_stream(PLANNER_FRAMES + PLANNER_PROF, H, W))
+    runs = planner_runs("planner", frames,
+                        (PLANNER_SIZE, PLANNER_FRAMES, PLANNER_STEADY))
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("planner", seconds=f"{time.perf_counter() - t_phase:.1f}")
+
+
+def check_routes(r, tag):
+    """A graph run's K3 route counters over its steady and profiled
+    replays against the pairs its launches must add (route_pairs): every
+    (block, level) pair of the frames' K3 launches counted, on either
+    route, inside the replayed graph."""
+    tc, simt = r["routes"]
+    log(tag, k3_block_levels_tensor_core=tc, k3_block_levels_per_pixel=simt,
+        k3_block_levels_expected=r["route_pairs"],
+        tensor_core_share=f"{tc / max(tc + simt, 1):.4f}")
+    if tc + simt != r["route_pairs"]:
+        raise AssertionError(f"{tag}: K3's route counters hold {tc} + "
+                             f"{simt} pairs, the replays launched "
+                             f"{r['route_pairs']}")
+
+
+def wide_lookup(sysm):
+    """planner_wide: on the engaged planner, K3 bf16 on one update call's
+    operands (PlannerProgram.lookup_operands at the full regime's EBMAX
+    edges: the 2E gathered frames, their pyramid, fi, fi + E) and the
+    update's coordinates (the reprojection by the current poses and
+    disparities) against corr_lookup_indexed_plain on the same operands
+    (<= 1e-4); the kernel alone (CUDA events) beside the plain version,
+    its bound and its (block, level) routes; lookup_operands (the gather
+    and the pooling of the 2E frames, once an update call) and
+    lookup_pyramid alone."""
+    drv, v = sysm.planner, sysm.video
+    E = drv.EBMAX
+    ii, jj = drv.st.ii[:E].clone(), drv.st.jj[:E].clone()
+    ops = drv.program.lookup_operands(ii, jj)
+    coords, _ = projective.projective_transform(
+        v.poses[None], v.disps[None],
+        v.intrinsics[0].expand(1, v.poses.shape[0], 4), ii, jj)
+    coords = coords[0].contiguous()
+    cuda_corr.reset_routes()
+    out = cuda_corr.corr_lookup_indexed(*ops, coords)
+    routes = cuda_corr.routes()
+    ref = cuda_corr.corr_lookup_indexed_plain(*ops, coords)
+    err = kbench.lookup_err(out, ref)
+    del out, ref
+    torch.cuda.empty_cache()
+    bound = kernel_bound("corr_lookup", E, v.h, v.w, C)
+    res = {"err": err, "routes": routes,
+           "ms": device_time_ms(lambda: cuda_corr.corr_lookup_indexed(
+               *ops, coords)),
+           "plain_ms": device_time_ms(
+               lambda: cuda_corr.corr_lookup_indexed_plain(*ops, coords),
+               reps=3),
+           "bound_ms": bound["ms"], "bound_by": bound["bound_by"],
+           "operands_ms": device_time_ms(
+               lambda: drv.program.lookup_operands(ii, jj)),
+           "pyramid_ms": device_time_ms(
+               lambda: cuda_corr.lookup_pyramid(ops[0]))}
+    torch.cuda.empty_cache()
+    return res
+
+
+def wide_terminate(sysm, frames, seen):
+    """planner_wide: a planner run at 376x1248 that has tracked
+    ``frames[:seen]`` tracks the rest of ``frames`` (the planner
+    re-engages on its graph), then terminate(image_stream,
+    backend_steps=(7, 12)), timed; the backend apart (its wall time and
+    the edges of each global update), K3's calls inside terminate by edge
+    count (the backend's 256-edge chunks among them), every kernel's
+    launches, the peak memory; get_depth() and get_flow() must give
+    finite (counter, 376, 1248[, 2]) arrays."""
+    H, W = WIDE_SIZE
+    for t, img, intr, segm in frames[seen:]:
+        sysm.track(t, img, intr, segments=segm)
+    reengaged = sysm.planner.engaged
+    backend, backend_s, edges, k3 = sysm.backend, [], [], []
+
+    def timed_backend(steps):
+        torch.cuda.synchronize()
+        b0 = time.perf_counter()
+        backend(steps)
+        torch.cuda.synchronize()
+        backend_s.append(time.perf_counter() - b0)
+
+    def counted_update(graph, *a, **kw):
+        edges.append(graph.n_edges)
+        return update_lowmem(graph, *a, **kw)
+
+    update_lowmem, indexed = FactorGraph.update_lowmem, \
+        cuda_corr.corr_lookup_indexed
+
+    def counted_k3(fmaps, pyr, ii, jj, coords, *a, **kw):
+        k3.append(coords.shape[0])
+        return indexed(fmaps, pyr, ii, jj, coords, *a, **kw)
+
+    sysm.backend = timed_backend
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_corr_launches()
+    with patched(FactorGraph, "update_lowmem", counted_update), \
+            patched(cuda_corr, "corr_lookup_indexed", counted_k3):
+        t0 = time.perf_counter()
+        traj = sysm.terminate(iter(frames), backend_steps=(7, 12))
+        torch.cuda.synchronize()
+        term_s = time.perf_counter() - t0
+    sysm.backend = backend
+    launches = kbench.launch_counts()
+    depth, flow = sysm.get_depth(), sysm.get_flow()
+    n = sysm.video.counter
+    log("planner_wide", frames=len(frames), reengaged=reengaged,
+        keyframes=n, terminate_s=f"{term_s:.3f}",
+        backend_s=f"{sum(backend_s):.3f}", backend_calls=len(backend_s),
+        backend_edges_per_call="/".join(map(str, edges)),
+        k3_calls_in_terminate=len(k3),
+        k3_edges_per_call="/".join(str(e) for e in sorted(set(k3))),
+        k3_chunks=sum(e == sysm.backend.edge_chunk for e in k3),
+        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+        get_depth="x".join(map(str, depth.shape)),
+        get_flow="x".join(map(str, flow.shape)),
+        **{f"launches_{k}": n_ for k, n_ in launches.items()})
+    if not (traj.shape == (len(frames), 7) and np.isfinite(traj).all()):
+        raise AssertionError(f"wide terminate: trajectory {traj.shape}")
+    if not (depth.shape == (n, H, W) and flow.shape == (n, H, W, 2) and
+            np.isfinite(depth).all() and np.isfinite(flow).all()):
+        raise AssertionError(f"wide accessors {depth.shape} {flow.shape}")
+    if launches["build_volumes"] or launches["corr_extract"] or not k3 \
+            or not reengaged:
+        raise AssertionError(f"wide terminate launched {launches}, "
+                             f"re-engaged {reengaged}")
+
+
+def run_planner_wide():
+    """planner_wide (after phase 12): the planner on a wide stream,
+    376x1248 (47x156 features: the card's "indexed" route, where the
+    program gathers an update's 2E frames, pools them once and runs K3
+    bf16 on every step, and the classic frontend's wide route), over
+    WIDE_FRAMES frames of bench_track's stream: classic, planner graph,
+    planner graph, classic, in turns; the eager planner; classic and
+    planner graph under the oracle core, held as planner_runs holds
+    them. Also held: a replay launches no K1 and no K2, and K3 bf16 once
+    per update step that ran; K3 on the engaged planner's own operands
+    within 1e-4 of its plain version (wide_lookup). A second stream of
+    WIDE_RM_FRAMES frames at
+    keyframe_thresh WIDE_KF_THRESH: graph bit-equal to eager; under the
+    oracle core the planner removes at least two keyframes and equals the
+    classic path (the same removed timestamps). Then the first graph run
+    tracked on to WIDE_TERM_FRAMES and terminated (wide_terminate), and
+    trace_track at 376x1248 in a process of its own (kernel ms, GFLOP and
+    MFU a replayed frame)."""
+    t_phase = time.perf_counter()
+    H, W = WIDE_SIZE
+    stream = list(synth_stream(WIDE_TERM_FRAMES, H, W))
+    frames = stream[:WIDE_FRAMES + WIDE_PROF]
+    runs = planner_runs("planner_wide", frames,
+                        (WIDE_SIZE, WIDE_FRAMES, WIDE_STEADY),
+                        probe=wide_lookup)
+    p1 = runs["graph"][0]
+    term, lk = p1.pop("sys"), p1["probe"]
+    log("planner_wide", kernel="corr_lookup", features="bf16",
+        entry="indexed",
+        shape=f"{planner_mod.PlannerDriver.EBMAX}x{H // 8}x{W // 8}",
+        coords="the planner's own", max_abs_err=f"{lk['err']:.3g}",
+        tol=TOL["corr_lookup"], ms=f"{lk['ms']:.4f}",
+        plain_ms=f"{lk['plain_ms']:.4f}", bound_ms=f"{lk['bound_ms']:.4f}",
+        bound_by=lk["bound_by"],
+        share_of_bound=f"{lk['bound_ms'] / lk['ms']:.4f}", library_ms=None,
+        tensor_core_pairs=lk["routes"][0], per_pixel_pairs=lk["routes"][1],
+        launches_per_replay="/".join(str(n) for n, _ in
+                                     p1["k3_bf16_per_replay"]),
+        lookup_operands_ms=f"{lk['operands_ms']:.4f}",
+        lookup_pyramid_ms=f"{lk['pyramid_ms']:.4f}")
+    for r in runs["graph"]:
+        per = r["launches_per_replay"]
+        if per["build_volumes"] or per["corr_extract"]:
+            raise AssertionError(f"planner_wide: launches a replay {per}, "
+                                 f"expected no K1 or K2")
+        if any(n != steps or not steps for n, steps in
+               r["k3_bf16_per_replay"]):
+            raise AssertionError(f"planner_wide: K3 bf16 launches against "
+                                 f"update steps a replay: "
+                                 f"{r['k3_bf16_per_replay']}")
+    if not lk["err"] <= TOL["corr_lookup"]:
+        raise AssertionError(f"planner_wide: K3 on the planner's operands "
+                             f"{lk['err']} from plain")
+    del runs, p1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the stream that removes keyframes
+    rm_frames = frames[:WIDE_RM_FRAMES]
+    rm_cell = (WIDE_SIZE, WIDE_RM_FRAMES, WIDE_RM_STEADY)
+    runs = {(path, oracle): planner_run(path, rm_frames, oracle=oracle,
+                                        prof_frames=False, cell=rm_cell,
+                                        kf_thresh=WIDE_KF_THRESH)
+            for path, oracle in (("graph", False), ("eager", False),
+                                 ("graph", True), ("classic", True))}
+    g, e = runs["graph", False], runs["eager", False]
+    po, co = runs["graph", True], runs["classic", True]
+    graph_eager = same_run(g, e) and g["records"] == e["records"]
+    decisions, pose_diff = against_classic(po, co)
+    removed = {k: sorted(set(float(t) for t, *_ in rm_frames) -
+                         set(r["decisions"][4]))
+               for k, r in (("planner", po), ("classic", co))}
+    log("planner_wide", stream="removal", keyframe_thresh=WIDE_KF_THRESH,
+        frames=WIDE_RM_FRAMES, network_n_removed=g["n_removed"],
+        network_keyframes=g["decisions"][0], graph_equals_eager=graph_eager,
+        oracle_n_removed=po["n_removed"],
+        oracle_removed_planner=removed["planner"],
+        oracle_removed_classic=removed["classic"],
+        oracle_decisions_equal_classic=decisions,
+        oracle_max_pose_diff_classic=f"{pose_diff:.3g}")
+    if not graph_eager:
+        raise AssertionError("planner_wide (removal): graph replay differs "
+                             "from the eager planner")
+    if not (decisions and pose_diff < 1e-3 and po["n_removed"] >= 2 and
+            removed["planner"] == removed["classic"] and
+            po["engaged_at"] == 13 and co["engaged_at"] is None):
+        raise AssertionError(
+            f"planner_wide (removal, oracle core): decisions equal "
+            f"{decisions}, poses {pose_diff}, removed {po['n_removed']} "
+            f"{removed}, engaged {po['engaged_at']}")
+    del runs, g, e, po, co
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    wide_terminate(term, stream, len(frames))
+    del term
+    gc.collect()
+    torch.cuda.empty_cache()
+    out, secs = run_trace_track(WIDE_TRACE_ARGV)
+    log("planner_wide", trace_track=" ".join(WIDE_TRACE_ARGV),
+        device_ms_per_frame=f"{out['device_ms_per_frame']:.3f}",
+        kernels_per_frame=f"{out['kernels_per_frame']:.0f}",
+        frame_gflop=f"{out['frame_gflop']:.3f}", mfu=f"{out['mfu']:.4f}",
+        sections=repr(out["sections"]),
+        launches_traced=repr(out["launches_traced"]),
+        seconds=f"{secs:.1f}")
+    log("planner_wide", seconds=f"{time.perf_counter() - t_phase:.1f}")
+
+
+def run_planner_wide_alone():
+    """planner_wide in a process of its own (``python3 chip_smoke.py
+    planner_wide``), as the whole run starts it: after earlier graphs
+    and profiles in a process, torch.profiler can name a later graph's
+    replayed kernels wrongly (phase 12's after this phase's; PERF.md
+    section 7), and the phase holds its profiled replays' launches. Its
+    log lines are printed here; a failure in it fails the run."""
+    proc = subprocess.run(
+        [sys.executable, osp.abspath(__file__), "planner_wide"],
+        capture_output=True, text=True, timeout=900,
+        cwd=osp.dirname(osp.abspath(__file__)))
+    for line in proc.stdout.splitlines():
+        if line.startswith("[planner_wide]"):
+            print(line, flush=True)
+    if proc.returncode:
+        print(proc.stdout[-6000:], proc.stderr[-6000:], file=sys.stderr)
+        raise AssertionError(f"planner_wide exited {proc.returncode}")
 
 
 def terminate_split(sysm, frames):
@@ -2985,14 +3432,13 @@ def run_tool(name, argv):
     return out, time.perf_counter() - t0
 
 
-def run_trace_track():
-    """``python -m pvo_tpu_torch.scripts.trace_track`` with
-    TOOLS_TRACE_ARGV on the card, as a process of its own: its JSON last
-    line and seconds."""
+def run_trace_track(argv=TOOLS_TRACE_ARGV):
+    """``python -m pvo_tpu_torch.scripts.trace_track`` with ``argv`` on
+    the card, as a process of its own: its JSON last line and seconds."""
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "pvo_tpu_torch.scripts.trace_track",
-         *TOOLS_TRACE_ARGV, "--device", "cuda"], capture_output=True,
+         *argv, "--device", "cuda"], capture_output=True,
         text=True, timeout=600)
     if proc.returncode:
         print(proc.stdout[-6000:], proc.stderr[-6000:], file=sys.stderr)
@@ -3134,7 +3580,8 @@ PHASES = {"kernels": check_kernels, "packed": check_packed,
           "reference": check_reference, "main": run_main_path,
           "harness": run_harnesses, "export": run_export, "vps": run_vps,
           "loop": run_loop, "train": run_train, "vps_train": run_vps_train,
-          "planner": run_planner, "demo": run_demo, "dp": run_dp,
+          "planner": run_planner, "planner_wide": run_planner_wide,
+          "demo": run_demo, "dp": run_dp,
           "tools": run_tools}
 
 
@@ -3167,9 +3614,9 @@ def main():
 
     seconds = {}
 
-    def phase(name):
+    def phase(name, run=None):
         t = time.perf_counter()
-        out = PHASES[name]()
+        out = (run or PHASES[name])()
         seconds[name] = round(time.perf_counter() - t, 1)
         log(name, phase_seconds=seconds[name],
             depth_cut=repr(DEPTH_CUTS.get(name, "none")))
@@ -3181,6 +3628,7 @@ def main():
     launches = phase("main")
     in_terminate = launches.pop("in_terminate")
     phase("planner")
+    phase("planner_wide", run_planner_wide_alone)
     harness = phase("harness")
     export = phase("export")
     phase("vps")

@@ -112,14 +112,16 @@ def vo_counters(removed, edges, keyframes):
          VOSystem.terminate) = saved
 
 
-def bench_system(image_size, buffer, device, pipeline=True):
-    """The benches' VOSystem: every frame a keyframe, segment filter on,
-    weights of :func:`tame_net` (0); the planner engaged after
-    initialization (``pipeline``, the default, as ``bench.py`` runs), or
-    the classic host loop."""
+def bench_system(image_size, buffer, device, pipeline=True,
+                 keyframe_thresh=0.0):
+    """The benches' VOSystem: every frame a keyframe (unless
+    ``keyframe_thresh`` removes some), segment filter on, weights of
+    :func:`tame_net` (0); the planner engaged after initialization
+    (``pipeline``, the default, as ``bench.py`` runs), or the classic host
+    loop."""
     cfg = VOConfig(image_size=tuple(image_size), buffer=buffer,
-                   filter_thresh=0.01, keyframe_thresh=0.0, warmup=12,
-                   segm_filter=True, pipeline=pipeline)
+                   filter_thresh=0.01, keyframe_thresh=keyframe_thresh,
+                   warmup=12, segm_filter=True, pipeline=pipeline)
     return VOSystem(cfg, net=tame_net(0), device=device)
 
 

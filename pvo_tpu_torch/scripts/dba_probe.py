@@ -4,9 +4,12 @@ plain versions on the card, at the tracker's shapes.
     python -m pvo_tpu_torch.scripts.dba_probe [shape ...] [--reps N]
         [--parent PATH]
     python -m pvo_tpu_torch.scripts.dba_probe --record_backend [--n_kf 40]
+        [--image_size 376 1248]
 
 ``SHAPES`` are DBA calls from numpy (:func:`inputs`): the planner's full
-regime at 240x808 (E=144 edges, P = K = 32, 2048 pair slots, 30x101),
+regime at 240x808 (E=144 edges, P = K = 32, 2048 pair slots, 30x101)
+and at 376x1248 (``planner_wide``: the same at 47x156, 7332 pixels an
+edge),
 ``bench_dba``'s E=48 (512 slots), the 47x156 features of the 376x1248
 export and wide streams, a 128x40 stream, one edge, the planner's
 shape motion-only, ``odd_hw``: E=48 at 47x155 (376x1240 images, an odd
@@ -15,7 +18,9 @@ as it was recorded on the card (``BACKEND_CALL``: its 1008 edges over
 K = 100 depth frames and P = 99 pose frames, every pair slot of
 ``build_edge_pairs``), ``backend40``: the same at 40 keyframes, as many
 as ``chip_smoke.py``'s main path tracks (its P on the solve kernel's
-route), ``crowded``: E=958 packed into K=32 frames (about 30 edges
+route), ``backend40_wide``: the backend's largest call at 40 keyframes
+of a 376x1248 stream (47x156), as many as ``chip_smoke.py``'s wide
+terminate tracks, ``crowded``: E=958 packed into K=32 frames (about 30 edges
 a frame; the recorded call's largest frame has 14), whose frames' Grams
 span several row tiles, ``filler``: the trajectory filler's motion-only
 update of 16 poses, and ``solve_max``: P = K = ``cuda_dba.SOLVE_MAX_P``,
@@ -30,7 +35,9 @@ disparities, abs/rel ``TOL``; beside the plain versions' own difference
 between the card and the CPU, which sets the limit at shapes outside
 ``STRICT``), and two calls bit-equal. With times: kernel and plain in
 turns (kernel, plain, plain, kernel), each the mean of ``reps`` calls
-captured in one CUDA graph (``kbench.graph_time_ms``), the bound
+captured in one CUDA graph (``kbench.graph_time_ms``; with ``cold``
+each call after a write that clears the L2, whose own time is taken
+off), the bound
 (``kbench.dba_bound``, the valid edges and pair slots of the inputs)
 and, for the Schur terms, the library call: one ``torch.bmm`` of every
 depth frame's weighted Gram (:func:`gram_operands`, stacked and padded
@@ -60,7 +67,7 @@ to the plain versions' too, and the back-substitution's disparities
 must equal the parent's bit for bit; the solve, which an earlier source
 lacks, is timed beside the plain version (the parent's route) and the
 library call. One JSON line last. ``--record_backend`` makes
-``BACKEND_CALLS[n_kf]`` (:func:`record_backend`).
+``BACKEND_CALLS[n_kf, image_size]`` (:func:`record_backend`).
 """
 
 from __future__ import annotations
@@ -82,24 +89,31 @@ from pvo_tpu_torch.vo.net import cuda_corr, cuda_dba, cuda_segsum
 
 # the backend's largest DBA call in bench_terminate's run at 100
 # keyframes (240x808), recorded on the card by record_backend: its edges
-# (ii, jj, all valid), windows (t0, t1, w0, P, K) and feature size; and
-# at 40 keyframes, as many as phase 5 of chip_smoke.py tracks (its P on
-# the solve kernel's route)
+# (ii, jj, all valid), windows (t0, t1, w0, P, K) and feature size; at
+# 40 keyframes, as many as phase 5 of chip_smoke.py tracks (its P on the
+# solve kernel's route); and at 40 keyframes of a 376x1248 stream, as
+# many as its wide terminate tracks. Keyed by (keyframes, image size)
+NARROW, WIDE = (240, 808), (376, 1248)
 BACKEND_CALL = Path(__file__).with_name("dba_backend_call.json")
-BACKEND_CALLS = {100: BACKEND_CALL,
-                 40: BACKEND_CALL.with_name("dba_backend40_call.json")}
+BACKEND_CALLS = {
+    (100, NARROW): BACKEND_CALL,
+    (40, NARROW): BACKEND_CALL.with_name("dba_backend40_call.json"),
+    (40, WIDE): BACKEND_CALL.with_name("dba_backend40_wide_call.json")}
 
 
-def backend_call(n_kf=100):
-    """``BACKEND_CALLS[n_kf]`` as a dict."""
-    return json.loads(BACKEND_CALLS[n_kf].read_text())
+def backend_call(n_kf=100, image_size=NARROW):
+    """``BACKEND_CALLS[n_kf, image_size]`` as a dict."""
+    return json.loads(BACKEND_CALLS[n_kf, tuple(image_size)].read_text())
 
 
 _BACKEND, _BACKEND40 = backend_call(), backend_call(40)
+_BACKEND40_WIDE = backend_call(40, WIDE)
 # (E, K, h, w, pair slots, motion_only); P = K except at "backend" (its
 # recorded P); None: the slots that build_edge_pairs gives, unpadded
 SHAPES = {
     "planner": (144, 32, 30, 101, 2048, False),
+    # the planner's full regime on a wide stream, 376x1248
+    "planner_wide": (144, 32, 47, 156, 2048, False),
     "bench_dba": (48, 32, 30, 101, 512, False),
     "wide": (48, 32, 47, 156, 512, False),
     "tall": (48, 32, 128, 40, 512, False),
@@ -110,6 +124,8 @@ SHAPES = {
                 False),
     "backend40": (len(_BACKEND40["ii"]), _BACKEND40["K"], *_BACKEND40["hw"],
                   None, False),
+    "backend40_wide": (len(_BACKEND40_WIDE["ii"]), _BACKEND40_WIDE["K"],
+                       *_BACKEND40_WIDE["hw"], None, False),
     "crowded": (958, 32, 30, 101, None, False),
     # the trajectory filler's motion-only update: its batch of 16 frames
     # (P = 16), two edges a frame
@@ -120,14 +136,15 @@ SHAPES = {
                   None, False),
 }
 # the shapes whose edges are a recorded graph, not drawn from the seed
-GRAPHS = {"backend": _BACKEND, "backend40": _BACKEND40}
+GRAPHS = {"backend": _BACKEND, "backend40": _BACKEND40,
+          "backend40_wide": _BACKEND40_WIDE}
 TOL = 1e-4
 # the whole call against the plain versions' within TOL at these shapes;
 # at the others within TOL or FLOOR_FACTOR times the plain versions'
 # own difference between the card and the CPU (the same f32 sums in
 # other orders), whichever is larger: with few edges a pose (bench_dba's
 # E=48 over 32 frames) the solve amplifies the orders' last bits
-STRICT = ("planner", "motion_only")
+STRICT = ("planner", "planner_wide", "motion_only")
 FLOOR_FACTOR = 4
 # frames of disparities past the window (the back-substitution copies them)
 EXTRA_FRAMES = 8
@@ -202,10 +219,11 @@ def shape_inputs(name, device, seed=0, hw=None):
     return inputs(E, K, h, w, n_pairs, device, seed, graph=GRAPHS.get(name))
 
 
-def record_backend(n_kf=100, path=None, image_size=(240, 808)):
+def record_backend(n_kf=100, path=None, image_size=NARROW):
     """Track ``n_kf`` frames with ``bench_terminate``'s system on the
     card, run ``terminate`` and write the backend's largest ``dba.dba``
-    call to ``path`` (``BACKEND_CALLS[n_kf]`` if None) as JSON: its
+    call to ``path`` (``BACKEND_CALLS[n_kf, image_size]`` if None) as
+    JSON: its
     edges ``ii``, ``jj`` (every one valid),
     ``t0``, ``t1``, ``w0``, ``P``, ``K``, the feature size ``hw``, the
     frames ``F`` and the edges of each backend call. Returns that dict.
@@ -244,7 +262,7 @@ def record_backend(n_kf=100, path=None, image_size=(240, 808)):
         dba_mod.dba = real
     call = max(calls, key=lambda c: len(c["ii"]))
     call["backend_edges"] = list(dict.fromkeys(len(c["ii"]) for c in calls))
-    Path(path or BACKEND_CALLS[n_kf]).write_text(
+    Path(path or BACKEND_CALLS[n_kf, tuple(image_size)]).write_text(
         json.dumps(call, separators=(",", ":")) + "\n")
     return call
 
@@ -433,7 +451,8 @@ def library(lib):
         cuda_dba._lib = saved
 
 
-def check(name, reps=0, seed=0, parent=None, solve_reps=None):
+def check(name, reps=0, seed=0, parent=None, solve_reps=None,
+          cold=False):
     """Each kernel at shape ``name`` against its plain version, and the
     whole call; with ``reps`` their times. Returns {kernel: {...}} with
     "err", "bit_stable", "graph_equal" and, timed, "ms", "plain_ms",
@@ -448,7 +467,8 @@ def check(name, reps=0, seed=0, parent=None, solve_reps=None):
     given, else ``reps`` (an earlier source has no solve:
     with ``parent`` the solve is timed beside the plain version, the
     earlier route); and "dba": the call's poses' and disparities' worst
-    abs/rel difference."""
+    abs/rel difference. With ``cold`` every time is taken with the L2
+    cleared before each call (``kbench.graph_time_ms``'s ``flush``)."""
     E, K, h, w, n_pairs, motion_only = SHAPES[name]
     dev = torch.device("cuda")
     a = shape_inputs(name, dev, seed)
@@ -494,7 +514,7 @@ def check(name, reps=0, seed=0, parent=None, solve_reps=None):
         if reps:
             plain_fn = (lambda args=args, opts=opts, k=k:
                         getattr(cuda_dba, k + "_plain")(*args, **opts))
-            times = [kbench.graph_time_ms(f, reps)
+            times = [kbench.graph_time_ms(f, reps, flush=cold)
                      for f in (kern, plain_fn, plain_fn, kern)]
             res[k].update(ms=[times[0], times[3]],
                           plain_ms=min(times[1:3]))
@@ -506,18 +526,21 @@ def check(name, reps=0, seed=0, parent=None, solve_reps=None):
                         return kbench.graph_time_ms(
                             lambda: parent_backsub(parent, *args,
                                                    retract=motion_only),
-                            reps)
+                            reps, flush=cold)
                     res[k]["parent_all_ms"] = kbench.graph_time_ms(
-                        lambda: parent_backsub(parent, *args), reps)
+                        lambda: parent_backsub(parent, *args), reps,
+                        flush=cold)
                 else:
                     def par(kern=kern):
                         with library(parent):
-                            return kbench.graph_time_ms(kern, reps)
-                t = [par(), kbench.graph_time_ms(kern, reps),
-                     kbench.graph_time_ms(kern, reps), par()]
+                            return kbench.graph_time_ms(kern, reps,
+                                                        flush=cold)
+                t = [par(), kbench.graph_time_ms(kern, reps, flush=cold),
+                     kbench.graph_time_ms(kern, reps, flush=cold), par()]
                 res[k].update(parent_ms=[t[0], t[3]], ms_vs_parent=t[1:3])
     res["solve"] = check_solve(st["solve"],
-                               reps if solve_reps is None else solve_reps)
+                               reps if solve_reps is None else solve_reps,
+                               cold)
     res = {f"dba_{k}": v for k, v in res.items()}
     if reps:
         n_valid = int(a["valid"].sum())
@@ -540,7 +563,7 @@ def check(name, reps=0, seed=0, parent=None, solve_reps=None):
             MQ, M, _ = gram_operands(*st["schur"][:6])
             Mt = M.transpose(1, 2)
             res["dba_schur"]["library_ms"] = kbench.graph_time_ms(
-                lambda: torch.bmm(MQ, Mt), reps)
+                lambda: torch.bmm(MQ, Mt), reps, flush=cold)
             del MQ, M, Mt
     with plain():
         p_ref, d_ref = call_dba(a, motion_only=motion_only)
@@ -561,7 +584,7 @@ def check(name, reps=0, seed=0, parent=None, solve_reps=None):
     return res
 
 
-def check_solve(args, reps=0):
+def check_solve(args, reps=0, cold=False):
     """The damped solve at ``args`` (H, S_sum, v, corr_v, P of
     :func:`stages`; S_sum, corr_v None: motion-only) on its route
     (``cuda_dba.solve_route``). Always: the plain version on the card
@@ -579,7 +602,8 @@ def check_solve(args, reps=0):
     turns with the plain version, or the library route), "plain_ms" and
     "library_ms" (``torch.linalg.cholesky_ex`` and ``torch.cholesky_solve``
     on the damped matrix made outside the timed call, the yardstick),
-    "bound_ms" and "bound_by" (``kbench.dba_bound``)."""
+    "bound_ms" and "bound_by" (``kbench.dba_bound``); with ``cold`` the
+    L2 cleared before each timed call."""
     H, S_sum, v, corr_v, P = args
     host = [None if t is None else t.cpu().numpy()
             for t in (H, S_sum, v, corr_v)]
@@ -621,7 +645,7 @@ def check_solve(args, reps=0):
         fast = kern if r["route"] == "dba_solve" else (
             lambda: cuda_dba.solve_library(*args))
         n0 = cuda_dba.LAUNCHES["dba_solve_library"]
-        t = [kbench.graph_time_ms(f, reps)
+        t = [kbench.graph_time_ms(f, reps, flush=cold)
              for f in (fast, plain_fn, library, library, plain_fn, fast)]
         cuda_dba.LAUNCHES["dba_solve_library"] = n0
         bound = kbench.dba_bound("dba_solve", P=P,
@@ -671,13 +695,17 @@ def main(argv=None):
     p.add_argument("--record_backend", action="store_true",
                    help="track bench_terminate's n_kf keyframes and write "
                         "the backend's largest DBA call to "
-                        "BACKEND_CALLS[n_kf] (nothing else)")
+                        "BACKEND_CALLS[n_kf, image_size] (nothing else)")
     p.add_argument("--n_kf", type=int, default=100,
-                   choices=sorted(BACKEND_CALLS))
+                   choices=sorted({n for n, _ in BACKEND_CALLS}))
+    p.add_argument("--image_size", type=int, nargs=2, default=list(NARROW))
     args = p.parse_args(argv)
     kbench.require_cuda()
     if args.record_backend:
-        call = record_backend(args.n_kf)
+        key = (args.n_kf, tuple(args.image_size))
+        if key not in BACKEND_CALLS:
+            p.error(f"no recorded call at {key}: {sorted(BACKEND_CALLS)}")
+        call = record_backend(key[0], image_size=key[1])
         print(json.dumps({k: v for k, v in call.items()
                           if k not in ("ii", "jj")}))
         return call

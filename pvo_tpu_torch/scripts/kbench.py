@@ -62,6 +62,9 @@ SAVED_EXTRACT_SHA256 = (
 SAVED_EXTRACT_PACKED_SHA256 = (
     "cfadb2d9100eed20b63a5b62ce9bcabb36c77f2f13e7ad0a3ee959d4db9a7b10")
 SECTOR = 32       # bytes the memory moves at the least
+# what graph_time_ms writes before each call to clear the card's L2 (the
+# H100's is 50 MB) of the call's inputs
+L2_FLUSH_BYTES = 256 << 20
 
 
 def require_cuda():
@@ -103,30 +106,46 @@ def device_time_ms(fn, reps=10, queued=False):
     return start.elapsed_time(end) / reps
 
 
-def graph_time_ms(fn, reps=20, replays=5):
+def graph_time_ms(fn, reps=20, replays=5, flush=False):
     """Mean device time of ``fn()`` in ms: ``reps`` calls captured in one
     CUDA graph (after one warm-up call outside it), the graph replayed
     once, then ``replays`` times between CUDA events. The card runs the
     calls back to back, so a kernel shorter than its wrapper's host cost
-    is timed as a kernel, not as an enqueue."""
+    is timed as a kernel, not as an enqueue. Back to back, a call whose
+    inputs and outputs fit the L2 finds them there; with ``flush`` each
+    call follows a write of ``L2_FLUSH_BYTES`` in the graph, and the mean
+    time of those writes alone (a graph of their own, timed the same
+    way) is taken off: the call with its data in the card's memory, as a
+    bound from the memory's rate assumes."""
     require_cuda()
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
+    buf = (torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+           if flush else None)
+
+    def timed(body):
+        body()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                body()
         graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / (replays * reps)
-    del graph
-    return ms
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(replays):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        del graph
+        return start.elapsed_time(end) / (replays * reps)
+
+    if not flush:
+        return timed(fn)
+
+    def flushed():
+        buf.zero_()
+        return fn()
+    return timed(flushed) - timed(buf.zero_)
 
 
 def peak_flops(card=None):

@@ -6,9 +6,11 @@ against an earlier source of it, on the card.
 
 ``CASES`` are the sums of a planner frame at 240x808 (30x101 features,
 48 update edges, the DBA's 144 edges into P = K = 32 frames and 2048
-edge pairs), about a tenth of each case's rows out of range; ``GROUPS``
-are the launches the tracker makes of them (GraphAgg's sum and counts;
-the DBA's two launches a full iteration). Each case is run in both
+edge pairs) and, ``*_wide``, those of them whose rows grow with the
+pixels at 376x1248 (47x156), about a tenth of each case's rows out of
+range; ``GROUPS`` are the launches the tracker makes of them (GraphAgg's
+sum and counts; the DBA's two launches a full iteration; the first two
+also at 376x1248). Each case is run in both
 modes (accumulate, zero start) and each group batched, and held bit for
 bit against the CPU's ``index_add_`` (:func:`cuda_segsum.sums_plain`).
 Times are kernel times: ``kbench.graph_time_ms`` replays the calls
@@ -61,6 +63,12 @@ CASES = {
     "dba_schur": (2368, 1024, (6, 6)),
     "dba_pairs": (2048, 1024, (6, 6)),
     "dba_rhs": (176, 32, (6,)),
+    # the same frame's sums that depend on the pixels, at 376x1248
+    # (47x156 features, 7332 pixels an edge): GraphAgg's, C, w and Ei
+    "graph_agg_wide": (48, 32, (128, 47, 156)),
+    "dba_c_wide": (144, 32, (7332,)),
+    "dba_w_wide": (144, 32, (7332,)),
+    "dba_ei_wide": (144, 32, (6, 7332)),
 }
 # the launches the tracker makes of them: GraphAgg's, and the DBA's
 # two a full iteration (H, v, C, w, Ei; the Schur sum and the rhs
@@ -69,6 +77,9 @@ GROUPS = {
     "graph_agg": ("graph_agg", "graph_agg_counts"),
     "dba_1": ("dba_hessian", "dba_v", "dba_c", "dba_w", "dba_ei"),
     "dba_2": ("dba_schur", "dba_rhs"),
+    "graph_agg_wide": ("graph_agg_wide", "graph_agg_counts"),
+    "dba_1_wide": ("dba_hessian", "dba_v", "dba_c_wide", "dba_w_wide",
+                   "dba_ei_wide"),
 }
 
 

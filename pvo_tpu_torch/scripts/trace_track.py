@@ -188,8 +188,14 @@ class Sections:
             self._path = outer
 
 
+# planner.corr_route itself: count_frame puts _card_route in its place
+_corr_route = planner.corr_route
+
+
 def _card_route(device, h, w):
-    return "volume" if cuda_corr.volume_cache_ok(h, w) else "indexed"
+    """The correlation route the card takes at h x w features, whatever
+    ``device`` is (:func:`planner.corr_route` on a CUDA device)."""
+    return _corr_route("cuda", h, w)
 
 
 def count_frame(sysm, frame, sections=None):

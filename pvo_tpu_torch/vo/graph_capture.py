@@ -113,6 +113,9 @@ class FrameGraph:
 
     def capture(self, program):
         _library()       # built and loaded before capture
+        # K3's route counters live outside the graph, so that replays add
+        # to them
+        cuda_corr.route_counter(self.device)
         before = _snapshot()
         self.launches = {}
         cudnn = torch.backends.cudnn

@@ -446,7 +446,15 @@ class RouteCounter:
         self._counts = {}
 
     def tensor(self, device):
+        """The counters of ``device``, made at its first use. Not under a
+        CUDA graph's capture: the zeroing would be captured with it and
+        rerun at every replay (:class:`graph_capture.FrameGraph` makes
+        them before it captures)."""
         if device not in self._counts:
+            if torch.device(device).type == "cuda" and \
+                    torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("K3's route counters made under "
+                                   "capture would reset at every replay")
             self._counts[device] = torch.zeros(2, dtype=torch.int64,
                                                device=device)
         return self._counts[device]
@@ -476,6 +484,19 @@ def routes():
 
 def reset_routes():
     _routes.reset()
+
+
+def route_counter(device):
+    """K3's route counters on ``device`` (made if they are not yet)."""
+    return _routes.tensor(device)
+
+
+def lookup_route_pairs(E, H, W, bf16, num_levels=4):
+    """The (block, level) pairs that one K3 launch on E edges of H x W
+    features adds to :func:`routes`: a block of the bf16 kernel is 8 x 16
+    pixels of an edge and takes every level, one of the f32 kernel 8 x 8
+    pixels at one level (``csrc/corr.cu``'s grids)."""
+    return E * -(-H // 8) * -(-W // (16 if bf16 else 8)) * num_levels
 
 
 def lookup_dtype(feats):

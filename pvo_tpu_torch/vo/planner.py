@@ -682,6 +682,16 @@ class PlannerProgram:
         st.dout.copy_(d)
         st.bout[B_FLAGS] = rflags.long()
 
+    def lookup_operands(self, ii_e, jj_e):
+        """K3's operands on the indexed route for edges (ii_e, jj_e): the
+        features of their 2E frames (gathered), those frames' pyramid,
+        pooled once, and each edge's two rows of them."""
+        v = self.video
+        E = ii_e.shape[0]
+        frames = v.fmaps[torch.cat([ii_e, jj_e])]
+        fi = torch.arange(E, dtype=torch.int32, device=v.device)
+        return frames, cuda_corr.lookup_pyramid(frames), fi, fi + E
+
     def _invariants(self, ii_e, jj_e):
         """The correlation operands of one update call (K1's volumes on
         the card for narrow streams, else a pyramid pooled once for K3;
@@ -689,17 +699,14 @@ class PlannerProgram:
         edges' segments."""
         v, g = self.video, self.graph
         cdt = next(g.update_op.parameters()).dtype
-        E = ii_e.shape[0]
         route = corr_route(v.device, v.h, v.w)
         if route == "volume":
             vols = cuda_corr.build_volumes(v.fmaps[ii_e], v.fmaps[jj_e])
             corr_fn = lambda c1: cuda_corr.corr_extract(vols, c1)  # noqa
         elif route == "indexed":
-            frames = v.fmaps[torch.cat([ii_e, jj_e])]
-            pyr = cuda_corr.lookup_pyramid(frames)
-            fi = torch.arange(E, dtype=torch.int32, device=v.device)
+            ops = self.lookup_operands(ii_e, jj_e)
             corr_fn = lambda c1: cuda_corr.corr_lookup_indexed(  # noqa
-                frames, pyr, fi, fi + E, c1)
+                *ops, c1)
         else:
             corr_fn = lambda c1: corr_ops.chunked_corr_lookup(  # noqa
                 v.fmaps, ii_e, jj_e, c1, chunk=fg.CORR_CHUNK)

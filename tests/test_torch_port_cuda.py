@@ -238,6 +238,70 @@ def test_lookup_f32_kernel_widths_levels_and_vanishing_levels(
     assert cuda_corr.F32_LAUNCHES["corr_lookup"] == 2
 
 
+@pytest.mark.parametrize("kind", ["smooth", "scattered"])
+def test_lookup_indexed_at_the_wide_planners_step(dev, kind):
+    """K3 bf16 through the indexed entry at the wide planner's step: E=48
+    edges of 47x156 features (376x1248), their 2E frames gathered and
+    pooled once, as ``PlannerProgram.lookup_operands`` gives them, within
+    1e-4 of the plain version; its (block, level) pairs all counted
+    (``cuda_corr.lookup_route_pairs``), on the tensor cores alone on
+    smooth coordinates."""
+    E, H, W = 48, 47, 156
+    f1, f2, _ = _inputs(E, H, W, torch.bfloat16, dev, seed=E + W)
+    frames = torch.cat([f1, f2])
+    pyr = cuda_corr.lookup_pyramid(frames)
+    fi = torch.arange(E, dtype=torch.int32, device=dev)
+    coords = torch.from_numpy(
+        kbench.lookup_coords(kind, E, H, W, seed=H)).to(dev)
+    cuda_corr.reset_routes()
+    cuda_corr.reset_launches()
+    out = cuda_corr.corr_lookup_indexed(frames, pyr, fi, fi + E, coords)
+    tc, simt = cuda_corr.routes()
+    assert cuda_corr.LAUNCHES["corr_lookup"] == 1
+    assert cuda_corr.F32_LAUNCHES["corr_lookup"] == 0
+    assert tc + simt == cuda_corr.lookup_route_pairs(E, H, W, True)
+    if kind == "smooth":
+        assert simt == 0
+    ref = cuda_corr.corr_lookup_indexed_plain(frames, pyr, fi, fi + E, coords)
+    torch.cuda.synchronize()
+    assert kbench.lookup_err(out, ref) <= 1e-4
+
+
+def test_graph_time_with_the_l2_cleared(dev):
+    """``kbench.graph_time_ms(flush=True)``: a copy of 16 MB, which fits
+    the L2, takes at least 0.9 of the time its 32 MB need at the card's
+    memory rate once the L2 is cleared before each call."""
+    x = torch.randn(4 << 20, device=dev)
+    y = torch.empty_like(x)
+    ms = kbench.graph_time_ms(lambda: y.copy_(x), 20, flush=True)
+    assert 0.9 * 2 * x.nbytes / kbench.HBM_BYTES_S * 1e3 <= ms
+
+
+def test_route_counters_count_in_graph_replays(dev):
+    """K3's route counters live outside a captured graph: each replay of
+    a graph holding K3 launches adds their (block, level) pairs."""
+    from pvo_tpu_torch.vo import graph_capture
+    E, H, W = 2, 47, 156
+    f1, f2, _ = _inputs(E, H, W, torch.bfloat16, dev, seed=5)
+    frames = torch.cat([f1, f2])
+    pyr = cuda_corr.lookup_pyramid(frames)
+    fi = torch.arange(E, dtype=torch.int32, device=dev)
+    coords = torch.from_numpy(
+        kbench.lookup_coords("smooth", E, H, W)).to(dev)
+    probe = f1[:1].float().contiguous()
+    fgr = graph_capture.FrameGraph(dev)
+    fgr.capture(lambda br: (
+        cuda_corr.corr_lookup_indexed(frames, pyr, fi, fi + E, coords),
+        cuda_corr.corr_lookup(probe, probe, coords[:1])))
+    torch.cuda.synchronize()
+    cuda_corr.reset_routes()
+    for _ in range(3):
+        fgr.replay()
+    per = (cuda_corr.lookup_route_pairs(E, H, W, True) +
+           cuda_corr.lookup_route_pairs(1, H, W, False))
+    assert sum(cuda_corr.routes()) == 3 * per
+
+
 def test_lookup_indexed_f32_indexes_in_the_kernel(dev):
     """f32 edges are indexed in the kernel: one launch, and no
     allocation but the output (a gather of frames would allocate)."""

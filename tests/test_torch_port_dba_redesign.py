@@ -311,6 +311,16 @@ def test_backend40_shape_is_the_recorded_call_at_40_keyframes():
     assert call["P"] == 39 <= cuda_dba.SOLVE_MAX_P
 
 
+def test_backend40_wide_shape_is_the_recorded_wide_call():
+    """The same of ``backend40_wide``, the backend's call at the 40
+    keyframes of a 376x1248 stream that ``chip_smoke.py``'s wide
+    terminate tracks: 47x156 features (7332 pixels an edge), P on the
+    solve kernel's route."""
+    call = dba_probe.backend_call(40, dba_probe.WIDE)
+    check_recorded_call("backend40_wide", call)
+    assert call["hw"] == [47, 156] and call["P"] <= cuda_dba.SOLVE_MAX_P
+
+
 def check_recorded_call(name, call):
     """The checks of the recorded-call tests on shape ``name``; returns
     its K."""

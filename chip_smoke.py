@@ -3,9 +3,10 @@
     python3 chip_smoke.py            the whole run
     python3 chip_smoke.py main       only the named phases (kernels,
                                      packed, reference, main, planner,
-                                     planner_wide, harness, export, vps,
-                                     loop, train, vps_train, demo, dp,
-                                     tools), without the result lines
+                                     planner_wide, terminate_wide,
+                                     harness, export, vps, loop, train,
+                                     vps_train, demo, dp, tools),
+                                     without the result lines
 
 Phases, one line each (any failure exits non-zero):
   1. device   - requires CUDA; prints the card's name and power limit;
@@ -87,18 +88,23 @@ Phases, one line each (any failure exits non-zero):
                 weighted Gram (whose blocks are all its rows); at
                 planner_wide each call timed with the L2 cleared before
                 it (DBA_COLD). The
-                solve (dba_probe.check_solve) at every shape up to
-                cuda_dba.SOLVE_MAX_P (also the filler's, P=16
-                motion-only): dx within 1e-4 of the plain version, or 4x
-                the plain version's own card-against-CPU difference
-                where larger, bit-equal to the numpy emulation of its
-                order (scripts/dba_solve_emul.py), its backward error
-                against the f64 system within twice the plain
-                version's plus 1e-7, two calls bit-equal, a replay
-                equal to eager; timed (planner, bench_dba, filler)
-                beside the plain version and cholesky_ex +
-                cholesky_solve; at the backend's P=99 the library
-                route's launches and time;
+                solve (dba_probe.check_solve) at every shape, up to
+                buffer's P = 511 (also the filler's, P=16 motion-only;
+                multi_49, P = 49; backend_wide, the backend's call at
+                100 keyframes of a 376x1248 stream, P = 99), one block
+                (dba_solve) up to P = 48 and the grid kernel
+                (dba_solve_grid) above: dx within 1e-4 of the plain
+                version, or 4x the plain version's own card-against-CPU
+                difference where larger, bit-equal to the numpy
+                emulation of its order (scripts/dba_solve_emul.py) up
+                to P = 128, its backward error against the f64 system
+                within twice the plain version's plus 1e-7, two calls
+                bit-equal, a replay equal to eager, and at P <= 48 the
+                grid kernel bit-equal to the one block; timed (planner,
+                bench_dba, filler, solve_max, multi_49, backend,
+                backend_wide, buffer) beside the plain version and
+                cholesky_ex + cholesky_solve, the grid kernel also at P
+                = 32 and 48;
   4. reference- the port's loop with the kernels (the DBA's too) against
                 the same loop with their plain versions, on the card:
                 64x96, 8 frames
@@ -273,6 +279,17 @@ Phases, one line each (any failure exits non-zero):
                 backend's 256-edge chunks) and the peak memory, and
                 trace_track at 376x1248 in a process of its
                 own (kernel ms, kernels, GFLOP and MFU a replayed frame).
+ 12c. terminate_wide - the damped solve's grid kernel on its path:
+                bench_terminate's system tracks WIDE100_KF (100) frames
+                of its stream at 376x1248 (every frame a keyframe, the
+                planner engaged), then terminate(iter(frames)) with
+                every launch counted from 0. Held: the backend's solves
+                (P = 99) on dba_solve_grid, launched at least once, the
+                four other DBA kernels too, the trajectory finite, at
+                least 90 keyframes kept. Printed: the keyframes,
+                tracking and terminate seconds, the backend's edges a
+                call and the DBA kernels' launches ("launches" of the
+                dba_solve_grid row in the kernels line).
  13. demo     - the image-directory demo (scripts/demo.py) as a user
                 runs it, a subprocess: DEMO_FRAMES (32) frames of the
                 synthetic scene
@@ -368,6 +385,7 @@ from pvo_tpu_torch.geom.depth_filter import depth_consistency_count
 from pvo_tpu_torch.lie import se3
 from pvo_tpu_torch.scripts import (analyze_model, bench_corr, bench_dba,
                                    bench_filler, bench_step_parts,
+                                   bench_terminate,
                                    bench_train_vo, bench_train_vps,
                                    bench_vo2_export, bench_vps_train, demo,
                                    fault_probe, kbench, prepare_vkitti,
@@ -473,21 +491,28 @@ PLANNER_SEGSUMS = 6 + 6 * 2 * 2
 PLANNER_DBA = {"dba_linearize": 12, "dba_schur": 12, "dba_backsub": 12,
                "dba_solve": 12}
 # the DBA kernels' checks (dba_probe.SHAPES), those timed and their reps
-# (dba_probe alone times them at every shape); the
-# solve is also timed at bench_dba's, the filler's P=16 and, on the
-# library's route, the backend's P=99
-DBA_TIMED, DBA_REPS = ("planner", "planner_wide"), 20
+# (dba_probe alone times them at every shape): the planner's, and the
+# wide stream's planner and backend calls at 40 and 100 keyframes; the
+# solve is also timed at bench_dba's, the filler's P=16, P = 48 and 49
+# (the one block's last, the grid's first), the backend's P=99 and
+# P = 511
+DBA_TIMED, DBA_REPS = ("planner", "planner_wide", "backend40_wide",
+                       "backend_wide"), 20
 # the timed shapes whose calls are timed with the L2 cleared before each
 # (kbench.graph_time_ms's flush): planner_wide's 35 MB of a call fit the
 # 50 MB L2, so back to back its kernels read it from there and beat the
 # bound from the memory's rate (backsub at 105-110% of it)
 DBA_COLD = ("planner_wide",)
-DBA_SOLVE_TIMED = ("planner", "bench_dba", "filler", "backend")
+DBA_SOLVE_TIMED = ("planner", "bench_dba", "filler", "solve_max",
+                   "multi_49", "backend", "backend_wide", "buffer")
+# the shape whose times the kernels line gives each DBA row: the
+# planner's, and for the grid solve the wide backend call's P = 99
+DBA_ROW_SHAPE = {cuda_dba.GRID: "backend_wide"}
 # the TPU-side code each DBA kernel stands in for
-DBA_REPLACES = {
-    "dba_solve": "none: XLA's cholesky and solve_triangular in "
-                 "pvo_tpu/geom/chol.py:21-32, called at pvo_tpu/vo/dba.py:247",
-}
+DBA_REPLACES = dict.fromkeys(
+    ("dba_solve", cuda_dba.GRID),
+    "none: XLA's cholesky and solve_triangular in "
+    "pvo_tpu/geom/chol.py:21-32, called at pvo_tpu/vo/dba.py:247")
 # phase 12: the planner's runs (bench_track's system at 240x808), the
 # frames tracked, the first of the timed steady ones (past the engage at
 # 13, two eager frames and the capture) and the profiled ones after them
@@ -504,6 +529,9 @@ WIDE_SIZE, WIDE_FRAMES, WIDE_STEADY, WIDE_PROF = (376, 1248), 26, 18, 2
 # oracle's poses and unit disparity; 8.65 two apart), so above that the
 # newest keyframe goes on every update
 WIDE_RM_FRAMES, WIDE_RM_STEADY, WIDE_KF_THRESH = 18, 16, 6.0
+# phase 12c: the keyframes of the wide terminate whose backend takes the
+# grid solve (P = 99, bench_terminate's protocol)
+WIDE100_KF = 100
 # the frames the terminated wide run has seen: it tracks on after its
 # 28 (re-engaging the planner's graph) so that the backend holds more than
 # its 256-edge chunk and takes K3 on chunks (at 240x808, 40 frames gave
@@ -799,7 +827,9 @@ def check_dba():
     planner's shape motion-only; odd_hw, E=48 at 47x155; backend, the
     backend's recorded call at 100 keyframes, E=1008 over K=100 frames;
     backend40 and backend40_wide, its calls at 40 keyframes at 240x808
-    and 376x1248; crowded, E=958 over 32 frames; the last three untimed)
+    and 376x1248; backend_wide, its call at 100 keyframes of a 376x1248
+    stream; crowded, E=958 over 32 frames; filler; solve_max, multi_49
+    and buffer, P = K = 48, 49 and 511)
     each kernel within dba_probe.TOL of its plain version relative to
     the output's largest magnitude, bit-equal
     twice, a CUDA-graph replay equal to the eager call; dba.dba's poses
@@ -809,9 +839,9 @@ def check_dba():
     with the L2 cleared before each call) beside the bound and, for the
     Schur terms, one torch.bmm of every depth frame's weighted Gram on
     operands stacked outside the timed call.
-    Returns the rows' numbers at the planner's shape with the worst error
-    of all."""
-    rows = {k: {"err": 0.0} for k in cuda_dba.KERNELS}
+    Returns the rows' numbers at DBA_ROW_SHAPE (the planner's) with the
+    worst error of all."""
+    rows = {k: {"err": 0.0} for k in (*cuda_dba.KERNELS, cuda_dba.GRID)}
     for name in dba_probe.SHAPES:
         res = dba_probe.check(
             name, DBA_REPS if name in DBA_TIMED else 0,
@@ -820,7 +850,7 @@ def check_dba():
         l2 = {"l2": "cleared"} if name in DBA_COLD else {}
         for k, r in res.items():
             if k == "dba_solve":
-                check_solve_row(name, r, rows[k], l2)
+                check_solve_row(name, r, rows[r["kernel"]], l2)
                 continue
             if k == "dba":
                 log("kernel", name="dba", shape=name,
@@ -857,43 +887,32 @@ def check_dba():
 def check_solve_row(name, r, row, l2):
     """Phase 3, the damped solve at dba_probe shape ``name``
     (dba_probe.check_solve's ``r``; its times, where it has them, taken
-    as ``l2`` says): its line, and into ``row`` the worst
-    error and, at the planner's shape, the times; at the backend's P=99
-    (the library's route) ``row["library_route"]``."""
+    as ``l2`` says): its line, and into ``row`` (its kernel's) the worst
+    error and, at the kernel's DBA_ROW_SHAPE, the times."""
     times = {t: (f"{r[t]:.4f}" if isinstance(r[t], float) else
                  "/".join(f"{v:.4f}" for v in r[t]))
-             for t in ("ms", "plain_ms", "bound_ms", "library_ms") if t in r}
+             for t in ("ms", "plain_ms", "bound_ms", "library_ms",
+                       "grid_ms") if t in r}
     if "ms" in r:
         times.update(share_of_bound=f"{r['bound_ms'] / min(r['ms']):.5f}",
                      bound_by=r["bound_by"])
-    errs = dict(fwd_err_f64=f"{r['fwd_plain']:.3g}",
-                eta_f64=f"{r['eta_plain']:.3g}")
-    if r["route"] == "dba_solve":
-        log("kernel", name="dba_solve", shape=name,
-            max_rel_err=f"{r['err']:.3g}", limit=f"{r['limit']:.3g}",
-            plain_card_against_cpu=f"{r['plain_card_cpu']:.3g}",
-            fwd_err_f64=f"{r['fwd']:.3g}",
-            plain_fwd_err_f64=errs["fwd_err_f64"],
-            eta_f64=f"{r['eta']:.3g}", plain_eta_f64=errs["eta_f64"],
-            eta_floor=dba_probe.SOLVE_ETA_FLOOR,
-            bit_stable=r["bit_stable"], graph_equals_eager=r["graph_equal"],
-            emulation_bit_equal=r["emulation_equal"], **times,
-            **(l2 if "ms" in r else {}))
-        row["err"] = max(row["err"], r["err"])
-        if name == "planner":
-            row.update(ms=min(r["ms"]), plain_ms=r["plain_ms"],
-                       bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                       library_ms=r["library_ms"])
-    else:
-        log("kernel", name="dba_solve", shape=name, route=r["route"],
-            library_route_launches=r["library_launches"],
-            plain_card_against_cpu=f"{r['plain_card_cpu']:.3g}",
-            plain_fwd_err_f64=errs["fwd_err_f64"],
-            plain_eta_f64=errs["eta_f64"], **times)
-        if "ms" in r:
-            row["library_route"] = {"shape": name, "ms": min(r["ms"]),
-                                    "library_ms": r["library_ms"],
-                                    "launches": r["library_launches"]}
+    log("kernel", name=r["kernel"], shape=name,
+        max_rel_err=f"{r['err']:.3g}", limit=f"{r['limit']:.3g}",
+        plain_card_against_cpu=f"{r['plain_card_cpu']:.3g}",
+        fwd_err_f64=f"{r['fwd']:.3g}",
+        plain_fwd_err_f64=f"{r['fwd_plain']:.3g}",
+        eta_f64=f"{r['eta']:.3g}", plain_eta_f64=f"{r['eta_plain']:.3g}",
+        eta_floor=dba_probe.SOLVE_ETA_FLOOR,
+        bit_stable=r["bit_stable"], graph_equals_eager=r["graph_equal"],
+        emulation_bit_equal=r["emulation_equal"],
+        **({"grid_bit_equal_one_block": r["grid_equal"]}
+           if "grid_equal" in r else {}),
+        **times, **(l2 if "ms" in r else {}))
+    row["err"] = max(row["err"], r["err"])
+    if name == DBA_ROW_SHAPE.get(r["kernel"], "planner"):
+        row.update(ms=min(r["ms"]), plain_ms=r["plain_ms"],
+                   bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                   library_ms=r["library_ms"])
 
 
 def check_segsum():
@@ -1466,11 +1485,10 @@ def run_main_path():
     launches.update({F32_ROWS[k]: v for k, v in f32_launches.items()})
     for k in cuda_corr.F32_KERNELS:
         launches[k] -= f32_launches[k]
-    # the solve's library route (P above SOLVE_MAX_P) is no kernel: the
-    # main path's backend at 40 frames stays on dba_solve
+    # the solve's grid kernel takes P above 48: the main path's backend at
+    # 40 frames stays on the one block (phase terminate_wide drives it)
     missing = [k for k, v in launches.items()
-               if v == 0 and k not in ("build_volumes_f32",
-                                       "dba_solve_library")]
+               if v == 0 and k not in ("build_volumes_f32", cuda_dba.GRID)]
     if missing or launches["build_volumes_f32"]:
         raise AssertionError(f"launches on the main path: {launches}; never "
                              f"launched: {missing}")
@@ -2020,6 +2038,35 @@ def run_planner_wide():
         launches_traced=repr(out["launches_traced"]),
         seconds=f"{secs:.1f}")
     log("planner_wide", seconds=f"{time.perf_counter() - t_phase:.1f}")
+
+
+def run_terminate_wide():
+    """Phase 12c (see the module's note). Returns the DBA kernels'
+    launches in terminate."""
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    sysm, frames = bench_terminate.tracked_system(WIDE100_KF, WIDE_SIZE,
+                                                  dev)
+    torch.cuda.synchronize()
+    track_s = time.perf_counter() - t0
+    reset_corr_launches()
+    edges = []
+    t0 = time.perf_counter()
+    with vo_counters([], edges, []):
+        traj = sysm.terminate(iter(frames))
+    torch.cuda.synchronize()
+    terminate_s = time.perf_counter() - t0
+    kf = int(sysm.video.counter)
+    launches = dict(cuda_dba.LAUNCHES)
+    log("terminate_wide", keyframes=kf, track_s=f"{track_s:.2f}",
+        terminate_s=f"{terminate_s:.3f}",
+        backend_edges="/".join(map(str, edges)), launches=repr(launches))
+    if not np.isfinite(traj).all() or kf < 0.9 * WIDE100_KF:
+        raise AssertionError(f"wide terminate: {kf} keyframes, finite "
+                             f"{bool(np.isfinite(traj).all())}")
+    if not all(launches.values()):
+        raise AssertionError(f"wide terminate's DBA launches {launches}")
+    return launches
 
 
 def run_planner_wide_alone():
@@ -2694,7 +2741,8 @@ def run_loop():
                                vps, "--device", "cuda"])
         rep = check_loop_artifacts(data, shared, n)
     total = {k: sum(r["launches"][k] for r in rows)
-             for k in (*LOOP_ROWS, "segsum", *cuda_dba.KERNELS)}
+             for k in (*LOOP_ROWS, "segsum", *cuda_dba.KERNELS,
+                       cuda_dba.GRID)}
     export = [{k: r["launches"][k] for k in LOOP_ROWS}
               for r in rows if r["stage"] == "test_vo2"]
     per_export = {"build_volumes": 0, "corr_extract": 0, "corr_lookup": 0,
@@ -3581,6 +3629,7 @@ PHASES = {"kernels": check_kernels, "packed": check_packed,
           "harness": run_harnesses, "export": run_export, "vps": run_vps,
           "loop": run_loop, "train": run_train, "vps_train": run_vps_train,
           "planner": run_planner, "planner_wide": run_planner_wide,
+          "terminate_wide": run_terminate_wide,
           "demo": run_demo, "dp": run_dp,
           "tools": run_tools}
 
@@ -3629,6 +3678,7 @@ def main():
     in_terminate = launches.pop("in_terminate")
     phase("planner")
     phase("planner_wide", run_planner_wide_alone)
+    wide100 = phase("terminate_wide")
     harness = phase("harness")
     export = phase("export")
     phase("vps")
@@ -3689,30 +3739,29 @@ def main():
         "launches_dp": dp_launches["segsum"],
         "launches_tools": tools_launches["segsum"]})
     # the DBA's kernels: phase 5's launches (terminate's within them); the
-    # solve's library route (P above SOLVE_MAX_P) beside it
-    for row in cuda_dba.KERNELS:
-        extra = {}
-        if row == "dba_solve":
-            extra = {"launches_library_route":
-                     launches["dba_solve_library"],
-                     "library_route_at_backend":
-                     res[row].get("library_route")}
+    # solve's grid kernel (P above 48, which phase 5, the demo and the
+    # tools never reach) the wide terminate's at 100 keyframes (phase
+    # terminate_wide), phase 5's beside them
+    in_terminate[cuda_dba.GRID] = wide100[cuda_dba.GRID]
+    for row in (*cuda_dba.KERNELS, cuda_dba.GRID):
+        grid = row == cuda_dba.GRID
+        n = wide100[row] if grid else launches[row]
         kernels.append({
             "name": row, "route": "cuda",
             "source": "pvo_tpu_torch/csrc/dba.cu",
             "replaces": DBA_REPLACES.get(
                 row, "none: XLA einsums in pvo_tpu/vo/dba.py"),
-            "launches": launches[row], "max_abs_err": res[row]["err"],
+            "launches": n, "max_abs_err": res[row]["err"],
             **{k: res[row][k] for k in ("ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")},
-            **extra,
+            **({"launches_main": launches[row]} if grid else {}),
             "launches_in_terminate": in_terminate[row],
             "launches_loop": loop[row], "launches_train": train[row],
             "launches_vps_train": vps_train[row],
             "launches_demo": demo_launches[row],
             "launches_dp": dp_launches[row],
             "launches_tools": tools_launches[row]})
-        if not (launches[row] and loop[row] and demo_launches[row]):
+        if not (n and (grid or (loop[row] and demo_launches[row]))):
             raise AssertionError(f"{row} was never launched on a path")
     for x, (_, kernel, site) in HARNESS.items():
         n, ms, plain_ms, err = harness[x]

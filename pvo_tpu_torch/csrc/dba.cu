@@ -89,13 +89,17 @@
 //   pvo_tpu/geom/chol.py:21-32, called at pvo_tpu/vo/dba.py:247; on the
 //   card those were cuSOLVER's potrf and two trsv with some 26 small
 //   kernels around them, about 1.2 ms of a replayed planner frame). The
-//   system is 6P x 6P, padded to whole 32 x 32 tiles with the identity;
-//   its lower triangle's tiles (row stride 33), b and the pivots'
-//   reciprocal square roots live in shared memory (192,384 bytes at P =
-//   SV_MAX_P = 48). The blocks on and below the diagonal of H and S_sum
-//   are staged by cp.async (double-buffered) and scattered to the tiles,
-//   the diagonal damped as d + (ep + lm d) with the plain version's
-//   roundings. The factorization goes by 32-column panels,
+//   system is 6P x 6P, padded to whole 32 x 32 tiles with the identity.
+//   The DBA sums the blocks (p, q) and (q, p) apart, so Sd is not quite
+//   symmetric; the JAX package's cholesky factors (Sd + Sd^T) / 2
+//   (symmetrize_input), and so does this: each entry Sd[R][C] = H - S_sum
+//   in f32, the diagonal damped as d + (ep + lm d) with the plain
+//   version's roundings, then 0.5 (Sd[R][C] + Sd[C][R]) (sv_sym). Its
+//   lower triangle's tiles (row stride 33), b and the pivots' reciprocal
+//   square roots live in shared memory (192,384 bytes at P = SV_MAX_P =
+//   48). The blocks on and below the diagonal of H and S_sum, each with
+//   its mirror above, are staged by cp.async (double-buffered) and
+//   scattered to the tiles. The factorization goes by 32-column panels,
 //   right-looking: warp 0 factors the diagonal tile, a lane a row, b
 //   riding along as an extra row (y = L^-1 b comes out of the same
 //   sweep), each step's next pivot formed first so that the chain from
@@ -113,11 +117,32 @@
 //   reciprocal square roots too (sv_rsqrt: a bit-level guess and three
 //   Newton steps), no atomics: numpy repeats the order bit for bit
 //   (scripts/dba_solve_emul.py), and two calls are bit-equal. Bound:
-//   M^3/3 + 2 M^2 + M operations (M = 6P) against the f32 peak, and the
-//   lower triangles read once (bytes bound it up to P = 32); but the
-//   factorization is a chain of M dependent column steps on one SM, so
-//   against the whole card's bound it reads about 0.1%
-//   (scripts/solve_phases.py shows where its cycles go).
+//   M^3/3 + 3 M^2 operations (M = 6P) against the f32 peak, and H and
+//   S_sum read once (bytes bound it up to P = 78); but the factorization
+//   is a chain of M dependent column steps on one SM, so against the
+//   whole card's bound it reads about 0.2%.
+// dba_solve_grid_kernel: the same solve above SV_MAX_P, whose system no
+//   longer fits a block, at any P (the backend's P is its keyframes less
+//   one, up to the buffer's). One cooperative launch of one block an SM
+//   at most (a block a tile column, nb = M / 32 rounded up, up to the
+//   card's SMs), on a workspace the wrapper allocates (sg_layout: the
+//   padded lower triangle in 32 x 32 tiles, 0.94 MB at P = 99, 19.9 MB
+//   at P = 511: both in the 50 MB L2, read through it with __ldcg).
+//   The blocks assemble the tiles (the same sv_sym of the same values),
+//   then factor right-looking by panels, block b owning the tile columns
+//   J = b mod G: at step k each block takes panel k out of its columns,
+//   a warp a tile (the panel's two tiles staged in shared memory), and
+//   the owner of column k + 1 does that column first and then factors it
+//   at once (its diagonal tile by warp 0 with sv_factor_tile, its panel
+//   a thread a row, b riding along), so that one grid barrier a step (an
+//   atomic count and generation, sg_grid_sync) orders everything. Block
+//   0 then solves L^T x = y as dba_solve_kernel does, the tiles read
+//   from L2, and applies the mask. Every entry takes the same rounded
+//   operations in the same order as in dba_solve_kernel, so one
+//   emulation covers both kernels and the card equals it bit for bit at
+//   every P. Bound as dba_solve_kernel's; the chain is nb panel steps,
+//   each a diagonal factorization, a panel solve on one SM and a grid
+//   barrier.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -162,7 +187,8 @@ constexpr int SV_NB = 32;          // a tile's side, the panel width
 constexpr int SV_LD = SV_NB + 1;   // a tile row's stride: odd, so a
                                    // column's 32 values lie in 32 banks
 constexpr int SV_TILE = SV_NB * SV_LD;
-constexpr int SV_MAX_P = 48;       // cuda_dba.SOLVE_MAX_P
+constexpr int SV_MAX_P = 48;       // cuda_dba.SOLVE_MAX_P: the one block's
+                                   // largest P, the grid kernel's above
 constexpr float MIN_DEPTH = 0.2f;
 constexpr unsigned FULL = 0xffffffffu;
 static_assert(SC_UNITS <= SC_THREADS, "a tile pair's blocks a thread each");
@@ -1152,6 +1178,7 @@ static_assert(SV_NB == 32 && SV_WARPS >= 6, "a lane a row; warps 0, 1-4, rest");
 struct SolveParams {
   const float *H, *S, *v, *cv;  // S, cv null: a motion-only iteration
   float* dx;
+  float* ws;  // dba_solve_grid_kernel's workspace (sg_layout), else null
   float ep, lm;
   int P;
 };
@@ -1184,12 +1211,21 @@ __device__ __forceinline__ int sv_tri_row(int f) {
   return pp;
 }
 
-// one element (R, C), R >= C, of the damped system from H - S
-__device__ __forceinline__ void sv_put(float* A, const SolveParams& p, int R,
-                                       int C, float h, float s) {
+// Sd[R][C] of the damped system from the blocks' values h, s there:
+// h - s (h on a motion-only iteration), the diagonal damped as
+// d + (ep + lm d)
+__device__ __forceinline__ float sv_damped(const SolveParams& p, int R,
+                                           int C, float h, float s) {
   float x = p.S ? __fsub_rn(h, s) : h;
   if (R == C) x = __fadd_rn(x, __fadd_rn(p.ep, __fmul_rn(p.lm, x)));
-  sv_tile(A, R / SV_NB, C / SV_NB)[(R % SV_NB) * SV_LD + C % SV_NB] = x;
+  return x;
+}
+
+// an entry of (Sd + Sd^T) / 2, lo = Sd[R][C], up = Sd[C][R]: what the
+// JAX package's cholesky factors (symmetrize_input), rounded as it
+// rounds it (the sum, then the exact halving)
+__device__ __forceinline__ float sv_sym(float lo, float up) {
+  return __fmul_rn(0.5f, __fadd_rn(lo, up));
 }
 
 // 1 / sqrt(d) in f32 operations alone, so that numpy repeats it bit for
@@ -1367,28 +1403,36 @@ __global__ void __launch_bounds__(SV_THREADS, 1)
   float* rest = DkT + SV_NB * SV_NB;
   float4* stage = reinterpret_cast<float4*>(rest);
   float* PT = rest;
-  const int stg4 = min(SV_STAGE4, (int)((SV_SMEM - (rest - A) * 4) / 64));
+  const int stg4 = min(SV_STAGE4, (int)((SV_SMEM - (rest - A) * 4) / 128));
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  // assemble: Sd[6p + a][6q + c] = (H - S)[p P + q][a][c], the lower
-  // triangle only, the diagonal damped as d + (ep + lm d); rows and
-  // columns [M, Mp) the identity's; b = v - cv, zeros past M. The blocks
-  // on and below the diagonal (block q <= p of row p: the triangle's
-  // block p (p + 1) / 2 + q) are staged by cp.async in stages of
-  // stg4 / 9 blocks, double-buffered (the next stage in flight while this
-  // one is scattered to the tiles), a thread a float4 when staged and a
-  // row of a block when scattered
+  // assemble: Sd[6p + a][6q + c] = (H - S)[p P + q][a][c], the diagonal
+  // damped as d + (ep + lm d), and the lower triangle of (Sd + Sd^T) / 2
+  // from it; rows and columns [M, Mp) the identity's; b = v - cv, zeros
+  // past M. The blocks on and below the diagonal (block q <= p of row p:
+  // the triangle's block p (p + 1) / 2 + q), each with its mirror (q, p),
+  // are staged by cp.async in stages of stg4 / 9 blocks, double-buffered
+  // (the next stage in flight while this one is scattered to the tiles),
+  // a thread a float4 when staged and a row of a block when scattered
   {
     const int nblk = p.P * (p.P + 1) / 2, sb = stg4 / 9;
+    const float4* H4 = reinterpret_cast<const float4*>(p.H);
+    const float4* S4 = reinterpret_cast<const float4*>(p.S);
+    // a buffer: the blocks of H, of S, then their mirrors of H, of S
     auto issue = [&](int f0, int buf) {
-      float4* dH = stage + buf * 2 * stg4;
+      float4* d = stage + buf * 4 * stg4;
       const int n = min(sb, nblk - f0) * 9;
       for (int i = tid; i < n; i += SV_THREADS) {
         const int fb = f0 + i / 9, pp = sv_tri_row(fb);
-        const int g = (pp * p.P + fb - pp * (pp + 1) / 2) * 9 + i % 9;
-        cp_async16(dH + i, reinterpret_cast<const float4*>(p.H) + g);
-        if (p.S)
-          cp_async16(dH + stg4 + i, reinterpret_cast<const float4*>(p.S) + g);
+        const int q = fb - pp * (pp + 1) / 2;
+        const int lo = (pp * p.P + q) * 9 + i % 9;
+        const int up = (q * p.P + pp) * 9 + i % 9;
+        cp_async16(d + i, H4 + lo);
+        cp_async16(d + 2 * stg4 + i, H4 + up);
+        if (p.S) {
+          cp_async16(d + stg4 + i, S4 + lo);
+          cp_async16(d + 3 * stg4 + i, S4 + up);
+        }
       }
       asm volatile("cp.async.commit_group;\n" ::: "memory");
     };
@@ -1401,16 +1445,24 @@ __global__ void __launch_bounds__(SV_THREADS, 1)
         asm volatile("cp.async.wait_group 0;\n" ::: "memory");
       }
       __syncthreads();
-      const float* sH = reinterpret_cast<const float*>(stage + buf * 2 * stg4);
+      const float* sH = reinterpret_cast<const float*>(stage + buf * 4 * stg4);
       const float* sS = sH + 4 * stg4;
+      const float* mH = sH + 8 * stg4;
+      const float* mS = sH + 12 * stg4;
       for (int w = tid; w < min(sb, nblk - f0) * 6; w += SV_THREADS) {
         const int fb = f0 + w / 6, pp = sv_tri_row(fb);
-        const int q = fb - pp * (pp + 1) / 2, R = 6 * pp + w % 6;
+        const int q = fb - pp * (pp + 1) / 2, a = w % 6, R = 6 * pp + a;
+        const int blk = (w / 6) * 36;
 #pragma unroll
-        for (int c = 0; c < 6; ++c)
-          if (6 * q + c <= R)
-            sv_put(A, p, R, 6 * q + c, sH[w * 6 + c],
-                   p.S ? sS[w * 6 + c] : 0.f);
+        for (int c = 0; c < 6; ++c) {
+          const int C = 6 * q + c;
+          if (C > R) continue;
+          // Sd[R][C] from the block, Sd[C][R] from its mirror
+          const int lo = blk + a * 6 + c, up = blk + c * 6 + a;
+          sv_tile(A, R / SV_NB, C / SV_NB)[(R % SV_NB) * SV_LD + C % SV_NB] =
+              sv_sym(sv_damped(p, R, C, sH[lo], p.S ? sS[lo] : 0.f),
+                     sv_damped(p, C, R, mH[up], p.S ? mS[up] : 0.f));
+        }
       }
       __syncthreads();
     }
@@ -1522,6 +1574,333 @@ __global__ void __launch_bounds__(SV_THREADS, 1)
   for (int R = tid; R < M; R += SV_THREADS) p.dx[R] = ok ? b[R] : 0.f;
 }
 
+// ---- dba_solve_grid_kernel: the same solve at any P ----
+
+// a workspace tile: 32 x 32, row stride 32 (a row is one 128-byte line,
+// so no line holds two tiles)
+constexpr int SG_TILE = SV_NB * SV_NB;
+// its shared memory in floats: the diagonal tile (stride 33) and its L
+// transposed, the column broadcast, the diagonal tile's y and pivots'
+// reciprocals, x of two tiles in the back-solve, the column's panel tile
+// and a panel tile a warp
+constexpr int SG_SMEM_FLOATS = SV_TILE + SG_TILE + 2 * SV_NB + SV_NB +
+                               SV_NB + 2 * SV_NB + SG_TILE +
+                               SV_WARPS * SG_TILE;
+constexpr int SG_SMEM = SG_SMEM_FLOATS * 4;
+static_assert(SG_SMEM <= SV_SMEM && SV_TILE % 4 == 0,
+              "the grid kernel's buffers fit a block, 16-byte aligned");
+
+// the workspace of the grid kernel at P poses, offsets in floats (each a
+// multiple of 32, so 128-byte aligned on an aligned base): the padded
+// lower triangle's tiles, tile (I, J) at I (I + 1) / 2 + J; the panel
+// transposed, two buffers (by the step's parity) of nb tiles; b; the
+// pivots' reciprocal square roots; a failure flag a diagonal tile; the
+// grid barrier's two counters. cuda_dba.solve_workspace mirrors it
+struct SgLayout {
+  size_t tiles, panel, b, rd, bad, bar, total;
+};
+__host__ __device__ constexpr SgLayout sg_layout(int P) {
+  const size_t nb = (6 * (size_t)P + SV_NB - 1) / SV_NB, Mp = nb * SV_NB;
+  const size_t panel = nb * (nb + 1) / 2 * SG_TILE;
+  const size_t b = panel + 2 * nb * SG_TILE, rd = b + Mp, bad = rd + Mp;
+  const size_t bar = bad + (nb + 31) / 32 * 32;
+  return {0, panel, b, rd, bad, bar, bar + 32};
+}
+static_assert(sg_layout(49).total == 77504 &&
+                  sg_layout(99).total == 234752 &&
+                  sg_layout(511).total == 4970624,
+              "tests/test_torch_port_dba_solve_grid.py holds these");
+
+__device__ __forceinline__ size_t sg_off(int I, int J) {
+  return ((size_t)I * (I + 1) / 2 + J) * SG_TILE;
+}
+
+// Sd[R][C] from the blocks in device memory
+__device__ __forceinline__ float sg_entry(const SolveParams& p, int R,
+                                          int C) {
+  const size_t i =
+      ((size_t)(R / 6) * p.P + C / 6) * 36 + (R % 6) * 6 + C % 6;
+  return sv_damped(p, R, C, p.H[i], p.S ? p.S[i] : 0.f);
+}
+
+// every block of the grid at one point (the launch is cooperative, so
+// all are resident): bar[0] counts the arrivals, bar[1] is the
+// generation, which the last block to arrive advances after resetting
+// the count; the fences make each block's writes before the barrier
+// visible to every block after it (the workspace is read through L2,
+// __ldcg, so no block reads a stale line of its L1). bar[0] is zeroed
+// before each launch
+__device__ __forceinline__ void sg_grid_sync(unsigned* bar) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    volatile unsigned* gen = bar + 1;
+    const unsigned g = *gen;
+    __threadfence();
+    if (atomicAdd(bar, 1u) == gridDim.x - 1) {
+      atomicExch(bar, 0u);
+      __threadfence();
+      atomicAdd(bar + 1, 1u);
+    } else {
+      while (*gen == g) __nanosleep(32);
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// one warp: the workspace tile Tt less L_Ik L_Jk^T, 4 x 8 values a lane,
+// each summed over the panel's 32 columns in order (sv_update_tile's
+// order); PI, PJ: the panel's tiles transposed in shared memory; on a
+// diagonal tile the lanes above the diagonal do nothing
+__device__ __forceinline__ void sg_update_tile(float* Tt, const float* PI,
+                                               const float* PJ, bool diag,
+                                               int lane) {
+  const int r0 = (lane % 8) * 4, c0 = (lane / 8) * 8;
+  if (diag && c0 > r0 + 3) return;
+  float* T = Tt + r0 * SV_NB + c0;
+  float acc[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float4 u = __ldcg(reinterpret_cast<const float4*>(T + i * SV_NB));
+    const float4 w =
+        __ldcg(reinterpret_cast<const float4*>(T + i * SV_NB + 4));
+    acc[i][0] = u.x, acc[i][1] = u.y, acc[i][2] = u.z, acc[i][3] = u.w;
+    acc[i][4] = w.x, acc[i][5] = w.y, acc[i][6] = w.z, acc[i][7] = w.w;
+  }
+#pragma unroll 4
+  for (int kk = 0; kk < SV_NB; ++kk) {
+    const float4 a4 = *reinterpret_cast<const float4*>(PI + kk * SV_NB + r0);
+    const float4 b4 = *reinterpret_cast<const float4*>(PJ + kk * SV_NB + c0);
+    const float4 c4 =
+        *reinterpret_cast<const float4*>(PJ + kk * SV_NB + c0 + 4);
+    const float li[4] = {a4.x, a4.y, a4.z, a4.w};
+    const float lj[8] = {b4.x, b4.y, b4.z, b4.w, c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        acc[i][c] = __fmaf_rn(-li[i], lj[c], acc[i][c]);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float4* dst = reinterpret_cast<float4*>(T + i * SV_NB);
+    dst[0] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    dst[1] = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+  }
+}
+
+// b[t] less L_IJ^T x_I over the column t of tile J = t / 32, summed over
+// the tile's 32 rows in order (sv_back_column's sums; x_I in shared
+// memory)
+__device__ __forceinline__ float sg_back_column(const float* T,
+                                                const float* b,
+                                                const float* xI, int I,
+                                                int t) {
+  const float* L = T + sg_off(I, t / SV_NB) + t % SV_NB;
+  float z = __ldcg(b + t);
+#pragma unroll 8
+  for (int r = 0; r < SV_NB; ++r)
+    z = __fmaf_rn(-__ldcg(L + r * SV_NB), xI[r], z);
+  return z;
+}
+
+// a workspace tile's row (32 values at src) into dst
+__device__ __forceinline__ void sg_load_row(float* dst, const float* src) {
+#pragma unroll
+  for (int g = 0; g < SV_NB / 4; ++g) {
+    const float4 v = __ldcg(reinterpret_cast<const float4*>(src) + g);
+    dst[4 * g] = v.x, dst[4 * g + 1] = v.y, dst[4 * g + 2] = v.z,
+    dst[4 * g + 3] = v.w;
+  }
+}
+
+__global__ void __launch_bounds__(SV_THREADS, 1)
+    dba_solve_grid_kernel(const SolveParams p) {
+  extern __shared__ float4 sg_smem4[];
+  const int M = 6 * p.P, nb = (M + SV_NB - 1) / SV_NB, Mp = nb * SV_NB;
+  const SgLayout lay = sg_layout(p.P);
+  float* T = p.ws + lay.tiles;
+  float* PT = p.ws + lay.panel;
+  float* b = p.ws + lay.b;
+  float* rd = p.ws + lay.rd;
+  unsigned* bad = reinterpret_cast<unsigned*>(p.ws + lay.bad);
+  unsigned* bar = reinterpret_cast<unsigned*>(p.ws + lay.bar);
+  float* Dk = reinterpret_cast<float*>(sg_smem4);  // the diagonal tile
+  float* DkT = Dk + SV_TILE;    // its L transposed
+  float* col = DkT + SG_TILE;   // the factor's column broadcast, 2 x 32
+  float* yk = col + 2 * SV_NB;  // its 32 values of b
+  float* rdk = yk + SV_NB;      // its pivots' reciprocal square roots
+  float* xs = rdk + SV_NB;      // the back-solve's x of two tiles
+  float* PJ = xs + 2 * SV_NB;   // the column's panel tile, transposed
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* PI = PJ + SG_TILE * (1 + warp);  // the warp's panel tile
+  const int G = gridDim.x, blk = blockIdx.x;
+
+  // assemble, the tiles dealt over the blocks: (Sd + Sd^T) / 2 on and
+  // below the diagonal (sv_sym of the values dba_solve_kernel takes),
+  // zeros above it, the identity's rows and columns [M, Mp); b = v - cv,
+  // zeros past M
+  for (int f = blk; f < sv_tiles(nb); f += G) {
+    const int I = sv_tri_row(f), J = f - I * (I + 1) / 2;
+    float* t = T + (size_t)f * SG_TILE;
+    for (int e = tid; e < SG_TILE; e += SV_THREADS) {
+      const int R = I * SV_NB + e / SV_NB, C = J * SV_NB + e % SV_NB;
+      float x;
+      if (R >= M || C >= M) x = R == C ? 1.f : 0.f;
+      else if (C > R) x = 0.f;
+      else x = sv_sym(sg_entry(p, R, C), sg_entry(p, C, R));
+      t[e] = x;
+    }
+  }
+  for (int R = blk * SV_THREADS + tid; R < Mp; R += G * SV_THREADS)
+    b[R] = R >= M ? 0.f : p.cv ? __fsub_rn(p.v[R], p.cv[R]) : p.v[R];
+  sg_grid_sync(bar);
+
+  // column k's owner: its diagonal tile (every update in) factored by
+  // warp 0 with y_k riding along (sv_factor_tile), and L_kk, y_k, the
+  // pivots' reciprocals and the failure flag written back; then the
+  // panel below it, a thread a row (dba_solve_kernel's sums): L_Ik into
+  // its tile and, transposed, into the panel buffer of k's parity, and
+  // b_I less L_Ik y_k
+  auto factor_panel = [&](int k) {
+    if (warp == 0) {
+      sg_load_row(Dk + lane * SV_LD, T + sg_off(k, k) + lane * SV_NB);
+      yk[lane] = __ldcg(b + k * SV_NB + lane);
+      __syncwarp();
+      const bool failed = sv_factor_tile(Dk, yk, rdk, col, DkT, lane);
+      __syncwarp();
+      float* row = T + sg_off(k, k) + lane * SV_NB;
+      for (int c = 0; c < SV_NB; ++c)
+        row[c] = c <= lane ? Dk[lane * SV_LD + c] : 0.f;
+      b[k * SV_NB + lane] = yk[lane];
+      rd[k * SV_NB + lane] = rdk[lane];
+      if (lane == 0) bad[k] = failed;
+    }
+    __syncthreads();
+    float* Pk = PT + (size_t)(k & 1) * nb * SG_TILE;
+    for (int t = tid; t < (nb - 1 - k) * SV_NB; t += SV_THREADS) {
+      const int I = k + 1 + t / SV_NB, r = t % SV_NB;
+      float* row = T + sg_off(I, k) + r * SV_NB;
+      float* pt = Pk + (size_t)I * SG_TILE + r;
+      float x[SV_NB];
+      sg_load_row(x, row);
+#pragma unroll
+      for (int j = 0; j < SV_NB; ++j) {
+        x[j] = __fmul_rn(x[j], rdk[j]);
+#pragma unroll
+        for (int g = (j + 1) / 4; g < SV_NB / 4; ++g) {
+          const float4 v = reinterpret_cast<const float4*>(DkT + j * SV_NB)[g];
+          const float vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int m = 0; m < 4; ++m)
+            if (4 * g + m > j)
+              x[4 * g + m] = __fmaf_rn(-x[j], vv[m], x[4 * g + m]);
+        }
+      }
+      float bb = __ldcg(b + I * SV_NB + r);
+#pragma unroll
+      for (int j = 0; j < SV_NB; ++j) {
+        pt[j * SV_NB] = x[j];
+        bb = __fmaf_rn(-x[j], yk[j], bb);
+      }
+#pragma unroll
+      for (int g = 0; g < SV_NB / 4; ++g)
+        reinterpret_cast<float4*>(row)[g] =
+            make_float4(x[4 * g], x[4 * g + 1], x[4 * g + 2], x[4 * g + 3]);
+      b[I * SV_NB + r] = bb;
+    }
+    __syncthreads();
+  };
+
+  // the tiles (I, J), I >= J, of column J less L_Ik L_Jk^T (panel k from
+  // its buffer), a warp a tile; L_Jk staged for the block, L_Ik for the
+  // warp
+  auto update_column = [&](int J, int k) {
+    const float4* Pk = reinterpret_cast<const float4*>(
+        PT + (size_t)(k & 1) * nb * SG_TILE);
+    for (int e = tid; e < SG_TILE / 4; e += SV_THREADS)
+      reinterpret_cast<float4*>(PJ)[e] =
+          __ldcg(Pk + (size_t)J * SG_TILE / 4 + e);
+    __syncthreads();
+    for (int I = J + warp; I < nb; I += SV_WARPS) {
+#pragma unroll
+      for (int g = 0; g < SG_TILE / 4 / 32; ++g)
+        reinterpret_cast<float4*>(PI)[g * 32 + lane] =
+            __ldcg(Pk + (size_t)I * SG_TILE / 4 + g * 32 + lane);
+      __syncwarp();
+      sg_update_tile(T + sg_off(I, J), PI, PJ, I == J, lane);
+      __syncwarp();
+    }
+    __syncthreads();
+  };
+
+  // L L^T = Sd by 32-column panels, right-looking, block b owning the
+  // tile columns J = b mod G: at step k each block takes panel k out of
+  // its columns right of k, column k + 1 first where it owns it, and
+  // factors that column at once, so that panel k + 1 is ready at the
+  // step's barrier. Each tile takes the panels in order, each panel's 32
+  // columns in order, and b its terms in the same order: the sums of
+  // dba_solve_kernel and of dba_solve_emul.emulate
+  if (blk == 0) factor_panel(0);
+  sg_grid_sync(bar);
+  for (int k = 0; k + 1 < nb; ++k) {
+    for (int J = k + 1 + ((blk - (k + 1)) % G + G) % G; J < nb; J += G) {
+      update_column(J, k);
+      if (J == k + 1) factor_panel(k + 1);
+    }
+    sg_grid_sync(bar);
+  }
+  if (blk != 0) return;
+
+  // block 0: L^T x = y by the tiles from the last, as dba_solve_kernel:
+  // warp 0 solves a diagonal tile; the columns above it take x_I out of
+  // b, warp 1 first those of the next diagonal tile, which it hands to
+  // warp 0 in yk
+  auto stage_diag = [&](int I) {
+    sg_load_row(Dk + lane * SV_LD, T + sg_off(I, I) + lane * SV_NB);
+    rdk[lane] = __ldcg(rd + I * SV_NB + lane);
+  };
+  if (warp == 0) {
+    stage_diag(nb - 1);
+    yk[lane] = __ldcg(b + (nb - 1) * SV_NB + lane);
+    __syncwarp();
+    sv_back_tile(Dk, yk, rdk, lane);
+    __syncwarp();
+    xs[((nb - 1) & 1) * SV_NB + lane] = yk[lane];
+    b[(nb - 1) * SV_NB + lane] = yk[lane];
+  }
+  __syncthreads();
+  for (int I = nb - 1; I > 0; --I) {
+    const float* xI = xs + (I & 1) * SV_NB;
+    if (warp == 0) {
+      stage_diag(I - 1);
+      sv_handoff_wait(1);
+      sv_back_tile(Dk, yk, rdk, lane);
+      __syncwarp();
+      xs[((I - 1) & 1) * SV_NB + lane] = yk[lane];
+      b[(I - 1) * SV_NB + lane] = yk[lane];
+    } else if (warp == 1) {
+      yk[lane] = sg_back_column(T, b, xI, I, (I - 1) * SV_NB + lane);
+      __syncwarp();
+      sv_handoff_arrive(1);
+    } else {
+      for (int t = tid - 2 * 32; t < (I - 1) * SV_NB;
+           t += SV_THREADS - 2 * 32)
+        b[t] = sg_back_column(T, b, xI, I, t);
+    }
+    __syncthreads();
+  }
+
+  // solve_psd's mask: zeros where a pivot failed or x is not finite
+  bool ok = true;
+  for (int k = tid; k < nb; k += SV_THREADS) ok = ok && !__ldcg(bad + k);
+  for (int R = tid; R < M; R += SV_THREADS)
+    ok = ok && isfinite(__ldcg(b + R));
+  ok = __syncthreads_and(ok);
+  for (int R = tid; R < M; R += SV_THREADS)
+    p.dx[R] = ok ? __ldcg(b + R) : 0.f;
+}
+
 }  // namespace
 
 // pvo_tpu_torch/vo/net/cuda_dba.py holds each function's shapes. Each
@@ -1616,10 +1995,53 @@ extern "C" int pvo_dba_backsub(const float* poses, const float* dx,
   return (int)cudaGetLastError();
 }
 
+extern "C" long long pvo_dba_solve_workspace(int P) {
+  return P < 1 ? 0 : (long long)sg_layout(P).total;
+}
+
+// ws null: dba_solve_kernel (P <= SV_MAX_P); else dba_solve_grid_kernel
+// on ws, pvo_dba_solve_workspace(P) floats, 16-byte aligned
 extern "C" int pvo_dba_solve(const float* H, const float* S, const float* v,
                              const float* cv, int P, float ep, float lm,
-                             float* dx, void* stream) {
-  if (P < 1 || P > SV_MAX_P) return (int)cudaErrorInvalidValue;
+                             float* dx, float* ws, void* stream) {
+  if (P < 1) return (int)cudaErrorInvalidValue;
+  const SolveParams p = {H, S, v, cv, dx, ws, ep, lm, P};
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (ws) {
+    if ((uintptr_t)ws % 16 != 0) return (int)cudaErrorMisalignedAddress;
+    // a block a tile column at most, one an SM, all resident
+    int dev = 0, sms = 0, per = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(dba_solve_grid_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 SG_SMEM);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per, dba_solve_grid_kernel, SV_THREADS, SG_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    const int nb = (6 * P + SV_NB - 1) / SV_NB;
+    const int G = nb < sms ? nb : sms;
+    if (per < 1 || G < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+    err = cudaMemsetAsync(ws + sg_layout(P).bar, 0, 2 * sizeof(unsigned),
+                          st);
+    if (err != cudaSuccess) return (int)err;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeCooperative;
+    attr[0].val.cooperative = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(G, 1, 1);
+    cfg.blockDim = dim3(SV_THREADS, 1, 1);
+    cfg.dynamicSmemBytes = SG_SMEM;
+    cfg.stream = st;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, dba_solve_grid_kernel, p);
+    return (int)(err != cudaSuccess ? err : cudaGetLastError());
+  }
+  if (P > SV_MAX_P) return (int)cudaErrorInvalidValue;
   // the blocks are staged by 16-byte copies
   if (((uintptr_t)H | (uintptr_t)S) % 16 != 0)
     return (int)cudaErrorMisalignedAddress;
@@ -1628,7 +2050,6 @@ extern "C" int pvo_dba_solve(const float* H, const float* S, const float* v,
   const cudaError_t err = cudaFuncSetAttribute(
       dba_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const SolveParams p = {H, S, v, cv, dx, ep, lm, P};
-  dba_solve_kernel<<<1, SV_THREADS, smem, (cudaStream_t)stream>>>(p);
+  dba_solve_kernel<<<1, SV_THREADS, smem, st>>>(p);
   return (int)cudaGetLastError();
 }

@@ -8,7 +8,11 @@ the implicit backward ``dz = (L L^T)^-1 g``, ``dH = -x dz^T``,
 ``db = dz``, with dz zero where the factorization failed. Autograd
 through the factorization and the masking ``where`` would not do: the
 untaken branch holds the failed solve's non-finite values, and its
-backward sends ``0 * inf = NaN`` into ``H``.
+backward sends ``0 * inf = NaN`` into ``H``. The forward factors
+``(H + H^T) / 2``, as ``jnp.linalg.cholesky`` (``symmetrize_input``) does
+there: the DBA's systems sum the blocks (p, q) and (q, p) apart, so they
+are not quite symmetric; the backward, as JAX's custom VJP, does not see
+the symmetrization.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ class _SolvePSD(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, H, b):
-        L, info = torch.linalg.cholesky_ex(H)
+        L, info = torch.linalg.cholesky_ex(0.5 * (H + H.mT))
         x = _cho_solve(L, b)
         ok = (info == 0)[..., None, None] & torch.isfinite(x).all(
             dim=-1, keepdim=True).all(dim=-2, keepdim=True)

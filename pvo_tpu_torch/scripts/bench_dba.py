@@ -12,8 +12,8 @@ card's kernel (``csrc/segsum.cu``). Prints the kernels' device ms of one
 traced call (``kbench.breakdown``) and the 25 costliest kernels: the
 measurement to take before writing a DBA kernel. On the CPU only the
 host ms. ``dba_launches``: the DBA kernels' launches in one call (the
-damped solve's library route, above ``cuda_dba.SOLVE_MAX_P``, as
-``dba_solve_library``). One JSON line last.
+damped solve above ``cuda_dba.SOLVE_MAX_P`` as ``dba_solve_grid``). One
+JSON line last.
 """
 
 from __future__ import annotations

@@ -38,6 +38,7 @@ from pvo_tpu_torch.scripts.bench_track import (bench_system, corr_rows,
                                                synth_stream, vo_counters)
 from pvo_tpu_torch.utils.device import open_device
 from pvo_tpu_torch.utils.tracing import StepTimer, range_device_ms
+from pvo_tpu_torch.vo.net import cuda_dba
 
 
 def buffer_for(n_kf):
@@ -62,8 +63,9 @@ def tracked_system(n_kf, image_size, dev):
 
 def run_once(n_kf, image_size, dev, profile_terminate=False):
     """Track ``n_kf`` frames, then time terminate. Returns (keyframes,
-    terminate s, backend s, filler s, the backend's edges per call,
-    whether the planner was engaged, profile or None)."""
+    terminate s, backend s, filler s, the backend's edges per call, the
+    DBA kernels' launches in terminate, whether the planner was engaged,
+    profile or None)."""
     sysm, frames = tracked_system(n_kf, image_size, dev)
     engaged = sysm.planner.engaged
 
@@ -86,10 +88,12 @@ def run_once(n_kf, image_size, dev, profile_terminate=False):
     sysm.traj_filler = timed("filler", sysm.traj_filler)
     settle()
     edges = []
+    before = dict(cuda_dba.LAUNCHES)
     with profiled() if profile_terminate else nullcontext() as prof, \
             vo_counters([], edges, []):
         with timer.time("terminate", sync=sync):
             traj = sysm.terminate(iter(frames))
+    dba = {k: n - before[k] for k, n in cuda_dba.LAUNCHES.items()}
     kf = int(sysm.video.counter)
     if not np.isfinite(traj).all():
         raise AssertionError("terminate produced non-finite poses")
@@ -98,7 +102,7 @@ def run_once(n_kf, image_size, dev, profile_terminate=False):
     if kf < 0.9 * n_kf:
         raise AssertionError(f"keyframe count collapsed: {kf} < 0.9*{n_kf}")
     return (kf, timer.totals["terminate"], timer.totals["backend"],
-            timer.totals["filler"], edges, engaged, prof)
+            timer.totals["filler"], edges, dba, engaged, prof)
 
 
 def run(n_kf=100, reps=3, image_size=(240, 808), device="cuda"):
@@ -106,15 +110,15 @@ def run(n_kf=100, reps=3, image_size=(240, 808), device="cuda"):
     kf, cold, *_, engaged, _ = run_once(n_kf, image_size, dev)
     warms = []
     for _ in range(max(1, reps - 1)):
-        warms.append(run_once(n_kf, image_size, dev)[1:5])
+        warms.append(run_once(n_kf, image_size, dev)[1:6])
         print(f"  warm rep: {warms[-1][0]:.3f}s", file=sys.stderr,
               flush=True)
-    warm, backend_s, filler_s, edges = min(warms)
+    warm, backend_s, filler_s, edges, dba = min(warms, key=lambda w: w[0])
 
     ranges = corr = edges_profiled = None
     if dev.type == "cuda":
-        *_, edges_profiled, _, prof = run_once(n_kf, image_size, dev,
-                                               profile_terminate=True)
+        *_, edges_profiled, _, _, prof = run_once(n_kf, image_size, dev,
+                                                  profile_terminate=True)
         ranges = {k: {"device_ms": ms, "kernels": n} for k, (ms, n) in
                   sorted(range_device_ms(prof, ("vo.",)).items())}
         corr = {k: {"device_ms": ms, "launches": n}
@@ -134,6 +138,9 @@ def run(n_kf=100, reps=3, image_size=(240, 808), device="cuda"):
         # they differ from run to run, and the backend's time with them
         "backend_edges": edges,
         "backend_edges_profiled": edges_profiled,
+        # the DBA kernels' launches in that run's terminate: the backend's
+        # solves above 48 poses on dba_solve_grid (zeros on the CPU)
+        "dba_launches_in_terminate": dba,
         "planner_engaged": engaged,
         "device_ms_by_range": ranges,
         "device_ms_by_kernel": corr,

@@ -17,16 +17,21 @@ pixel count), ``backend``: the backend's largest call at 100 keyframes
 as it was recorded on the card (``BACKEND_CALL``: its 1008 edges over
 K = 100 depth frames and P = 99 pose frames, every pair slot of
 ``build_edge_pairs``), ``backend40``: the same at 40 keyframes, as many
-as ``chip_smoke.py``'s main path tracks (its P on the solve kernel's
-route), ``backend40_wide``: the backend's largest call at 40 keyframes
+as ``chip_smoke.py``'s main path tracks (its P on the one-block
+solve), ``backend40_wide``: the backend's largest call at 40 keyframes
 of a 376x1248 stream (47x156), as many as ``chip_smoke.py``'s wide
-terminate tracks, ``crowded``: E=958 packed into K=32 frames (about 30 edges
+terminate tracks, ``backend_wide``: the backend's largest call at 100
+keyframes of a 376x1248 stream (P = 99 at 47x156, on the solve's grid
+kernel), ``crowded``: E=958 packed into K=32 frames (about 30 edges
 a frame; the recorded call's largest frame has 14), whose frames' Grams
 span several row tiles, ``filler``: the trajectory filler's motion-only
-update of 16 poses, and ``solve_max``: P = K = ``cuda_dba.SOLVE_MAX_P``,
-the solve kernel's largest. For each kernel (:func:`stages` makes the
-inputs of the Schur terms, the solve and the back-substitution from one
-plain iteration): the largest difference from the plain version
+update of 16 poses, ``solve_max``: P = K = ``cuda_dba.SOLVE_MAX_P``,
+the one-block solve's largest, ``multi_49``: P = K = 49, the grid
+kernel's smallest, and ``buffer``: P = K = 511, the default buffer's
+keyframes less one, as many as the backend's solve can meet in
+``test_vo``'s runs, three edges a frame at 30x101. For each kernel
+(:func:`stages` makes the inputs of the Schur terms, the solve and the
+back-substitution from one plain iteration): the largest difference from the plain version
 relative to the largest magnitude of that output (:func:`rel_err`;
 within ``TOL``), whether two calls are bit-equal, and whether a
 CUDA-graph replay equals the eager call; and the whole ``dba.dba`` (2
@@ -52,8 +57,9 @@ plain version's card-against-CPU difference, bit-equal to the numpy
 emulation of its order (``dba_solve_emul``), its backward error against
 the f64 system within twice the plain version's plus
 ``SOLVE_ETA_FLOOR``; its library yardstick ``cholesky_ex`` +
-``cholesky_solve`` timed beside it; above, at ``backend`` (P = 99), the
-library route's launches and time. With ``--parent PATH`` (an
+``cholesky_solve`` timed beside it; at every P: one block up to
+``cuda_dba.SOLVE_MAX_P`` (the grid kernel also run there, bit-equal to
+it, and timed), the grid kernel above. With ``--parent PATH`` (an
 earlier ``dba.cu`` of the same C interface for linearize, the Schur
 terms and the back-substitution, or an earlier one whose
 back-substitution is the three-launch one (``pvo_dba_backsub_edges``),
@@ -91,14 +97,16 @@ from pvo_tpu_torch.vo.net import cuda_corr, cuda_dba, cuda_segsum
 # keyframes (240x808), recorded on the card by record_backend: its edges
 # (ii, jj, all valid), windows (t0, t1, w0, P, K) and feature size; at
 # 40 keyframes, as many as phase 5 of chip_smoke.py tracks (its P on the
-# solve kernel's route); and at 40 keyframes of a 376x1248 stream, as
-# many as its wide terminate tracks. Keyed by (keyframes, image size)
+# one-block solve); at 40 keyframes of a 376x1248 stream, as many as its
+# wide terminate tracks; and at 100 keyframes of that stream (P = 99 on
+# the grid solve). Keyed by (keyframes, image size)
 NARROW, WIDE = (240, 808), (376, 1248)
 BACKEND_CALL = Path(__file__).with_name("dba_backend_call.json")
 BACKEND_CALLS = {
     (100, NARROW): BACKEND_CALL,
     (40, NARROW): BACKEND_CALL.with_name("dba_backend40_call.json"),
-    (40, WIDE): BACKEND_CALL.with_name("dba_backend40_wide_call.json")}
+    (40, WIDE): BACKEND_CALL.with_name("dba_backend40_wide_call.json"),
+    (100, WIDE): BACKEND_CALL.with_name("dba_backend_wide_call.json")}
 
 
 def backend_call(n_kf=100, image_size=NARROW):
@@ -108,6 +116,7 @@ def backend_call(n_kf=100, image_size=NARROW):
 
 _BACKEND, _BACKEND40 = backend_call(), backend_call(40)
 _BACKEND40_WIDE = backend_call(40, WIDE)
+_BACKEND_WIDE = backend_call(100, WIDE)
 # (E, K, h, w, pair slots, motion_only); P = K except at "backend" (its
 # recorded P); None: the slots that build_edge_pairs gives, unpadded
 SHAPES = {
@@ -126,18 +135,23 @@ SHAPES = {
                   None, False),
     "backend40_wide": (len(_BACKEND40_WIDE["ii"]), _BACKEND40_WIDE["K"],
                        *_BACKEND40_WIDE["hw"], None, False),
+    "backend_wide": (len(_BACKEND_WIDE["ii"]), _BACKEND_WIDE["K"],
+                     *_BACKEND_WIDE["hw"], None, False),
     "crowded": (958, 32, 30, 101, None, False),
     # the trajectory filler's motion-only update: its batch of 16 frames
     # (P = 16), two edges a frame
     "filler": (32, 16, 30, 101, None, True),
-    # the largest P on the solve kernel's route (the loop's backend
-    # reaches it): three edges a frame
+    # the largest P of the one-block solve and the smallest of the grid
+    # kernel (the loop's backend reaches both), and P = 511 (the default
+    # buffer's 512 keyframes less one): three edges a frame
     "solve_max": (3 * cuda_dba.SOLVE_MAX_P, cuda_dba.SOLVE_MAX_P, 30, 101,
                   None, False),
+    "multi_49": (3 * 49, 49, 30, 101, None, False),
+    "buffer": (3 * 511, 511, 30, 101, None, False),
 }
 # the shapes whose edges are a recorded graph, not drawn from the seed
 GRAPHS = {"backend": _BACKEND, "backend40": _BACKEND40,
-          "backend40_wide": _BACKEND40_WIDE}
+          "backend40_wide": _BACKEND40_WIDE, "backend_wide": _BACKEND_WIDE}
 TOL = 1e-4
 # the whole call against the plain versions' within TOL at these shapes;
 # at the others within TOL or FLOOR_FACTOR times the plain versions'
@@ -158,6 +172,10 @@ POSE_TOL = 2e-6
 # error is the condition (1e5-3e6 at these shapes) times its roundings,
 # and two f32 solves' forward errors differ by factors of 0.4-3 by chance
 SOLVE_ETA_FLOOR = 1e-7
+# the solve held bit-equal to the numpy emulation up to this P (the
+# emulation's column steps are Python loops: 3 s at P = 99 on one core,
+# minutes at 511)
+EMUL_MAX_P = 128
 
 
 def inputs(E, K, h, w, n_pairs, device, seed=0, graph=None):
@@ -586,24 +604,26 @@ def check(name, reps=0, seed=0, parent=None, solve_reps=None,
 
 def check_solve(args, reps=0, cold=False):
     """The damped solve at ``args`` (H, S_sum, v, corr_v, P of
-    :func:`stages`; S_sum, corr_v None: motion-only) on its route
-    (``cuda_dba.solve_route``). Always: the plain version on the card
-    against it on the CPU ("plain_card_cpu", relative to the largest
-    |dx|), and its forward error against the f64 solve of the same f32
-    system and its backward error ("fwd_plain", "eta_plain",
-    ``dba_solve_emul``). On the kernel's route: "err" (the kernel against
-    the plain version on the card) within "limit" (``TOL``, or
-    ``FLOOR_FACTOR`` times the plain version's own card-against-CPU
-    difference where that is larger: the f32 solve's spread at this
-    system's condition), "bit_stable", "graph_equal", "emulation_equal"
-    (bit-equal to ``dba_solve_emul.emulate``, the kernel's order in
-    numpy), "fwd" and "eta". On the library's: "library_launches" of one
-    ``cuda_dba.solve_library`` call. With ``reps``: "ms" (the kernel in
-    turns with the plain version, or the library route), "plain_ms" and
-    "library_ms" (``torch.linalg.cholesky_ex`` and ``torch.cholesky_solve``
-    on the damped matrix made outside the timed call, the yardstick),
-    "bound_ms" and "bound_by" (``kbench.dba_bound``); with ``cold`` the
-    L2 cleared before each timed call."""
+    :func:`stages`; S_sum, corr_v None: motion-only) on the kernel that
+    ``cuda_dba.solve_kernel(P)`` names ("kernel"). The plain version on
+    the card against it on the CPU ("plain_card_cpu", relative to the
+    largest |dx|), and its forward error against the f64 solve of the
+    same f32 system and its backward error ("fwd_plain", "eta_plain",
+    ``dba_solve_emul``); the kernel's "err" (against the plain version on
+    the card) within "limit" (``TOL``, or ``FLOOR_FACTOR`` times the plain
+    version's own card-against-CPU difference where that is larger: the
+    f32 solve's spread at this system's condition), "bit_stable",
+    "graph_equal", "fwd", "eta" and, at P <= ``EMUL_MAX_P``,
+    "emulation_equal" (bit-equal to ``dba_solve_emul.emulate``, the
+    kernels' order in numpy; None above). At P <= ``cuda_dba.SOLVE_MAX_P``
+    also "grid_equal": the grid kernel, launched below its range, equal
+    to the one block's dx bit for bit. With ``reps``: "ms" (the kernel in
+    turns with the plain version and the library yardstick), "plain_ms",
+    "library_ms" (``torch.linalg.cholesky_ex`` and
+    ``torch.cholesky_solve`` on the damped matrix made outside the timed
+    call), "bound_ms" and "bound_by" (``kbench.dba_bound``), and at P <=
+    ``cuda_dba.SOLVE_MAX_P`` "grid_ms" (the grid kernel there); with
+    ``cold`` the L2 cleared before each timed call."""
     H, S_sum, v, corr_v, P = args
     host = [None if t is None else t.cpu().numpy()
             for t in (H, S_sum, v, corr_v)]
@@ -611,28 +631,32 @@ def check_solve(args, reps=0, cold=False):
     plain = cuda_dba.solve_plain(*args)
     cpu = cuda_dba.solve_plain(*(t.cpu() if torch.is_tensor(t) else t
                                  for t in args))
-    r = {"route": cuda_dba.solve_route(P),
+    r = {"kernel": cuda_dba.solve_kernel(P),
          "plain_card_cpu": rel_err(plain.cpu(), cpu),
          "fwd_plain": dba_solve_emul.forward_error(plain.cpu(), x64),
          "eta_plain": dba_solve_emul.backward_error(*host, P, plain.cpu())}
 
     def kern():
         return cuda_dba.solve(*args)
-    if r["route"] == "dba_solve":
-        out, again = kern(), kern()
-        got = out.cpu().numpy()
-        r.update(err=rel_err(out, plain),
-                 limit=max(TOL, FLOOR_FACTOR * r["plain_card_cpu"]),
-                 bit_stable=torch.equal(out, again),
-                 graph_equal=_graph_equal(kern, [out]),
-                 emulation_equal=bool(np.array_equal(
-                     got, dba_solve_emul.emulate(*host, P))),
-                 fwd=dba_solve_emul.forward_error(got, x64),
-                 eta=dba_solve_emul.backward_error(*host, P, got))
-    else:
-        n0 = cuda_dba.LAUNCHES["dba_solve_library"]
-        cuda_dba.solve_library(*args)
-        r["library_launches"] = cuda_dba.LAUNCHES["dba_solve_library"] - n0
+
+    def grid():
+        return cuda_dba._solve_launch(*args, 0.1, 1e-4, True)
+    out, again = kern(), kern()
+    got = out.cpu().numpy()
+    r.update(err=rel_err(out, plain),
+             limit=max(TOL, FLOOR_FACTOR * r["plain_card_cpu"]),
+             bit_stable=torch.equal(out, again),
+             graph_equal=_graph_equal(kern, [out]),
+             emulation_equal=(bool(np.array_equal(
+                 got, dba_solve_emul.emulate(*host, P)))
+                 if P <= EMUL_MAX_P else None),
+             fwd=dba_solve_emul.forward_error(got, x64),
+             eta=dba_solve_emul.backward_error(*host, P, got))
+    small = P <= cuda_dba.SOLVE_MAX_P
+    if small:
+        n0 = cuda_dba.LAUNCHES[cuda_dba.GRID]
+        r["grid_equal"] = torch.equal(grid(), out)
+        cuda_dba.LAUNCHES[cuda_dba.GRID] = n0
     if reps:
         Sd = cuda_dba.damped(H, S_sum, P)
         b = (v if corr_v is None else v - corr_v).reshape(-1, 1)
@@ -642,17 +666,18 @@ def check_solve(args, reps=0, cold=False):
 
         def plain_fn():
             return cuda_dba.solve_plain(*args)
-        fast = kern if r["route"] == "dba_solve" else (
-            lambda: cuda_dba.solve_library(*args))
-        n0 = cuda_dba.LAUNCHES["dba_solve_library"]
         t = [kbench.graph_time_ms(f, reps, flush=cold)
-             for f in (fast, plain_fn, library, library, plain_fn, fast)]
-        cuda_dba.LAUNCHES["dba_solve_library"] = n0
+             for f in (kern, plain_fn, library, library, plain_fn, kern)]
         bound = kbench.dba_bound("dba_solve", P=P,
                                  motion_only=S_sum is None)
         r.update(ms=[t[0], t[5]], plain_ms=min(t[1], t[4]),
                  library_ms=min(t[2], t[3]), bound_ms=bound["ms"],
                  bound_by=bound["bound_by"])
+        if small:
+            n0 = cuda_dba.LAUNCHES[cuda_dba.GRID]
+            r["grid_ms"] = [kbench.graph_time_ms(f, reps, flush=cold)
+                            for f in (grid, kern, kern, grid)]
+            cuda_dba.LAUNCHES[cuda_dba.GRID] = n0
     return r
 
 
@@ -666,12 +691,10 @@ def failures(res):
     bad = []
     for k, r in res.items():
         if k == "dba_solve":
-            if r["route"] == "dba_solve_library":
-                ok = r["library_launches"] == 1
-            else:
-                ok = (r["err"] <= r["limit"] and r["bit_stable"] and
-                      r["graph_equal"] and r["emulation_equal"] and
-                      r["eta"] <= 2 * r["eta_plain"] + SOLVE_ETA_FLOOR)
+            ok = (r["err"] <= r["limit"] and r["bit_stable"] and
+                  r["graph_equal"] and r["emulation_equal"] is not False
+                  and r.get("grid_equal", True) and
+                  r["eta"] <= 2 * r["eta_plain"] + SOLVE_ETA_FLOOR)
             if not ok:
                 bad.append((k, r))
         elif k == "dba":

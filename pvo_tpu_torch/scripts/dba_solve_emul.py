@@ -1,13 +1,18 @@
-"""The damped solve's test systems and a numpy emulation of the kernel
-``dba_solve`` (``pvo_tpu_torch/csrc/dba.cu``), for the CPU tests and
-``dba_probe`` on the card (numpy alone).
+"""The damped solve's test systems and a numpy emulation of the kernels
+``dba_solve`` and ``dba_solve_grid`` (``pvo_tpu_torch/csrc/dba.cu``: one
+block up to P = 48, a grid of blocks above; the same operations in the
+same order), for the CPU tests and ``dba_probe`` on the card (numpy
+alone).
 
 :func:`system` makes a reduced camera system as the DBA sums it: P poses
 and a fixed one, edges between nearby poses with random pose and depth
 Jacobians, per-pixel weights and residuals, the depth (one value a pixel
 of each edge's source frame, damped by eta) eliminated. It returns the
 summed blocks as ``cuda_dba.solve`` takes them: H, S_sum (P*P, 6, 6), v,
-corr_v (P, 6), f32.
+corr_v (P, 6), f32. Its systems are exactly symmetric; the DBA's are
+not (it sums the blocks (p, q) and (q, p) apart): :func:`asymmetric`
+perturbs H's blocks, as a test of the symmetrization that every solve
+applies (:func:`damped`).
 
 :func:`emulate` runs the kernel's order of operations in f32: the same
 32-column tiles, the identity padding, the diagonal tile's column steps
@@ -57,22 +62,36 @@ def system(P, seed, hw=12, edges_per_pose=3, scale=10.0, eta=1e-2):
         wz[z] += np.einsum("hr,hr,hr->h", Jz[e], W[e], r[e])
     Q = 1.0 / (C + eta)
     Ezf = Ez.reshape(P, D, -1)
-    S_sum = np.einsum("pdx,x,qex->pqde", Ezf, Q.ravel(), Ezf)
+    # BLAS above P = 128 (the plain sum takes minutes at 600); the smaller
+    # systems keep the plain sum's roundings
+    S_sum = np.einsum("pdx,x,qex->pqde", Ezf, Q.ravel(), Ezf,
+                      optimize=P > 128)
     corr_v = np.einsum("pdx,x,x->pd", Ezf, Q.ravel(), wz.ravel())
     f32 = (lambda a: np.ascontiguousarray(a, np.float32))
     return (f32(H.reshape(P * P, D, D)), f32(S_sum.reshape(P * P, D, D)),
             f32(v), f32(corr_v))
 
 
+def asymmetric(H, seed, scale=1e-3):
+    """``H`` (P*P, 6, 6) plus a perturbation of ``scale`` times its
+    largest magnitude, uniform in [-1, 1) from ``RandomState(seed)``,
+    different in every entry: no longer symmetric."""
+    rng = np.random.RandomState(seed)
+    noise = rng.uniform(-1.0, 1.0, H.shape) * scale * np.abs(H).max()
+    return (H + noise).astype(np.float32)
+
+
 def damped(H, S_sum, P, ep=0.1, lm=1e-4):
     """The (6P x 6P) f32 matrix that ``cuda_dba.solve_plain`` factors:
-    H - S_sum in the pose blocks' order, the diagonal d + (ep + lm d)."""
+    Sd = H - S_sum in the pose blocks' order, the diagonal d + (ep + lm
+    d), symmetrized as (Sd + Sd^T) / 2 (the sum rounded, then halved
+    exactly), as the JAX package's cholesky and the kernels do."""
     S = H if S_sum is None else H - S_sum
     Sd = S.reshape(P, P, D, D).transpose(0, 2, 1, 3).reshape(P * D, P * D)
     Sd = Sd.astype(np.float32)
     d = np.diagonal(Sd).copy()
     np.fill_diagonal(Sd, d + (np.float32(ep) + np.float32(lm) * d))
-    return Sd
+    return (Sd + Sd.T) * np.float32(0.5)
 
 
 def rhs(v, corr_v):
@@ -169,10 +188,9 @@ def emulate(H, S_sum, v, corr_v, P, ep=0.1, lm=1e-4):
 
 
 def _sym64(H, S_sum, P, ep, lm):
-    """The damped matrix's f32 lower triangle, mirrored, in f64: what a
-    factorization that reads the lower triangle solves."""
-    Sd = damped(H, S_sum, P, ep, lm).astype(np.float64)
-    return np.tril(Sd) + np.tril(Sd, -1).T
+    """The symmetrized f32 matrix of :func:`damped` in f64: what the
+    solves factor."""
+    return damped(H, S_sum, P, ep, lm).astype(np.float64)
 
 
 def solve64(H, S_sum, v, corr_v, P, ep=0.1, lm=1e-4):
@@ -196,6 +214,8 @@ def backward_error(H, S_sum, v, corr_v, P, x, ep=0.1, lm=1e-4):
     Sd = _sym64(H, S_sum, P, ep, lm)
     b = rhs(v, corr_v).astype(np.float64)
     x = np.asarray(x, np.float64).ravel()
+    # Sd is symmetric: its 2-norm is its largest |eigenvalue| (a quarter
+    # of an SVD's time at P = 511)
+    norm = np.abs(np.linalg.eigvalsh(Sd)).max()
     return float(np.linalg.norm(Sd @ x - b) /
-                 (np.linalg.norm(Sd, 2) * np.linalg.norm(x) +
-                  np.linalg.norm(b)))
+                 (norm * np.linalg.norm(x) + np.linalg.norm(b)))

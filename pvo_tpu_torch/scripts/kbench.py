@@ -422,11 +422,12 @@ def dba_bound(name, E=0, K=0, HW=0, F=0, NP=0, valid_pairs=None,
     the retraction's 3x3 products, 72 a frame; ``trace_track.KernelFlops``
     counts these): for the Schur terms over ``valid_pairs`` of the NP
     slots (all by default, as the plain version computes them; an
-    invalid slot reads nothing). ``dba_solve`` (M = 6P) reads the lower
-    triangles of H and, unless ``motion_only``, S_sum (M (M + 1) / 2
-    values each: a Cholesky factorization reads no more), v and corr_v,
-    and writes dx; its operations are the factorization's M^3/3, the two
-    triangular solves' 2 M^2 and the damping's M, which
+    invalid slot reads nothing). ``dba_solve`` and ``dba_solve_grid`` (M
+    = 6P) read H and, unless ``motion_only``, S_sum whole (M^2 values
+    each: the symmetrized system reads both triangles), v and corr_v,
+    and write dx; their operations are the factorization's M^3/3, the
+    two triangular solves' 2 M^2, the damping's M and the
+    symmetrization's M (M - 1) (3 M^2 with the solves), which
     ``FlopCounterMode`` does not count in the plain version (cuSOLVER's
     potrf and trsv)."""
     f = 4
@@ -450,9 +451,9 @@ def dba_bound(name, E=0, K=0, HW=0, F=0, NP=0, valid_pairs=None,
             flops += 12 * (E + K) * HW
     elif name == "dba_solve":
         M, terms = 6 * P, 1 if motion_only else 2
-        b_in = terms * (M * (M + 1) // 2 + M) * f
+        b_in = terms * (M * M + M) * f
         b_out = M * f
-        flops = M ** 3 // 3 + 2 * M * M + M
+        flops = M ** 3 // 3 + 3 * M * M
     else:
         raise ValueError(f"no DBA kernel named {name!r}")
     return _f32_bound(b_in + b_out, flops)

@@ -99,9 +99,6 @@ WRAPPERS = (
     (cuda_dba, "solve", "dba_solve",
      lambda H, S_sum, v, corr_v, P, *a, **kw: _dba(
          "dba_solve", P=P, motion_only=S_sum is None)),
-    (cuda_dba, "solve_library", "dba_solve_library",
-     lambda H, S_sum, v, corr_v, P, *a, **kw: _dba(
-         "dba_solve", P=P, motion_only=S_sum is None)),
     (cuda_dba, "backsub", "dba_backsub",
      lambda poses, dx, frame_row, disps, Ej=None, pj_sel=None, m_k=None,
      Ei_m=None, *a, **kw: _dba(
@@ -228,13 +225,13 @@ def count_frame(sysm, frame, sections=None):
 def replay_counted(drv, records):
     """{kernel: launches} of replayed frames with records ``records`` as
     ``FrameGraph.per_replay`` counts them: K1, K2, K3, the segment sum and
-    the DBA's kernels (not the solve's library route, no kernel)."""
+    the DBA's kernels (the solve's grid kernel too, which a planner frame's
+    P never reaches)."""
     counted = dict.fromkeys(("build_volumes", "corr_extract", "corr_lookup",
-                             "segsum", *cuda_dba.KERNELS), 0)
+                             "segsum", *cuda_dba.KERNELS, cuda_dba.GRID), 0)
     for rec in records:
         for k, v in drv.frame_graph.per_replay(drv.sections(rec)).items():
-            if k != "dba_solve_library":
-                counted[k] += v
+            counted[k] += v
     return counted
 
 
@@ -250,7 +247,8 @@ def profile_launches(prof):
     return {"build_volumes": rows["K1"], "corr_extract": rows["K2"],
             "corr_lookup": rows["K3_bf16"] + rows["K3_f32"],
             "segsum": named("segsum_kernel"),
-            **{k: named(f"{k}_kernel") for k in cuda_dba.KERNELS}}
+            **{k: named(f"{k}_kernel")
+               for k in (*cuda_dba.KERNELS, cuda_dba.GRID)}}
 
 
 def traced_frames(sysm, frames):

@@ -11,10 +11,10 @@ linearization, the Schur terms, the damped solve from the summed blocks
 to dx, and everything after the solve in one launch: the pose
 retraction, the depth back-substitution with its edge terms summed per
 depth frame, the disparities; their plain versions on the CPU), called
-through the module's attributes. The solve takes the kernel up to
-``cuda_dba.SOLVE_MAX_P`` poses (its system fits one block's shared
-memory) and the library's factorization above it
-(``cuda_dba.solve_route``, a rule of the Python int P). Scatter-sums are
+through the module's attributes. The solve is one kernel at any P: one
+block up to ``cuda_dba.SOLVE_MAX_P`` poses (its system fits one block's
+shared memory), a grid of blocks above (``cuda_dba.solve_kernel``, a rule
+of the Python int P). Scatter-sums are
 :func:`cuda_segsum.sums`, which sums in a fixed order on the card as on
 the CPU, two launches a full iteration (H, v, C, w, Ei; the Schur sum
 and the rhs correction) and one a motion-only one; rows whose index is
@@ -88,8 +88,6 @@ def dba(poses, disps, intrinsics, target, weight, eta, ii, jj, valid,
     eta_flat = eta.reshape(K, HW)
     ix = _indices(ii, jj, valid, pairs_a, pairs_b, pairs_valid, t0, t1, w0,
                   P, K, F)
-    solve = (cuda_dba.solve if cuda_dba.solve_route(P) == "dba_solve" else
-             cuda_dba.solve_library)
 
     def one_iteration(poses, disps):
         Hblk, vblk, Ei, Ej, Ck, wk = cuda_dba.linearize(
@@ -125,9 +123,8 @@ def dba(poses, disps, intrinsics, target, weight, eta, ii, jj, valid,
                 cuda_segsum.zero_sum(rows, ix.s_idx, P * P),
                 cuda_segsum.zero_sum(rc, ix.ridx, P)])
 
-        # one launch: the damped dense solve (H - S_sum) dx = v - corr_v;
-        # the library's above cuda_dba.SOLVE_MAX_P poses
-        dx = solve(H, S_sum, v, corr_v, P, ep, lm)
+        # one launch: the damped dense solve (H - S_sum) dx = v - corr_v
+        dx = cuda_dba.solve(H, S_sum, v, corr_v, P, ep, lm)
 
         # one launch: the pose retraction over [t0, t1) and, for a full
         # iteration, the depth back-substitution (the edge terms summed

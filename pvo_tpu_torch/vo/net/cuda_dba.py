@@ -16,14 +16,15 @@ module's attributes.
   weighted Gram [Ei_m; Ej of the frame's edges] Q [..]^T. The kernel
   builds the frames' groups from ``m_c`` itself; a valid slot's two
   edges must share a depth frame, as ``dba.build_edge_pairs``' do.
-- :func:`solve` (kernel ``dba_solve``): the damped solve of the reduced
-  camera system from the summed blocks to dx in one launch of one
-  block: Sd = H - S_sum in the (6P x 6P) order, its diagonal damped,
-  factored in shared memory with b = v - corr_v riding along, both
-  triangular solves and ``solve_psd``'s failure mask. P up to
-  ``SOLVE_MAX_P``; :func:`solve_route` sends a larger P to
-  :func:`solve_library` (the plain version, counted as
-  ``dba_solve_library``).
+- :func:`solve` (kernels ``dba_solve`` and ``dba_solve_grid``): the
+  damped solve of the reduced camera system from the summed blocks to
+  dx in one launch: Sd = H - S_sum in the (6P x 6P) order, its diagonal
+  damped, symmetrized as (Sd + Sd^T) / 2 (as the JAX package's cholesky
+  does), factored with b = v - corr_v riding along, both triangular
+  solves and ``solve_psd``'s failure mask. Up to ``SOLVE_MAX_P`` poses
+  in one block's shared memory (``dba_solve``), above it on a grid of
+  blocks over a workspace in L2 (``dba_solve_grid``,
+  :func:`solve_workspace`): a rule of P, decided on the host.
 - :func:`backsub` (kernel ``dba_backsub``): the iteration's whole update
   after the solve in one launch, the poses retracted by dx and, for a
   full iteration, the edge terms summed per depth frame in edge order,
@@ -59,14 +60,17 @@ from pvo_tpu_torch.lie import se3
 from . import cuda_corr, cuda_segsum
 
 KERNELS = ("dba_linearize", "dba_schur", "dba_backsub", "dba_solve")
-# and the solves above SOLVE_MAX_P, which take the library route on the card
-LAUNCHES = dict.fromkeys((*KERNELS, "dba_solve_library"), 0)
+# and the solve's kernel above SOLVE_MAX_P, which the backend alone reaches
+# (beyond 49 keyframes)
+GRID = "dba_solve_grid"
+LAUNCHES = dict.fromkeys((*KERNELS, GRID), 0)
 SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "dba.cu"
 D = 6
-# the most poses dba_solve takes: the padded system's lower triangle in
-# 32 x 32 tiles of row stride 33, b and the pivots' 1/sqrt, 192,384
-# bytes of the 232,448 a block may have at P = 48 (M = 288, 45 tiles);
-# P = 49 would need 234,880 (csrc/dba.cu SV_MAX_P)
+# the most poses dba_solve takes in one block: the padded system's lower
+# triangle in 32 x 32 tiles of row stride 33, b and the pivots' 1/sqrt,
+# 192,384 bytes of the 232,448 a block may have at P = 48 (M = 288, 45
+# tiles); P = 49 would need 234,880 (csrc/dba.cu SV_MAX_P). Above it
+# dba_solve_grid
 SOLVE_MAX_P = 48
 
 _lib = None
@@ -89,8 +93,11 @@ def load(source=SOURCE):
     # an earlier source (dba_probe --parent) may have no solve
     if hasattr(lib, "pvo_dba_solve"):
         f = ctypes.c_float
-        lib.pvo_dba_solve.argtypes = [p] * 4 + [i, f, f, p, p]
+        lib.pvo_dba_solve.argtypes = [p] * 4 + [i, f, f, p, p, p]
         fns.append(lib.pvo_dba_solve)
+    if hasattr(lib, "pvo_dba_solve_workspace"):
+        lib.pvo_dba_solve_workspace.argtypes = [i]
+        lib.pvo_dba_solve_workspace.restype = ctypes.c_longlong
     for fn in fns:
         fn.restype = ctypes.c_int
     return lib
@@ -256,14 +263,32 @@ def schur(Ei_m, Ej, C, eta, w_m, m_c, pairs_a, pairs_b, pairs_valid,
 
 # ---- dba_solve ----
 
-def solve_route(P):
-    """Which route solves a system of ``P`` poses on the card: the kernel
-    (``"dba_solve"``) up to ``SOLVE_MAX_P``, whose system fits one block's
-    shared memory, and the library (``"dba_solve_library"``:
-    :func:`solve_library`, cuSOLVER) above it, the backend beyond 48
-    keyframes. A rule of the size alone, decided on the host; never a
-    fallback: on the kernel's route a failed build or launch raises."""
-    return "dba_solve" if P <= SOLVE_MAX_P else "dba_solve_library"
+def solve_kernel(P):
+    """The kernel that solves a system of ``P`` >= 1 poses on the card:
+    ``dba_solve`` (one block) up to ``SOLVE_MAX_P``, ``dba_solve_grid``
+    above it. A rule of the size alone, decided on the host."""
+    if P < 1:
+        raise ValueError(f"dba_solve: P={P} < 1")
+    return "dba_solve" if P <= SOLVE_MAX_P else GRID
+
+
+def solve_workspace(P):
+    """``dba_solve_grid``'s workspace at ``P`` poses, offsets in floats
+    (``csrc/dba.cu`` sg_layout): the padded lower triangle's nb (nb + 1) /
+    2 tiles of 32 x 32 (nb = 6P / 32 rounded up), the panel transposed in
+    two buffers of nb tiles, b and the pivots' reciprocal square roots
+    (32 nb each), a failure flag a diagonal tile (nb, rounded up to 32)
+    and the grid barrier's counters (32). Returns {"tiles", "panel", "b",
+    "rd", "bad", "bar": offset, "total": floats, "nb": nb}."""
+    nb = -(-6 * P // 32)
+    Mp, tile = 32 * nb, 32 * 32
+    out = {"tiles": 0, "panel": nb * (nb + 1) // 2 * tile}
+    out["b"] = out["panel"] + 2 * nb * tile
+    out["rd"] = out["b"] + Mp
+    out["bad"] = out["rd"] + Mp
+    out["bar"] = out["bad"] + -(-nb // 32) * 32
+    out.update(total=out["bar"] + 32, nb=nb)
+    return out
 
 
 def damped(H, S_sum, P, ep=0.1, lm=1e-4):
@@ -284,30 +309,31 @@ def solve_plain(H, S_sum, v, corr_v, P, ep=0.1, lm=1e-4):
                      rhs.reshape(1, P * D, 1)).reshape(P, D)
 
 
-def solve_library(H, S_sum, v, corr_v, P, ep=0.1, lm=1e-4):
-    """:func:`solve_plain` as the route above ``SOLVE_MAX_P`` (cuSOLVER's
-    factorization on the card), counted under
-    ``LAUNCHES["dba_solve_library"]`` there."""
-    if H.device.type == "cuda":
-        LAUNCHES["dba_solve_library"] += 1
-    return solve_plain(H, S_sum, v, corr_v, P, ep, lm)
-
-
 def solve(H, S_sum, v, corr_v, P, ep=0.1, lm=1e-4):
     """The DBA iteration's damped solve: H, S_sum (P*P, 6, 6) the summed
     pose blocks and Schur terms (block p*P + q holds rows 6p.., columns
     6q.. of the system), v, corr_v (P, 6); S_sum and corr_v None for a
     motion-only iteration. Solves (H - S_sum) x = v - corr_v with the
-    diagonal damped as d + (ep + lm d), reading only the lower triangle,
-    and returns dx (P, 6), zeros where the factorization failed (a pivot
-    <= 0 or not finite) or x is not finite. One launch of ``dba_solve`` on
-    the card (P <= ``SOLVE_MAX_P``), the plain version on the CPU."""
+    diagonal damped as d + (ep + lm d) and the matrix symmetrized, and
+    returns dx (P, 6), zeros where the factorization failed (a pivot <= 0
+    or not finite) or x is not finite. One launch on the card, of the
+    kernel :func:`solve_kernel` names (any P >= 1); the plain version on
+    the CPU."""
     dev = H.device
     if dev.type == "cpu":
         return solve_plain(H, S_sum, v, corr_v, P, ep, lm)
-    if not 1 <= P <= SOLVE_MAX_P:
-        raise ValueError(f"dba_solve: P={P} outside [1, {SOLVE_MAX_P}] "
-                         "(solve_route)")
+    return _solve_launch(H, S_sum, v, corr_v, P, ep, lm,
+                         solve_kernel(P) == GRID)
+
+
+def _solve_launch(H, S_sum, v, corr_v, P, ep, lm, grid):
+    """:func:`solve` on the card by ``dba_solve_grid`` where ``grid``, else
+    by ``dba_solve`` (P <= ``SOLVE_MAX_P``); ``dba_probe`` also times the
+    grid kernel below its range."""
+    dev = H.device
+    if P < 1 or (not grid and P > SOLVE_MAX_P):
+        raise ValueError(f"dba_solve: P={P} (one block takes 1 to "
+                         f"{SOLVE_MAX_P}, the grid any P >= 1)")
     if (S_sum is None) != (corr_v is None):
         raise ValueError("dba_solve: S_sum and corr_v are both given or "
                          "neither")
@@ -321,7 +347,7 @@ def solve(H, S_sum, v, corr_v, P, ep=0.1, lm=1e-4):
                                 if t is not None], dev)
     if any(t.dtype != torch.float32 for t in ts):
         raise TypeError("dba_solve: the blocks and vectors are float32")
-    # the kernel stages the blocks by 16-byte copies (the segment sum's
+    # the one block stages the blocks by 16-byte copies (the segment sum's
     # outputs are allocations of their own, so aligned)
     ts = [t.clone() if t.data_ptr() % 16 else t for t in ts]
     if S_sum is None:
@@ -329,9 +355,14 @@ def solve(H, S_sum, v, corr_v, P, ep=0.1, lm=1e-4):
     else:
         H, S_sum, v, corr_v = ts
     dx = torch.empty((P, D), dtype=torch.float32, device=dev)
-    _launch("dba_solve", _library().pvo_dba_solve, dev, H.data_ptr(),
+    # the grid kernel's workspace, from the caching allocator (in a
+    # capture, the graph's pool)
+    ws = (torch.empty(solve_workspace(P)["total"], dtype=torch.float32,
+                      device=dev) if grid else None)
+    name = GRID if grid else "dba_solve"
+    _launch(name, _library().pvo_dba_solve, dev, H.data_ptr(),
             _ptr(S_sum), v.data_ptr(), _ptr(corr_v), P, ep, lm,
-            dx.data_ptr())
+            dx.data_ptr(), _ptr(ws))
     return dx
 
 

@@ -102,17 +102,18 @@ def test_packed_bounds(name, E):
 @pytest.mark.parametrize("shape", sorted(dba_probe.SHAPES))
 def test_solve_bound_at_the_probe_shapes(shape):
     """``dba_solve``'s bound at each probe shape's P (motion-only where the
-    shape is): positive and finite; M^3/3 + 2 M^2 + M operations and the
-    lower triangles (M (M + 1) / 2 values of H and, on a full iteration,
-    S_sum), v, corr_v and dx, f32."""
+    shape is): positive and finite; M^3/3 + 3 M^2 operations (the
+    symmetrization's M (M - 1) with the solves' 2 M^2 + M) and H and, on
+    a full iteration, S_sum whole (M^2 values each: the symmetrized
+    system reads both triangles), v, corr_v and dx, f32."""
     motion_only = dba_probe.SHAPES[shape][-1]
     # P = K but at the backend's recorded calls
     P = (dba_probe.GRAPHS[shape]["P"] if shape in dba_probe.GRAPHS else
          dba_probe.SHAPES[shape][1])
     b = kbench.dba_bound("dba_solve", P=P, motion_only=motion_only)
     M, terms = 6 * P, 1 if motion_only else 2
-    assert b["flops"] == M ** 3 // 3 + 2 * M * M + M
-    assert b["bytes"] == 4 * (terms * (M * (M + 1) // 2 + M) + M)
+    assert b["flops"] == M ** 3 // 3 + 3 * M * M
+    assert b["bytes"] == 4 * (terms * (M * M + M) + M)
     assert 0 < b["ms"] < float("inf")
     assert b["bound_by"] in ("bytes", "operations")
 

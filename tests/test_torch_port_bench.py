@@ -93,6 +93,10 @@ def test_bench_terminate_prints_one_json_line_and_writes_no_file(
     assert "8 keyframes" in rec["unit"]
     # the backend's two global-BA calls, the edges of each
     assert len(rec["backend_edges"]) == 2 and min(rec["backend_edges"]) > 0
+    # the DBA kernels' launches in terminate: none on the CPU
+    assert rec["dba_launches_in_terminate"] == dict.fromkeys(
+        ("dba_linearize", "dba_schur", "dba_backsub", "dba_solve",
+         "dba_solve_grid"), 0)
     assert os.listdir(tmp_path) == []
 
 

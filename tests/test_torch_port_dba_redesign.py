@@ -321,6 +321,17 @@ def test_backend40_wide_shape_is_the_recorded_wide_call():
     assert call["hw"] == [47, 156] and call["P"] <= cuda_dba.SOLVE_MAX_P
 
 
+def test_backend_wide_shape_is_the_recorded_wide_call():
+    """The same of ``backend_wide``, the backend's call at 100 keyframes
+    of a 376x1248 stream (``bench_terminate 100 --image_size 376
+    1248``): 47x156 features, P = 99 on the solve's grid kernel."""
+    call = dba_probe.backend_call(100, dba_probe.WIDE)
+    K = check_recorded_call("backend_wide", call)
+    assert call["hw"] == [47, 156] and K > 64
+    assert call["P"] == 99 > cuda_dba.SOLVE_MAX_P
+    assert cuda_dba.solve_kernel(call["P"]) == "dba_solve_grid"
+
+
 def check_recorded_call(name, call):
     """The checks of the recorded-call tests on shape ``name``; returns
     its K."""

@@ -1,5 +1,6 @@
-"""The DBA's damped solve (``cuda_dba.solve``, kernel ``dba_solve`` in
-``csrc/dba.cu``): from the summed blocks H, S_sum, v, corr_v to dx.
+"""The DBA's damped solve (``cuda_dba.solve``, kernels ``dba_solve`` and
+``dba_solve_grid`` in ``csrc/dba.cu``): from the summed blocks H, S_sum,
+v, corr_v to dx.
 
 On the CPU, f32 on both sides (``tests/conftest.py`` turns on x64: the
 JAX inputs are cast), on block-structured PSD systems from numpy seeds
@@ -19,13 +20,17 @@ motion-only:
   within twice the plain version's plus ``dba_probe.SOLVE_ETA_FLOOR``;
 - the failure cases, a negative pivot, a NaN in H and a NaN in v: dx = 0
   from ``solve_plain``, the emulation and the JAX solve;
-- the routing rule (``cuda_dba.solve_route``) as a function of P, and
-  ``dba.dba`` taking the library's route above ``SOLVE_MAX_P``;
-- the wrapper's refusals on ``meta`` tensors.
-On the card (``cuda`` marker, skipped here): the kernel against
-``solve_plain`` and bit-equal to the emulation at P = 1 to 48, full and
-motion-only, two calls bit-equal, the failure cases zeros, and P above
-``SOLVE_MAX_P`` refused. The JAX tests import JAX inside:
+- the one block's room (``SOLVE_MAX_P``, where the grid kernel takes
+  over) and the wrapper's refusals on ``meta`` tensors.
+On the card (``cuda`` marker, skipped here): the kernels against
+``solve_plain`` and bit-equal to the emulation at P = 1 to 128 (one
+block to 48, the grid above), full and motion-only, also on asymmetric
+systems, two calls bit-equal, the grid kernel below its range equal to
+the one block, the failure cases zeros at P = 16, 49 and 99, P = 600
+against the plain version, and the workspace's size as the source
+computes it. ``tests/test_torch_port_dba_solve_sym.py`` holds the
+symmetrization, ``tests/test_torch_port_dba_solve_grid.py`` the P above
+48 on the CPU. The JAX tests import JAX inside:
 
     python -m pytest --noconftest -p no:cacheprovider \\
         tests/test_torch_port_dba_solve.py -q -m cuda
@@ -138,11 +143,11 @@ def test_emulation_on_the_recorded_backend40_call():
     """The backend's recorded call at 40 keyframes (``dba_probe``'s
     ``backend40``, the P that ``chip_smoke.py``'s main path gives the
     solve: 39, M = 234 padded to 256, eight tiles and a partial last one)
-    lies on the kernel's route, and the emulation of the kernel's order
+    lies on the one block's range, and the emulation of the kernel's order
     holds the plain version's backward error there."""
     a = dba_probe.shape_inputs("backend40", "cpu", hw=(6, 10))
     H, S_sum, v, corr_v, P = dba_probe.stages(a)["solve"]
-    assert P == 39 and cuda_dba.solve_route(P) == "dba_solve"
+    assert P == 39 and cuda_dba.solve_kernel(P) == "dba_solve"
     sys_ = tuple(t.numpy() for t in (H, S_sum, v, corr_v))
     emu = emul.emulate(*sys_, P)
     plain = cuda_dba.solve_plain(*torch_args(sys_), P).numpy()
@@ -175,15 +180,9 @@ def test_failures_give_zeros(kind):
         assert dx.shape == (P, 6) and not dx.any()
 
 
-@pytest.mark.parametrize("P", [1, 32, cuda_dba.SOLVE_MAX_P,
-                               cuda_dba.SOLVE_MAX_P + 1, 99])
-def test_route_is_a_rule_of_P(P):
-    want = "dba_solve" if P <= 48 else "dba_solve_library"
-    assert cuda_dba.solve_route(P) == want
-
-
 def test_solve_max_p_is_the_largest_that_fits_a_block():
-    """192,384 bytes at P = 48 (M = 288: 45 tiles of 32 x 33 floats, b and
+    """The one block's largest P, where the grid kernel takes over:
+    192,384 bytes at P = 48 (M = 288: 45 tiles of 32 x 33 floats, b and
     the pivots' reciprocals), 234,880 at 49, against 232,448 a block."""
     def smem(P):
         nb = -(-6 * P // 32)
@@ -193,35 +192,13 @@ def test_solve_max_p_is_the_largest_that_fits_a_block():
     assert cuda_dba.SOLVE_MAX_P >= 40
 
 
-def test_dba_takes_the_library_route_above_the_limit(monkeypatch):
-    """``dba.dba`` picks the route from the Python int P: at P=7 with the
-    limit set to 6 every iteration calls ``solve_library`` (the plain
-    version, counted only on the card), and the call equals the kernel
-    route's on the CPU bit for bit."""
-    a = dba_probe.inputs(12, 7, 4, 6, None, "cpu")
-    want = dba_probe.call_dba(a)
-    calls = []
-
-    def library(*args, **kw):
-        calls.append(args[4])
-        return cuda_dba.solve_plain(*args, **kw)
-    monkeypatch.setattr(cuda_dba, "solve_library", library)
-    monkeypatch.setattr(cuda_dba, "SOLVE_MAX_P", 6)
-    before = dict(cuda_dba.LAUNCHES)
-    got = dba_probe.call_dba(a)
-    assert calls == [7, 7]
-    assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert cuda_dba.LAUNCHES == before
-
-
 def meta(*shape):
     return torch.empty(shape, dtype=torch.float32, device="meta")
 
 
 def test_wrapper_refusals_off_the_cpu():
     """On ``meta`` tensors (the checks without a card): grad, a shape that
-    is not P's, S_sum without corr_v and P above ``SOLVE_MAX_P`` raise
-    before any launch."""
+    is not P's, S_sum without corr_v and P < 1 raise before any launch."""
     P = 4
     blocks, vec = meta(P * P, 6, 6), meta(P, 6)
     before = dict(cuda_dba.LAUNCHES)
@@ -232,9 +209,8 @@ def test_wrapper_refusals_off_the_cpu():
         cuda_dba.solve(blocks, None, meta(P + 1, 6), None, P)
     with pytest.raises(ValueError):
         cuda_dba.solve(blocks, blocks, vec, None, P)
-    big = cuda_dba.SOLVE_MAX_P + 1
     with pytest.raises(ValueError):
-        cuda_dba.solve(meta(big * big, 6, 6), None, meta(big, 6), None, big)
+        cuda_dba.solve(meta(0, 6, 6), None, meta(0, 6), None, 0)
     assert cuda_dba.LAUNCHES == before
 
 
@@ -247,16 +223,22 @@ def dev():
     return torch.device("cuda")
 
 
+# the one block's P and the grid kernel's, up to the emulation's reach on
+# the card (dba_probe.EMUL_MAX_P)
+CARD_SIZES = [1, 4, 16, 32, 40, 48, 49, 64, 99, 128]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("full", [True, False], ids=["full", "motion"])
-@pytest.mark.parametrize("P", [1, 4, 16, 32, 40, 48])
+@pytest.mark.parametrize("P", CARD_SIZES)
 def test_kernel_against_plain_and_emulation(dev, P, full):
     sys_ = case(P, full)
     args = torch_args(sys_, dev)
-    n0 = cuda_dba.LAUNCHES["dba_solve"]
+    name = cuda_dba.solve_kernel(P)
+    n0 = cuda_dba.LAUNCHES[name]
     dx = cuda_dba.solve(*args, P)
     again = cuda_dba.solve(*args, P)
-    assert cuda_dba.LAUNCHES["dba_solve"] == n0 + 2
+    assert cuda_dba.LAUNCHES[name] == n0 + 2
     plain = cuda_dba.solve_plain(*args, P)
     assert rel(dx.cpu(), plain.cpu()) <= TOL
     assert torch.equal(dx, again)
@@ -264,14 +246,54 @@ def test_kernel_against_plain_and_emulation(dev, P, full):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("P", [16, 40, 49, 99])
+def test_kernel_symmetrizes_as_the_emulation(dev, P):
+    """On a system whose H is not symmetric (``emul.asymmetric``) the
+    kernel factors (Sd + Sd^T) / 2 as the emulation does, bit for bit,
+    and agrees with the plain version."""
+    H, S_sum, v, corr_v = case(P, True)
+    sys_ = (emul.asymmetric(H, 1000 + P), S_sum, v, corr_v)
+    args = torch_args(sys_, dev)
+    dx = cuda_dba.solve(*args, P)
+    assert rel(dx.cpu(), cuda_dba.solve_plain(*args, P).cpu()) <= TOL
+    assert np.array_equal(dx.cpu().numpy(), emul.emulate(*sys_, P))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [1, 5, 32, 48])
+def test_grid_kernel_equals_the_one_block(dev, P):
+    """The grid kernel launched below its range gives the one block's dx
+    bit for bit: the same operations in the same order."""
+    args = torch_args(case(P, True), dev)
+    one = cuda_dba._solve_launch(*args, P, 0.1, 1e-4, False)
+    grid = cuda_dba._solve_launch(*args, P, 0.1, 1e-4, True)
+    assert torch.equal(one, grid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [16, 49, 99])
 @pytest.mark.parametrize("kind", ["negative_pivot", "nan_H", "nan_v"])
-def test_kernel_failures_give_zeros(dev, kind):
-    dx = cuda_dba.solve(*torch_args(broken(kind), dev), 16)
+def test_kernel_failures_give_zeros(dev, kind, P):
+    dx = cuda_dba.solve(*torch_args(broken(kind, P), dev), P)
     assert not dx.cpu().numpy().any()
 
 
 @pytest.mark.cuda
-def test_kernel_refuses_above_the_limit(dev):
-    P = cuda_dba.SOLVE_MAX_P + 1
-    with pytest.raises(ValueError):
-        cuda_dba.solve(*torch_args(case(P, True), dev), P)
+def test_kernel_beyond_the_default_buffer(dev):
+    """P = 600 (a buffer of 601 keyframes, above the default 512) runs on
+    the grid kernel, within ``TOL`` of the plain version, twice bit-equal."""
+    P = 600
+    args = torch_args(case(P, True), dev)
+    n0 = cuda_dba.LAUNCHES["dba_solve_grid"]
+    dx, again = cuda_dba.solve(*args, P), cuda_dba.solve(*args, P)
+    assert cuda_dba.LAUNCHES["dba_solve_grid"] == n0 + 2
+    assert rel(dx.cpu(), cuda_dba.solve_plain(*args, P).cpu()) <= TOL
+    assert torch.equal(dx, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [1, 49, 99, 511])
+def test_workspace_size_is_the_sources(dev, P):
+    lib = cuda_dba._library()
+    assert lib.pvo_dba_solve_workspace(P) == \
+        cuda_dba.solve_workspace(P)["total"]

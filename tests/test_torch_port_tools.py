@@ -99,14 +99,14 @@ def test_bench_dba(capsys):
 
 
 def test_bench_dba_lists_the_dba_launches(capsys):
-    """One call's launches of each DBA kernel and of the solve's library
-    route: none on the CPU, which runs their plain versions."""
+    """One call's launches of each DBA kernel and of the solve's grid
+    kernel: none on the CPU, which runs their plain versions."""
     from pvo_tpu_torch.vo.net import cuda_dba
     bench_dba.main(["8", "32", "32", "2", "--device", "cpu"])
     out = _last_json(capsys)
     assert out["dba_launches"] == dict.fromkeys(cuda_dba.LAUNCHES, 0)
     assert "dba_solve" in out["dba_launches"]
-    assert "dba_solve_library" in out["dba_launches"]
+    assert "dba_solve_grid" in out["dba_launches"]
 
 
 def test_bench_step_parts(capsys):

@@ -80,7 +80,7 @@ def test_frame_flops_count_the_solves(traced):
     kf = out["kernel_flops"]
     n = kf["dba_backsub"]["calls"]
     assert kf["dba_solve"]["calls"] == n > 0
-    assert "dba_solve_library" not in kf
+    assert "dba_solve_grid" not in kf
     per = kbench.dba_bound("dba_solve", P=32)["flops"]  # PlannerProgram.P
     assert kf["dba_solve"]["gflop"] == pytest.approx(n * per / 1e9,
                                                      rel=1e-12)

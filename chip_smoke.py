@@ -99,8 +99,11 @@ Phases, one line each (any failure exits non-zero):
                 emulation of its order (scripts/dba_solve_emul.py) up
                 to P = 128, its backward error against the f64 system
                 within twice the plain version's plus 1e-7, two calls
-                bit-equal, a replay equal to eager, and at P <= 48 the
-                grid kernel bit-equal to the one block; timed (planner,
+                bit-equal, a replay equal to eager, at P <= 48 the
+                grid kernel bit-equal to the one block, and on the grid
+                kernel up to P = 128 (multi_49, backend, backend_wide)
+                the grid capped at 1, 2 and 5 blocks bit-equal to the
+                full grid (dba_probe.CAPPED_BLOCKS); timed (planner,
                 bench_dba, filler, solve_max, multi_49, backend,
                 backend_wide, buffer) beside the plain version and
                 cholesky_ex + cholesky_solve, the grid kernel also at P
@@ -286,10 +289,16 @@ Phases, one line each (any failure exits non-zero):
                 every launch counted from 0. Held: the backend's solves
                 (P = 99) on dba_solve_grid, launched at least once, the
                 four other DBA kernels too, the trajectory finite, at
-                least 90 keyframes kept. Printed: the keyframes,
-                tracking and terminate seconds, the backend's edges a
-                call and the DBA kernels' launches ("launches" of the
-                dba_solve_grid row in the kernels line).
+                least 90 keyframes kept. Then the backend's largest
+                solve of that terminate (its blocks kept as the DBA
+                gave them) through dba_probe.check_solve: within the
+                limit of the plain version, bit-equal to the emulation,
+                its backward error, two calls and a replay bit-equal,
+                and the grid capped at 1, 2 and 5 blocks bit-equal to
+                the full grid. Printed: the keyframes, tracking and
+                terminate seconds, the backend's edges a call, the DBA
+                kernels' launches ("launches" of the dba_solve_grid row
+                in the kernels line) and that solve's checks.
  13. demo     - the image-directory demo (scripts/demo.py) as a user
                 runs it, a subprocess: DEMO_FRAMES (32) frames of the
                 synthetic scene
@@ -497,7 +506,7 @@ PLANNER_DBA = {"dba_linearize": 12, "dba_schur": 12, "dba_backsub": 12,
 # (the one block's last, the grid's first), the backend's P=99 and
 # P = 511
 DBA_TIMED, DBA_REPS = ("planner", "planner_wide", "backend40_wide",
-                       "backend_wide"), 20
+                       "backend_wide"), 10
 # the timed shapes whose calls are timed with the L2 cleared before each
 # (kbench.graph_time_ms's flush): planner_wide's 35 MB of a call fit the
 # 50 MB L2, so back to back its kernels read it from there and beat the
@@ -614,10 +623,10 @@ TOOLS_CUTS = {
     "bench_corr": [],
     "bench_dba": [],
     "bench_step_parts": [],
-    "bench_filler": ["24", "1"],
+    "bench_filler": ["16", "1"],
     "profile_vo": [],
-    "profile_track": ["--frames", "20", "4"],
-    "profile_terminate": ["30"],
+    "profile_track": ["--frames", "20", "2"],
+    "profile_terminate": ["20"],
     "trace_vo2": ["3"],
     "trace_vps": [],
     "profile_vps": ["--reps", "4"],
@@ -631,15 +640,16 @@ WIDE_TRACE_ARGV = ["2", "--warm", "20", "--image_size", "376", "1248"]
 # are printed beside its cut): widths, checks and paths are as before
 DEPTH_CUTS = {
     "kernels": "the DBA kernels timed at the planner's shape alone, "
-               "not also at bench_dba's",
+               "not also at bench_dba's; their and the solve's timing "
+               "reps 20 -> 10",
     "planner": "frames 40 -> 28 (8 timed steady frames, 20..27)",
     "planner_wide": "frames 40 -> 26 (8 timed steady frames, 18..25), "
                     "trace_track 5 -> 2 traced frames",
     "vps": "timed frames a mode 20 -> 5",
     "train": "default protocol steps 200 -> 20, recipe outer steps 10 -> 2",
-    "tools": "trace_track 5 -> 2 traced frames, profile_track 10 -> 4 "
-             "timed frames, profile_terminate 40 -> 30 and bench_filler "
-             "40 -> 24 keyframes",
+    "tools": "trace_track 5 -> 2 traced frames, profile_track 10 -> 2 "
+             "timed frames, profile_terminate 40 -> 20 and bench_filler "
+             "40 -> 16 keyframes",
     "vps_train": "full-model steps 60 -> 20",
     "demo": "scene frames 72 -> 32",
 }
@@ -907,6 +917,9 @@ def check_solve_row(name, r, row, l2):
         emulation_bit_equal=r["emulation_equal"],
         **({"grid_bit_equal_one_block": r["grid_equal"]}
            if "grid_equal" in r else {}),
+        **({"capped_grids_bit_equal": r["capped_equal"],
+            "capped_blocks": "/".join(map(str, dba_probe.CAPPED_BLOCKS))}
+           if "capped_equal" in r else {}),
         **times, **(l2 if "ms" in r else {}))
     row["err"] = max(row["err"], r["err"])
     if name == DBA_ROW_SHAPE.get(r["kernel"], "planner"):
@@ -2051,10 +2064,22 @@ def run_terminate_wide():
     track_s = time.perf_counter() - t0
     reset_corr_launches()
     edges = []
+    # the backend's largest solve, its blocks kept as the DBA gave them
+    largest, real_solve = [], cuda_dba.solve
+
+    def solve(H, S_sum, v, corr_v, P, *a, **kw):
+        if P > cuda_dba.SOLVE_MAX_P and (not largest or P >= largest[0][4]):
+            largest[:] = [(*(None if t is None else t.clone()
+                             for t in (H, S_sum, v, corr_v)), P)]
+        return real_solve(H, S_sum, v, corr_v, P, *a, **kw)
     t0 = time.perf_counter()
-    with vo_counters([], edges, []):
-        traj = sysm.terminate(iter(frames))
-    torch.cuda.synchronize()
+    cuda_dba.solve = solve
+    try:
+        with vo_counters([], edges, []):
+            traj = sysm.terminate(iter(frames))
+        torch.cuda.synchronize()
+    finally:
+        cuda_dba.solve = real_solve
     terminate_s = time.perf_counter() - t0
     kf = int(sysm.video.counter)
     launches = dict(cuda_dba.LAUNCHES)
@@ -2064,8 +2089,13 @@ def run_terminate_wide():
     if not np.isfinite(traj).all() or kf < 0.9 * WIDE100_KF:
         raise AssertionError(f"wide terminate: {kf} keyframes, finite "
                              f"{bool(np.isfinite(traj).all())}")
-    if not all(launches.values()):
+    if not all(launches.values()) or not largest:
         raise AssertionError(f"wide terminate's DBA launches {launches}")
+    r = dba_probe.check_solve(largest[0])
+    check_solve_row("terminate_wide", r, {"err": 0.0}, {})
+    if dba_probe.failures({"dba_solve": r}):
+        raise AssertionError(f"wide terminate's largest solve (P = "
+                             f"{largest[0][4]}): {r}")
     return launches
 
 

@@ -102,13 +102,16 @@
 //   scattered to the tiles. The factorization goes by 32-column panels,
 //   right-looking: warp 0 factors the diagonal tile, a lane a row, b
 //   riding along as an extra row (y = L^-1 b comes out of the same
-//   sweep), each step's next pivot formed first so that the chain from
-//   pivot to pivot is a shuffle, a reciprocal square root and two
-//   roundings; a thread a row solves the panel below and takes its y out
+//   sweep), each step's next pivot formed first and the column's next
+//   two entries sent by shuffles, so that the chain from pivot to pivot
+//   is a shuffle, a reciprocal square root and two roundings, the rest
+//   of the column read from its row of the transposed tile; a thread a
+//   row solves the panel below and takes its y out
 //   of b; a warp a trailing tile updates it, 4 x 8 values a lane, warps
 //   1-4 first the next diagonal tile, 8 rows each, which they hand to
 //   warp 0 (a named barrier) to factor while the other warps update the
-//   rest. The diagonal tile's L and the panel's rows are also kept
+//   rest, dealt first to the warps off warp 0's scheduler. The diagonal
+//   tile's L and the panel's rows are also kept
 //   transposed, so those loops read four values a load. Then L^T x = y
 //   by the same tiles from the last, with the same hand-off, and
 //   solve_psd's mask: x = 0 where a pivot was <= 0 or not finite, or x
@@ -123,26 +126,42 @@
 //   whole card's bound it reads about 0.2%.
 // dba_solve_grid_kernel: the same solve above SV_MAX_P, whose system no
 //   longer fits a block, at any P (the backend's P is its keyframes less
-//   one, up to the buffer's). One cooperative launch of one block an SM
-//   at most (a block a tile column, nb = M / 32 rounded up, up to the
-//   card's SMs), on a workspace the wrapper allocates (sg_layout: the
-//   padded lower triangle in 32 x 32 tiles, 0.94 MB at P = 99, 19.9 MB
-//   at P = 511: both in the 50 MB L2, read through it with __ldcg).
-//   The blocks assemble the tiles (the same sv_sym of the same values),
-//   then factor right-looking by panels, block b owning the tile columns
-//   J = b mod G: at step k each block takes panel k out of its columns,
-//   a warp a tile (the panel's two tiles staged in shared memory), and
-//   the owner of column k + 1 does that column first and then factors it
-//   at once (its diagonal tile by warp 0 with sv_factor_tile, its panel
-//   a thread a row, b riding along), so that one grid barrier a step (an
-//   atomic count and generation, sg_grid_sync) orders everything. Block
-//   0 then solves L^T x = y as dba_solve_kernel does, the tiles read
-//   from L2, and applies the mask. Every entry takes the same rounded
-//   operations in the same order as in dba_solve_kernel, so one
+//   one, up to the buffer's). One cooperative launch of a block an SM (or
+//   fewer on request), on a workspace the wrapper allocates (sg_layout:
+//   the padded lower triangle in 32 x 32 tiles, 0.78 MB at P = 99, 19.1
+//   MB at P = 511, both in the 50 MB L2, read through it with __ldcg; a
+//   ready flag a tile, zeroed in the launch). A dataflow of tiles with no
+//   grid barrier. Block 0 is the critical block: warp 0 gives each
+//   diagonal tile its last panel (with warp 4, a 4 x 4 block of its lower
+//   triangle a lane) and factors it (sv_factor_tile by blocks of 8
+//   columns, y riding along), warps 1 and 2 give the panel tiles (J + 1,
+//   J) and (J + 2, J) their last panel and, once the diagonal tile is
+//   done, solve their rows, a lane a row, taking their terms out of b;
+//   they hand each other tiles and b in shared memory, and warp 3
+//   publishes them. So the chain from one diagonal tile to the next stays
+//   on one SM with nothing else on it: a last update, a factorization, a
+//   panel tile's solve, two shared-memory hand-offs. Every other tile is
+//   on a warp of the other blocks (tile g of the column-major order on
+//   block 1 + g mod (G - 1), so each step's tiles spread over the card),
+//   which forms it from the blocks in registers, takes the panels in
+//   order as their tiles are published (staged in shared memory), and
+//   either publishes it as a partial sum one panel short (the three
+//   tiles the critical block finishes) or waits for its diagonal tile and
+//   solves its rows. Each publication is a fence and a release store of
+//   the tile's flag; readers spin on acquire loads, backing off, bounded
+//   (a wait that runs out traps, so the wrapper's next call raises). Then
+//   block 0 solves L^T x = y: warp 0 the chain of diagonal tiles (the
+//   next step's tiles staged by cp.async while one computes), warp 1
+//   publishes x, warps 2-15 each column's terms from its last 8 tiles of
+//   x, the other blocks' warps the earlier ones (a flag a column), each
+//   column's last term through a mailbox. Every entry takes the same
+//   rounded operations in the same order as in dba_solve_kernel (the
+//   panels in order, each panel's columns in order; b the same; the
+//   back-solve's tiles from the last, each one's rows in order), so one
 //   emulation covers both kernels and the card equals it bit for bit at
-//   every P. Bound as dba_solve_kernel's; the chain is nb panel steps,
-//   each a diagonal factorization, a panel solve on one SM and a grid
-//   barrier.
+//   every P and on any grid. Bound as dba_solve_kernel's; the chain is nb
+//   diagonal steps of about 5.5 us (P = 99), the factorization 2.2 us of
+//   it, where the other blocks keep up.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -1165,11 +1184,10 @@ __host__ __device__ constexpr size_t sv_smem_bytes(int P) {
 static_assert(sv_smem_bytes(SV_MAX_P) <= SV_SMEM &&
                   sv_smem_bytes(SV_MAX_P + 1) > SV_SMEM,
               "SV_MAX_P: the most poses whose system fits a block");
-// beside it: the column broadcast, the diagonal tile transposed, and the
-// panel transposed (its nb - 1 tiles at most), whose room also holds the
-// assembly's stages
+// beside it: the diagonal tile transposed, and the panel transposed (its
+// nb - 1 tiles at most), whose room also holds the assembly's stages
 static_assert(sv_smem_bytes(SV_MAX_P) +
-                      (2 * SV_NB + SV_NB * SV_NB) * 4 +
+                      SV_NB * SV_NB * 4 +
                       ((6 * SV_MAX_P + SV_NB - 1) / SV_NB - 1) * SV_NB *
                           SV_NB * 4 <= SV_SMEM,
               "the transposed panel fits beside SV_MAX_P's system");
@@ -1182,6 +1200,36 @@ struct SolveParams {
   float ep, lm;
   int P;
 };
+
+#ifdef PVO_DBA_STAMPS
+// The phase-timing build of the solve kernels (scripts/dba_probe.py
+// --stamps compiles a copy with this macro defined; the library the port
+// loads never defines it): clock64 and globaltimer stamps at the phases'
+// ends into sv_stamps, read back by pvo_dba_solve_stamps. SV_ST(i) stamps
+// the clock into slot i; sv_factor_tile stamps each column step into
+// the slots its caller names. With PVO_DBA_STAMPS_CHAIN a column step
+// keeps only its pivot chain (wrong values: for the split alone).
+constexpr int SV_STAMP_N = 1 << 20;
+__device__ long long sv_stamps[SV_STAMP_N];
+__device__ __forceinline__ long long sv_gtime() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+// the one block's slots: [0, 64) the phases, [64, 64 + 8 nb) a panel
+// step's, [SV_ST_STEP + 64 k, ...) diagonal tile k's column steps; the
+// grid's: block b's from SG_ST_BLOCK + b SG_ST_STRIDE, diagonal tile k's
+// column steps from SV_ST_STEP + 64 k
+constexpr int SV_ST_STEP = 1 << 19, SG_ST_BLOCK = 1 << 16,
+              SG_ST_STRIDE = 2048;
+#define SV_ST(i) (sv_stamps[(i)] = clock64())
+#define SV_STP , long long* st
+#define SV_STA(x) , (x)
+#else
+#define SV_ST(i) ((void)0)
+#define SV_STP
+#define SV_STA(x)
+#endif
 
 __device__ __forceinline__ float* sv_tile(float* A, int I, int J) {
   return A + (I * (I + 1) / 2 + J) * SV_TILE;
@@ -1241,22 +1289,36 @@ __device__ __forceinline__ float sv_rsqrt(float d) {
   return r;
 }
 
-// warp 0: factor the diagonal tile Dk = L L^T in place, lane i holding row
-// i in registers, and y = L^-1 y with it (y: 32 values of b); rdk takes
-// the pivots' reciprocal square roots (the back-solve and the panel scale
-// by them; the tile's diagonal is not read again). The chain from pivot
-// to pivot is a shuffle, sv_rsqrt, a product and a fused multiply-add:
-// each step forms the next pivot from lane j + 1's own row first and
-// starts its reciprocal square root before the step's other updates,
-// which are issued under that latency. Above the diagonal a lane's
-// registers take the same updates unread, so no update is predicated but
-// y's; column j reaches the lanes through ``col`` (64 floats, 16-byte
-// aligned), four values a load. The tile's L also goes to DkT transposed
-// (DkT[j][i] = L[i][j], i > j), for the panel's rows to read four values
-// a load. One copy (noinline), so the code is fetched once. Returns whether
-// a pivot was <= 0 or not finite.
+// one warp: factor the diagonal tile Dk = L L^T in place, lane i holding
+// row i in registers, and y = L^-1 y with it (y: 32 values of b); rdk
+// takes the pivots' reciprocal square roots (the back-solve and the panel
+// scale by them; the tile's diagonal is not read again). Each column step
+// forms the next pivot first, from lane j + 1's own row, and writes its
+// column to DkT (DkT[j][i] = L[i][j]), so that the chain from pivot to
+// pivot is lane j + 1's product and fused multiply-add, a shuffle,
+// sv_rsqrt and the next product; the later columns take the step's
+// terms in one of two orders of issue, each entry the same rounded
+// operations in the same order (column by column):
+// - BLOCKED (the grid's critical block, alone on its SM): by blocks of
+//   SV_FB columns, a column step updates only its block's later columns,
+//   each by a shuffle from the lane that holds the value, and at the
+//   block's last step the later columns take the block's SV_FB columns
+//   from DkT, four values a load; a step issues little beside its chain
+//   (a tile 2.2 us against 3.1);
+// - else (the one block, whose factorization runs beside trailing
+//   updates): each step the next two columns by shuffles and the rest
+//   from its row of DkT, four values a load (faster there than by
+//   blocks).
+// Above the diagonal a lane's registers take the same updates unread, so
+// no update is predicated but y's. DkT (16-byte aligned) is left with L
+// transposed below its diagonal, for the panel's rows to read four values
+// a load. One copy each (noinline), so the code is fetched once. Returns
+// whether a pivot was <= 0 or not finite.
+constexpr int SV_FB = 8;
+static_assert(SV_NB % SV_FB == 0 && SV_FB % 4 == 0, "whole aligned blocks");
+template <bool BLOCKED>
 __device__ __noinline__ bool sv_factor_tile(float* Dk, float* y_s, float* rdk,
-                                            float* col, float* DkT, int lane) {
+                                            float* DkT, int lane SV_STP) {
   float a[SV_NB];
 #pragma unroll
   for (int c = 0; c < SV_NB; ++c) a[c] = Dk[lane * SV_LD + c];
@@ -1266,38 +1328,84 @@ __device__ __noinline__ bool sv_factor_tile(float* Dk, float* y_s, float* rdk,
   float r = sv_rsqrt(d);
 #pragma unroll
   for (int j = 0; j < SV_NB; ++j) {
+#ifdef PVO_DBA_STAMPS
+    if (lane == 0) st[j] = clock64();
+#endif
+    const int j1 = (j / SV_FB + 1) * SV_FB;  // the next block's first
     const float Lj = __fmul_rn(a[j], r);  // L[lane][j] on the lanes > j
-    float rn = 0.f;
-    if (j + 1 < SV_NB) {
+    DkT[j * SV_NB + lane] = Lj;
+    if (j + 1 < SV_NB && (!BLOCKED || j + 1 < j1))
+      // the next pivot from lane j + 1's own row
       d = __shfl_sync(FULL, __fmaf_rn(-Lj, Lj, a[j + 1]), j + 1);
-      bad |= !(d > 0.f) || !isfinite(d);
-      rn = sv_rsqrt(d);
-    }
     rj = lane == j ? r : rj;
     const float yj = __fmul_rn(__shfl_sync(FULL, y, j), r);
     y = lane > j ? __fmaf_rn(-Lj, yj, y) : lane == j ? yj : y;
     a[j] = Lj;
-    // column j to every lane through shared memory (two buffers by step:
-    // one __syncwarp a step keeps a write off the other buffer's reads),
-    // four values a load
-    float* cb = col + (j & 1) * SV_NB;
-    cb[lane] = Lj;
-    __syncwarp();
+    if (j + 1 == SV_NB) break;
+    if constexpr (BLOCKED) {
+      if (j + 1 < j1) {
+        // the block's later columns
 #pragma unroll
-    for (int g = (j + 1) / 4; g < SV_NB / 4; ++g) {
-      const float4 v = reinterpret_cast<const float4*>(cb)[g];
-      const float vv[4] = {v.x, v.y, v.z, v.w};
+        for (int c = j + 1; c < j1; ++c) {
+#ifdef PVO_DBA_STAMPS_CHAIN
+          if (c > j + 1) break;
+#endif
+          a[c] = __fmaf_rn(-Lj, __shfl_sync(FULL, Lj, c), a[c]);
+        }
+      } else {
+        // the block's last step: the later columns less its SV_FB
+        // columns, each entry in column order, the next block's first
+        // column first; then the next pivot
+        __syncwarp();
 #pragma unroll
-      for (int m = 0; m < 4; ++m)
-        if (4 * g + m > j) a[4 * g + m] = __fmaf_rn(-Lj, vv[m], a[4 * g + m]);
+        for (int q = j1 / 4; q < SV_NB / 4; ++q) {
+#ifdef PVO_DBA_STAMPS_CHAIN
+          if (q > j1 / 4) break;
+#endif
+#pragma unroll
+          for (int jb = j1 - SV_FB; jb < j1; ++jb) {
+            const float4 v =
+                reinterpret_cast<const float4*>(DkT + jb * SV_NB)[q];
+            a[4 * q] = __fmaf_rn(-a[jb], v.x, a[4 * q]);
+            a[4 * q + 1] = __fmaf_rn(-a[jb], v.y, a[4 * q + 1]);
+            a[4 * q + 2] = __fmaf_rn(-a[jb], v.z, a[4 * q + 2]);
+            a[4 * q + 3] = __fmaf_rn(-a[jb], v.w, a[4 * q + 3]);
+          }
+        }
+        d = __shfl_sync(FULL, a[j + 1], j + 1);
+      }
+      bad |= !(d > 0.f) || !isfinite(d);
+      r = sv_rsqrt(d);
+    } else {
+      bad |= !(d > 0.f) || !isfinite(d);
+      // the later columns: the next two by shuffles, the rest from DkT
+      // (one __syncwarp a step: each step its own row)
+      if (j + 3 < SV_NB) __syncwarp();
+      const float rn = sv_rsqrt(d);
+      a[j + 1] = __fmaf_rn(-Lj, __shfl_sync(FULL, Lj, j + 1), a[j + 1]);
+#ifndef PVO_DBA_STAMPS_CHAIN
+      if (j + 2 < SV_NB)
+        a[j + 2] = __fmaf_rn(-Lj, __shfl_sync(FULL, Lj, j + 2), a[j + 2]);
+      const float* cb = DkT + j * SV_NB;
+#pragma unroll
+      for (int g = (j + 3) / 4; g < SV_NB / 4; ++g) {
+        const float4 v = reinterpret_cast<const float4*>(cb)[g];
+        const float vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+          if (4 * g + m > j + 2)
+            a[4 * g + m] = __fmaf_rn(-Lj, vv[m], a[4 * g + m]);
+      }
+#endif
+      r = rn;
     }
-    r = rn;
   }
+#ifdef PVO_DBA_STAMPS
+  if (lane == 0) st[SV_NB] = clock64();
+#endif
 #pragma unroll
-  for (int c = 0; c < SV_NB; ++c) {
+  for (int c = 0; c < SV_NB; ++c)
     if (c <= lane) Dk[lane * SV_LD + c] = a[c];
-    if (c < lane) DkT[c * SV_NB + lane] = a[c];
-  }
   y_s[lane] = y;
   rdk[lane] = rj;
   return bad;
@@ -1397,14 +1505,16 @@ __global__ void __launch_bounds__(SV_THREADS, 1)
   float* A = reinterpret_cast<float*>(sv_smem4);
   float* b = A + sv_tiles(nb) * SV_TILE;
   float* rd = b + Mp;  // the pivots' reciprocal square roots
-  float* col = rd + Mp;  // the factor's column broadcast, 2 x 32
-  float* DkT = col + 2 * SV_NB;  // the diagonal tile's L transposed
+  float* DkT = rd + Mp;  // the diagonal tile's L transposed
   // the rest: the assembly's stages, then the panel's L transposed
   float* rest = DkT + SV_NB * SV_NB;
   float4* stage = reinterpret_cast<float4*>(rest);
   float* PT = rest;
   const int stg4 = min(SV_STAGE4, (int)((SV_SMEM - (rest - A) * 4) / 128));
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+#ifdef PVO_DBA_STAMPS
+  if (tid == 0) sv_stamps[0] = sv_gtime(), SV_ST(1);
+#endif
 
   // assemble: Sd[6p + a][6q + c] = (H - S)[p P + q][a][c], the diagonal
   // damped as d + (ep + lm d), and the lower triangle of (Sd + Sd^T) / 2
@@ -1476,6 +1586,7 @@ __global__ void __launch_bounds__(SV_THREADS, 1)
   for (int R = tid; R < Mp; R += SV_THREADS)
     b[R] = R >= M ? 0.f : p.cv ? __fsub_rn(p.v[R], p.cv[R]) : p.v[R];
   __syncthreads();
+  if (tid == 0) SV_ST(2);
 
   // L L^T = Sd by 32-column panels, right-looking, y = L^-1 b riding along
   // as the extra row. Warp 0 factors each diagonal tile; a thread a row
@@ -1483,8 +1594,11 @@ __global__ void __launch_bounds__(SV_THREADS, 1)
   // tile updates them, warps 1-4 first the next diagonal tile, which they
   // hand to warp 0 to factor while the others update the rest
   bool bad = false;  // warp 0: a pivot <= 0 or not finite
-  if (warp == 0) bad = sv_factor_tile(A, b, rd, col, DkT, lane);
+  if (warp == 0)
+    bad = sv_factor_tile<false>(A, b, rd, DkT,
+                         lane SV_STA(sv_stamps + SV_ST_STEP));
   __syncthreads();
+  if (tid == 0) SV_ST(3);
   for (int k = 0; k + 1 < nb; ++k) {
     // the panel's rows also go to PT transposed (PT[I - k - 1][j][r] =
     // L[32 I + r][32 k + j]), for the trailing update to read four a load
@@ -1518,22 +1632,31 @@ __global__ void __launch_bounds__(SV_THREADS, 1)
       b[I * SV_NB + r] = bb;
     }
     __syncthreads();
+    if (tid == 0) SV_ST(64 + 8 * k);
     const int m = nb - 1 - k;
     if (warp == 0) {
       sv_handoff_wait(4);
+      if (lane == 0) SV_ST(64 + 8 * k + 1);
       float* D1 = sv_tile(A, k + 1, k + 1);
-      bad |= sv_factor_tile(D1, b + (k + 1) * SV_NB, rd + (k + 1) * SV_NB,
-                            col, DkT, lane);
+      bad |= sv_factor_tile<false>(
+          D1, b + (k + 1) * SV_NB, rd + (k + 1) * SV_NB, DkT,
+          lane SV_STA(sv_stamps + SV_ST_STEP + 64 * (k + 1)));
+      if (lane == 0) SV_ST(64 + 8 * k + 2);
     } else {
       // warps 1..4 first the next diagonal tile, a band of 8 rows each;
       // then every warp the other tiles (tile 0 of the trailing triangle,
-      // row-major, is (k + 1, k + 1))
+      // row-major, is (k + 1, k + 1)) while warp 0 factors, dealt first to
+      // the 12 warps off warp 0's scheduler (warp w on w mod 4): beside
+      // three warps of updates on its scheduler a factorization took twice
+      // its time alone
       if (warp <= 4) {
         sv_update_band(A, PT, k + 1, (warp - 1) * 8, lane);
         __syncwarp();
         sv_handoff_arrive(4);
       }
-      for (int tile = warp; tile < m * (m + 1) / 2; tile += SV_WARPS - 1) {
+      const int slot = warp % 4 ? warp - 1 - warp / 4 : 11 + warp / 4;
+      for (int tile = 1 + slot; tile < m * (m + 1) / 2;
+           tile += SV_WARPS - 1) {
         int I = 0;
         while ((I + 1) * (I + 2) / 2 <= tile) ++I;
         const int J = tile - I * (I + 1) / 2;
@@ -1542,6 +1665,7 @@ __global__ void __launch_bounds__(SV_THREADS, 1)
       }
     }
     __syncthreads();
+    if (tid == 0) SV_ST(64 + 8 * k + 3);
   }
 
   // L^T x = y by the same tiles from the last: warp 0 solves a diagonal
@@ -1566,12 +1690,16 @@ __global__ void __launch_bounds__(SV_THREADS, 1)
     }
     __syncthreads();
   }
+  if (tid == 0) SV_ST(4);
 
   // solve_psd's mask: zeros where a pivot failed or x is not finite
   bool ok = !bad;
   for (int R = tid; R < M; R += SV_THREADS) ok = ok && isfinite(b[R]);
   ok = __syncthreads_and(ok);
   for (int R = tid; R < M; R += SV_THREADS) p.dx[R] = ok ? b[R] : 0.f;
+#ifdef PVO_DBA_STAMPS
+  if (tid == 0) SV_ST(5), sv_stamps[6] = sv_gtime();
+#endif
 }
 
 // ---- dba_solve_grid_kernel: the same solve at any P ----
@@ -1579,40 +1707,100 @@ __global__ void __launch_bounds__(SV_THREADS, 1)
 // a workspace tile: 32 x 32, row stride 32 (a row is one 128-byte line,
 // so no line holds two tiles)
 constexpr int SG_TILE = SV_NB * SV_NB;
-// its shared memory in floats: the diagonal tile (stride 33) and its L
-// transposed, the column broadcast, the diagonal tile's y and pivots'
-// reciprocals, x of two tiles in the back-solve, the column's panel tile
-// and a panel tile a warp
-constexpr int SG_SMEM_FLOATS = SV_TILE + SG_TILE + 2 * SV_NB + SV_NB +
-                               SV_NB + 2 * SV_NB + SG_TILE +
-                               SV_WARPS * SG_TILE;
-constexpr int SG_SMEM = SG_SMEM_FLOATS * 4;
-static_assert(SG_SMEM <= SV_SMEM && SV_TILE % 4 == 0,
-              "the grid kernel's buffers fit a block, 16-byte aligned");
+// a tile staged for the back-solve: row stride 36, so that lane c reads
+// its row c four values a load without a bank conflict (the rows stay
+// 16-byte aligned)
+constexpr int SG_LD = 36;
+// a warp's shared memory in floats, which each of its tasks reuses: the
+// update (two tiles of L^T), the panel solve (the tile's rows, stride 33;
+// the diagonal tile's L^T; y; the reciprocals), the back-solve (two tiles
+// of stride 36; x). The critical block's warps 0-3 share their four
+// areas (SG_F, SG_S below)
+constexpr int SG_WARP = 2 * SV_NB * SG_LD + 2 * SV_NB;
+static_assert(SV_TILE + SG_TILE + 4 * SV_NB <= SG_WARP &&
+                  2 * SG_TILE <= SG_WARP && SV_TILE % 4 == 0 &&
+                  SG_WARP % 4 == 0,
+              "a warp's tasks fit its area, 16-byte aligned");
+// the critical block's warps: 0 factors the diagonal tiles, 1..SG_D
+// solve the panel tiles (J + d, J), SG_D + 1 publishes them, the next
+// shares the diagonal tile's last update with warp 0 (and lends its
+// area); the SG_D subdiagonals come to it as partial sums
+constexpr int SG_D = 2, SG_CRIT = SG_D + 3;
+// the 4 x 4 blocks of a tile's lower triangle
+constexpr int SG_TRI = (SV_NB / 4) * (SV_NB / 4 + 1) / 2;
+static_assert(SG_TRI % 2 == 0 && SG_TRI / 2 <= 32, "a lane a block a warp");
+// their buffers in floats from the block's base: the factorization's (the
+// tile, stride 33; by parity L^T, y and the
+// reciprocals) and each panel warp's (the tile's rows, stride 33; by
+// parity its L^T and its row's b; the second's staged L^T)
+constexpr int SG_F_DK = 0, SG_F_DKT = SV_TILE,
+              SG_F_Y = SG_F_DKT + 2 * SG_TILE, SG_F_RD = SG_F_Y + 2 * SV_NB,
+              SG_S_ROWS = SG_F_RD + 2 * SV_NB,  // (SG_S_PANEL a panel warp)
+              SG_S_OUT = SG_S_ROWS + SV_TILE, SG_S_Y = SG_S_OUT + 2 * SG_TILE,
+              SG_S_PANEL = SG_S_Y + 2 * SV_NB - SG_S_ROWS,
+              SG_S_LG = SG_S_ROWS + SG_D * SG_S_PANEL,
+              SG_S_END = SG_S_LG + SG_TILE;
+static_assert(SG_S_END <= SG_CRIT * SG_WARP && SG_F_DKT % 4 == 0 &&
+                  SG_S_ROWS % 4 == 0 && SG_S_OUT % 4 == 0 &&
+                  SG_S_PANEL % 4 == 0 && SG_S_LG % 4 == 0,
+              "the critical buffers fit the critical warps' areas, 16-byte "
+              "aligned");
+// the back-solve's buffers in floats from the block's base: the chain's
+// (by parity the tiles (I + 1, I) and (I, I), L^T of stride 36, and the
+// reciprocals), then a tile of stride 36 for each of the other 15 warps
+constexpr int SG_B_LC = 0, SG_B_LD = 2 * SV_NB * SG_LD,
+              SG_B_RD = 4 * SV_NB * SG_LD, SG_B_BULK = SG_B_RD + 2 * SV_NB,
+              SG_B_END = SG_B_BULK + (SV_WARPS - 1) * SV_NB * SG_LD;
+static_assert(SG_B_END <= SV_WARPS * SG_WARP && SG_B_BULK % 4 == 0 &&
+                  SG_B_RD % 4 == 0,
+              "the back-solve's buffers fit the areas, 16-byte aligned");
+// the back-solve's terms of column J from K >= J + SG_NEAR go to the other
+// blocks (on a one-block grid none)
+constexpr int SG_NEAR = 8;
+// x's ring in the back-solve: the chain's last SG_RING tiles of x, which
+// the other warps read (the chain waits for the slowest before it
+// overwrites one)
+constexpr int SG_RING = 16;
+// the counters after the areas (ints): the critical warps' (F done, each
+// panel warp's done, each kind's published, F's failure by parity), the
+// back-solve's (x's count, each of its 15 warps' current K), then its nb
+// progress counters; then the chain's mailbox (2 x 32) and x's ring
+constexpr int SG_CTL = 32;
+static_assert(2 * SG_D + 5 + SV_WARPS - 1 <= SG_CTL, "the counters fit");
+__host__ __device__ constexpr size_t sg_smem_bytes(int nb) {
+  return ((size_t)SV_WARPS * SG_WARP + SG_CTL + nb + 2 * SV_NB +
+          SG_RING * SV_NB) * sizeof(float);
+}
+// a spin-wait's limit in clock cycles (about 2 s at 1.98 GHz): a wait
+// that runs out traps, so a fault raises and never hangs
+constexpr long long SG_WAIT_CYCLES = 1LL << 32;
 
 // the workspace of the grid kernel at P poses, offsets in floats (each a
 // multiple of 32, so 128-byte aligned on an aligned base): the padded
-// lower triangle's tiles, tile (I, J) at I (I + 1) / 2 + J; the panel
-// transposed, two buffers (by the step's parity) of nb tiles; b; the
-// pivots' reciprocal square roots; a failure flag a diagonal tile; the
-// grid barrier's two counters. cuda_dba.solve_workspace mirrors it
+// lower triangle's tiles in column-major order (tile (I, J) at
+// sg_index), each L^T once final; b (y, then x); the pivots' reciprocal
+// square roots; a failure flag a diagonal tile; a ready flag a tile, x's
+// published count and a flag a tile column (the back-solve's far terms
+// done). cuda_dba.solve_workspace mirrors it
 struct SgLayout {
-  size_t tiles, panel, b, rd, bad, bar, total;
+  size_t tiles, b, rd, bad, flag, total;
 };
 __host__ __device__ constexpr SgLayout sg_layout(int P) {
   const size_t nb = (6 * (size_t)P + SV_NB - 1) / SV_NB, Mp = nb * SV_NB;
-  const size_t panel = nb * (nb + 1) / 2 * SG_TILE;
-  const size_t b = panel + 2 * nb * SG_TILE, rd = b + Mp, bad = rd + Mp;
-  const size_t bar = bad + (nb + 31) / 32 * 32;
-  return {0, panel, b, rd, bad, bar, bar + 32};
+  const size_t nt = nb * (nb + 1) / 2;
+  const size_t b = nt * SG_TILE, rd = b + Mp, bad = rd + Mp;
+  const size_t flag = bad + (nb + 31) / 32 * 32;
+  return {0, b, rd, bad, flag, flag + (nt + 1 + nb + 31) / 32 * 32};
 }
-static_assert(sg_layout(49).total == 77504 &&
-                  sg_layout(99).total == 234752 &&
-                  sg_layout(511).total == 4970624,
+static_assert(sg_layout(49).total == 57088 &&
+                  sg_layout(99).total == 196032 &&
+                  sg_layout(511).total == 4778752,
               "tests/test_torch_port_dba_solve_grid.py holds these");
 
-__device__ __forceinline__ size_t sg_off(int I, int J) {
-  return ((size_t)I * (I + 1) / 2 + J) * SG_TILE;
+// tile (I, J), I >= J, in column-major order: column J's nb - J tiles
+// after the columns before it
+__device__ __forceinline__ int sg_index(int I, int J, int nb) {
+  return J * nb - J * (J - 1) / 2 + (I - J);
 }
 
 // Sd[R][C] from the blocks in device memory
@@ -1623,50 +1811,116 @@ __device__ __forceinline__ float sg_entry(const SolveParams& p, int R,
   return sv_damped(p, R, C, p.H[i], p.S ? p.S[i] : 0.f);
 }
 
-// every block of the grid at one point (the launch is cooperative, so
-// all are resident): bar[0] counts the arrivals, bar[1] is the
-// generation, which the last block to arrive advances after resetting
-// the count; the fences make each block's writes before the barrier
-// visible to every block after it (the workspace is read through L2,
-// __ldcg, so no block reads a stale line of its L1). bar[0] is zeroed
-// before each launch
-__device__ __forceinline__ void sg_grid_sync(unsigned* bar) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    volatile unsigned* gen = bar + 1;
-    const unsigned g = *gen;
-    __threadfence();
-    if (atomicAdd(bar, 1u) == gridDim.x - 1) {
-      atomicExch(bar, 0u);
-      __threadfence();
-      atomicAdd(bar + 1, 1u);
-    } else {
-      while (*gen == g) __nanosleep(32);
-    }
-    __threadfence();
-  }
-  __syncthreads();
+// the padded system's entry (R, C), R and C below Mp: (Sd + Sd^T) / 2 on
+// and below the diagonal (sv_sym of the values dba_solve_kernel takes),
+// zeros above it, the identity's rows and columns [M, Mp)
+__device__ __forceinline__ float sg_system(const SolveParams& p, int M,
+                                           int R, int C) {
+  if (R >= M || C >= M) return R == C ? 1.f : 0.f;
+  if (C > R) return 0.f;
+  return sv_sym(sg_entry(p, R, C), sg_entry(p, C, R));
 }
 
-// one warp: the workspace tile Tt less L_Ik L_Jk^T, 4 x 8 values a lane,
-// each summed over the panel's 32 columns in order (sv_update_tile's
-// order); PI, PJ: the panel's tiles transposed in shared memory; on a
-// diagonal tile the lanes above the diagonal do nothing
-__device__ __forceinline__ void sg_update_tile(float* Tt, const float* PI,
-                                               const float* PJ, bool diag,
-                                               int lane) {
-  const int r0 = (lane % 8) * 4, c0 = (lane / 8) * 8;
-  if (diag && c0 > r0 + 3) return;
-  float* T = Tt + r0 * SV_NB + c0;
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float4 u = __ldcg(reinterpret_cast<const float4*>(T + i * SV_NB));
-    const float4 w =
-        __ldcg(reinterpret_cast<const float4*>(T + i * SV_NB + 4));
-    acc[i][0] = u.x, acc[i][1] = u.y, acc[i][2] = u.z, acc[i][3] = u.w;
-    acc[i][4] = w.x, acc[i][5] = w.y, acc[i][6] = w.z, acc[i][7] = w.w;
+// b[R] = v - cv (v on a motion-only iteration), zeros past M
+__device__ __forceinline__ float sg_rhs(const SolveParams& p, int M, int R) {
+  return R >= M ? 0.f : p.cv ? __fsub_rn(p.v[R], p.cv[R]) : p.v[R];
+}
+
+__device__ __forceinline__ unsigned sg_acquire(const unsigned* f) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+               : "=r"(v)
+               : "l"(f)
+               : "memory");
+  return v;
+}
+
+// every lane until the flags f and g (g null: f alone) reach want, each
+// read an acquire, so the tiles they publish are read after them (through
+// L2, __ldcg: no block reads a stale line of its L1); traps after
+// SG_WAIT_CYCLES. A tile's flag: 1 its partial sum is ready (the tiles
+// the critical block finishes), 2 its L^T
+__device__ __forceinline__ void sg_wait(const unsigned* f, const unsigned* g,
+                                        unsigned want) {
+  auto ready = [&] {
+    return sg_acquire(f) >= want && (!g || sg_acquire(g) >= want);
+  };
+  if (ready()) return;
+  const long long t0 = clock64();
+  // backing off to 256 ns: the card's spinning warps would crowd L2
+  for (unsigned ns = 32; !ready(); ns = ns < 256 ? 2 * ns : ns) {
+    __nanosleep(ns);
+    if (clock64() - t0 > SG_WAIT_CYCLES) __trap();
   }
+}
+
+// the warp's writes, then the flag f = v: each lane's writes reach the
+// device before lane 0 sets f (a release)
+__device__ __forceinline__ void sg_publish(unsigned* f, int lane,
+                                           unsigned v) {
+  __threadfence();
+  __syncwarp();
+  if (lane == 0)
+    asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(f), "r"(v)
+                 : "memory");
+}
+
+// within a block: until the shared counter *v is at least (ge) or at
+// most (!ge) want; its writer fenced its writes first
+__device__ __forceinline__ void sg_wait_shared(const volatile int* v,
+                                               int want, bool ge) {
+  const long long t0 = clock64();
+  // a short sleep a turn: the spinning warps would crowd the SM's shared
+  // memory pipe, which the factorization's steps use
+  while (ge ? *v < want : *v > want) {
+    __nanosleep(20);
+    if (clock64() - t0 > SG_WAIT_CYCLES) __trap();
+  }
+  __threadfence_block();
+}
+
+// the warp's shared writes, then the shared counter *v = x
+__device__ __forceinline__ void sg_signal(volatile int* v, int x, int lane) {
+  __threadfence_block();
+  __syncwarp();
+  if (lane == 0) *v = x;
+}
+
+// a workspace tile into shared memory (the warp, four values a lane a
+// load): as it is (ld = 32) or with row stride SG_LD
+template <int LD>
+__device__ __forceinline__ void sg_stage(float* dst, const float* src,
+                                         int lane) {
+  const float4* s4 = reinterpret_cast<const float4*>(src);
+  float4 v[SG_TILE / 128];
+#pragma unroll
+  for (int q = 0; q < SG_TILE / 128; ++q) v[q] = __ldcg(s4 + q * 32 + lane);
+#pragma unroll
+  for (int q = 0; q < SG_TILE / 128; ++q) {
+    const int e = q * 32 + lane;
+    reinterpret_cast<float4*>(dst)[(e / 8) * (LD / 4) + e % 8] = v[q];
+  }
+}
+
+// the same by cp.async (L2 only), committed by the caller
+template <int LD>
+__device__ __forceinline__ void sg_stage_async(float* dst, const float* src,
+                                               int lane) {
+  const float4* s4 = reinterpret_cast<const float4*>(src);
+#pragma unroll
+  for (int q = 0; q < SG_TILE / 128; ++q) {
+    const int e = q * 32 + lane;
+    cp_async16(reinterpret_cast<float4*>(dst) + (e / 8) * (LD / 4) + e % 8,
+               s4 + e);
+  }
+}
+
+// one warp: the tile held in acc (4 x 8 values a lane, rows r0.., columns
+// c0..) less L_Ik L_Jk^T, each summed over the panel's 32 columns in
+// order (sv_update_tile's order); PI, PJ: L_Ik^T and L_Jk^T in shared
+// memory, four values a load
+__device__ __forceinline__ void sg_update(float (&acc)[4][8], const float* PI,
+                                          const float* PJ, int r0, int c0) {
 #pragma unroll 4
   for (int kk = 0; kk < SV_NB; ++kk) {
     const float4 a4 = *reinterpret_cast<const float4*>(PI + kk * SV_NB + r0);
@@ -1681,215 +1935,668 @@ __device__ __forceinline__ void sg_update_tile(float* Tt, const float* PI,
       for (int c = 0; c < 8; ++c)
         acc[i][c] = __fmaf_rn(-li[i], lj[c], acc[i][c]);
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float4* dst = reinterpret_cast<float4*>(T + i * SV_NB);
-    dst[0] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    dst[1] = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
-  }
 }
 
-// b[t] less L_IJ^T x_I over the column t of tile J = t / 32, summed over
-// the tile's 32 rows in order (sv_back_column's sums; x_I in shared
-// memory)
-__device__ __forceinline__ float sg_back_column(const float* T,
-                                                const float* b,
-                                                const float* xI, int I,
-                                                int t) {
-  const float* L = T + sg_off(I, t / SV_NB) + t % SV_NB;
-  float z = __ldcg(b + t);
-#pragma unroll 8
-  for (int r = 0; r < SV_NB; ++r)
-    z = __fmaf_rn(-__ldcg(L + r * SV_NB), xI[r], z);
+// z less the row ``row`` (32 values, 16-byte aligned) times x, over the
+// row in order
+__device__ __forceinline__ float sg_dot_less(float z, const float* row,
+                                             const float* x) {
+#pragma unroll
+  for (int q = 0; q < SV_NB / 4; ++q) {
+    const float4 l = reinterpret_cast<const float4*>(row)[q];
+    z = __fmaf_rn(-l.x, x[4 * q], z);
+    z = __fmaf_rn(-l.y, x[4 * q + 1], z);
+    z = __fmaf_rn(-l.z, x[4 * q + 2], z);
+    z = __fmaf_rn(-l.w, x[4 * q + 3], z);
+  }
   return z;
 }
 
-// a workspace tile's row (32 values at src) into dst
-__device__ __forceinline__ void sg_load_row(float* dst, const float* src) {
+// a row-major 32 x 32 tile at src into acc (4 x 8 values a lane, rows
+// r0.., columns c0..), through L2
+__device__ __forceinline__ void sg_load(float (&acc)[4][8], const float* src,
+                                        int r0, int c0) {
 #pragma unroll
-  for (int g = 0; g < SV_NB / 4; ++g) {
-    const float4 v = __ldcg(reinterpret_cast<const float4*>(src) + g);
-    dst[4 * g] = v.x, dst[4 * g + 1] = v.y, dst[4 * g + 2] = v.z,
-    dst[4 * g + 3] = v.w;
+  for (int i = 0; i < 4; ++i) {
+    const float4* s4 =
+        reinterpret_cast<const float4*>(src + (r0 + i) * SV_NB + c0);
+    const float4 u = __ldcg(s4), w = __ldcg(s4 + 1);
+    acc[i][0] = u.x, acc[i][1] = u.y, acc[i][2] = u.z, acc[i][3] = u.w;
+    acc[i][4] = w.x, acc[i][5] = w.y, acc[i][6] = w.z, acc[i][7] = w.w;
   }
+}
+
+// acc into a row-major 32 x 32 tile at dst (a workspace slot)
+__device__ __forceinline__ void sg_store(float* dst, const float (&acc)[4][8],
+                                         int r0, int c0) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float4* d4 = reinterpret_cast<float4*>(dst + (r0 + i) * SV_NB + c0);
+    d4[0] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    d4[1] = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+  }
+}
+
+// acc into shared rows of stride 33, for the steps of a lane a row
+__device__ __forceinline__ void sg_rows(float* rows, const float (&acc)[4][8],
+                                        int r0, int c0) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) rows[(r0 + i) * SV_LD + c0 + c] = acc[i][c];
+}
+
+// one warp, a lane a row R of the panel tile (I, J): its row of
+// L_IJ = A_IJ L_JJ^-T by the columns in order (rows: A_IJ, stride 33;
+// DkT: L_JJ^T; rdk, yk: the diagonal tile's reciprocals and y, all in
+// shared memory) into out as L_IJ^T (out[j][lane]), and b_R less L_IJ y_J
+// returned (bb: b_R with the earlier panels' terms): dba_solve_kernel's
+// sums
+__device__ __forceinline__ float sg_panel_row(const float* rows,
+                                              const float* DkT,
+                                              const float* rdk,
+                                              const float* yk, float bb,
+                                              float* out, int lane) {
+  float x[SV_NB];
+#pragma unroll
+  for (int c = 0; c < SV_NB; ++c) x[c] = rows[lane * SV_LD + c];
+#pragma unroll
+  for (int j = 0; j < SV_NB; ++j) {
+    x[j] = __fmul_rn(x[j], rdk[j]);
+#pragma unroll
+    for (int q = (j + 1) / 4; q < SV_NB / 4; ++q) {
+      const float4 v = reinterpret_cast<const float4*>(DkT + j * SV_NB)[q];
+      const float vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        if (4 * q + m > j) x[4 * q + m] = __fmaf_rn(-x[j], vv[m], x[4 * q + m]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < SV_NB; ++j) {
+    bb = __fmaf_rn(-x[j], yk[j], bb);
+    out[j * SV_NB + lane] = x[j];
+  }
+  return bb;
 }
 
 __global__ void __launch_bounds__(SV_THREADS, 1)
     dba_solve_grid_kernel(const SolveParams p) {
   extern __shared__ float4 sg_smem4[];
-  const int M = 6 * p.P, nb = (M + SV_NB - 1) / SV_NB, Mp = nb * SV_NB;
+  const int M = 6 * p.P, nb = (M + SV_NB - 1) / SV_NB, nt = sv_tiles(nb);
   const SgLayout lay = sg_layout(p.P);
   float* T = p.ws + lay.tiles;
-  float* PT = p.ws + lay.panel;
   float* b = p.ws + lay.b;
   float* rd = p.ws + lay.rd;
   unsigned* bad = reinterpret_cast<unsigned*>(p.ws + lay.bad);
-  unsigned* bar = reinterpret_cast<unsigned*>(p.ws + lay.bar);
-  float* Dk = reinterpret_cast<float*>(sg_smem4);  // the diagonal tile
-  float* DkT = Dk + SV_TILE;    // its L transposed
-  float* col = DkT + SG_TILE;   // the factor's column broadcast, 2 x 32
-  float* yk = col + 2 * SV_NB;  // its 32 values of b
-  float* rdk = yk + SV_NB;      // its pivots' reciprocal square roots
-  float* xs = rdk + SV_NB;      // the back-solve's x of two tiles
-  float* PJ = xs + 2 * SV_NB;   // the column's panel tile, transposed
+  unsigned* flag = reinterpret_cast<unsigned*>(p.ws + lay.flag);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float* PI = PJ + SG_TILE * (1 + warp);  // the warp's panel tile
   const int G = gridDim.x, blk = blockIdx.x;
-
-  // assemble, the tiles dealt over the blocks: (Sd + Sd^T) / 2 on and
-  // below the diagonal (sv_sym of the values dba_solve_kernel takes),
-  // zeros above it, the identity's rows and columns [M, Mp); b = v - cv,
-  // zeros past M
-  for (int f = blk; f < sv_tiles(nb); f += G) {
-    const int I = sv_tri_row(f), J = f - I * (I + 1) / 2;
-    float* t = T + (size_t)f * SG_TILE;
-    for (int e = tid; e < SG_TILE; e += SV_THREADS) {
-      const int R = I * SV_NB + e / SV_NB, C = J * SV_NB + e % SV_NB;
-      float x;
-      if (R >= M || C >= M) x = R == C ? 1.f : 0.f;
-      else if (C > R) x = 0.f;
-      else x = sv_sym(sg_entry(p, R, C), sg_entry(p, C, R));
-      t[e] = x;
-    }
-  }
-  for (int R = blk * SV_THREADS + tid; R < Mp; R += G * SV_THREADS)
-    b[R] = R >= M ? 0.f : p.cv ? __fsub_rn(p.v[R], p.cv[R]) : p.v[R];
-  sg_grid_sync(bar);
-
-  // column k's owner: its diagonal tile (every update in) factored by
-  // warp 0 with y_k riding along (sv_factor_tile), and L_kk, y_k, the
-  // pivots' reciprocals and the failure flag written back; then the
-  // panel below it, a thread a row (dba_solve_kernel's sums): L_Ik into
-  // its tile and, transposed, into the panel buffer of k's parity, and
-  // b_I less L_Ik y_k
-  auto factor_panel = [&](int k) {
-    if (warp == 0) {
-      sg_load_row(Dk + lane * SV_LD, T + sg_off(k, k) + lane * SV_NB);
-      yk[lane] = __ldcg(b + k * SV_NB + lane);
-      __syncwarp();
-      const bool failed = sv_factor_tile(Dk, yk, rdk, col, DkT, lane);
-      __syncwarp();
-      float* row = T + sg_off(k, k) + lane * SV_NB;
-      for (int c = 0; c < SV_NB; ++c)
-        row[c] = c <= lane ? Dk[lane * SV_LD + c] : 0.f;
-      b[k * SV_NB + lane] = yk[lane];
-      rd[k * SV_NB + lane] = rdk[lane];
-      if (lane == 0) bad[k] = failed;
-    }
+  float* const base = reinterpret_cast<float*>(sg_smem4);
+  float* W = base + warp * SG_WARP;
+  // block 0's counters: the critical warps' (F(J) done: J + 1; the panel
+  // tile (J + d, J) done: J + 1; the count of each published; F's
+  // failures by parity), the back-solve's (x's tiles done; each of its
+  // warps' current K; the columns' last K applied)
+  volatile int* ctl = reinterpret_cast<volatile int*>(base + SV_WARPS * SG_WARP);
+  volatile int* sF = ctl;      // F(J) done: J + 1
+  volatile int* sS = ctl;      // sS[d]: the panel tile (J + d, J) done: J + 1
+  volatile int* pub = ctl + SG_D + 1;  // [0]: F(J) published, [d]: (J + d, J)
+  volatile int* badk = ctl + 2 * SG_D + 2;  // 2
+  volatile int* xdone = badk + 2;
+  volatile int* bk = xdone + 1;  // SV_WARPS - 1
+  volatile int* prog = ctl + SG_CTL;
+  float* mail = base + SV_WARPS * SG_WARP + SG_CTL + nb;
+  float* ring = mail + 2 * SV_NB;
+#ifdef PVO_DBA_STAMPS
+  // sd: 8 a diagonal tile J (globaltimer: [0] F: the panel tile (J, J -
+  // 1) seen, [1] F: its factorization's start, [2] F: done, [3] the
+  // panel warp: F(J) seen, [4] the panel tile (J + 1, J) done, [5] the
+  // panel warp: its inputs seen, [6] F: the partial (J, J) seen, [7]
+  // F(J) published), then the back-solve's ([0] start, [1] the chain's
+  // end, [2] the end); sw: 8 a warp (cycles waiting, updating,
+  // factoring, solving panels, back-solving; the clock at its start and
+  // at its tiles' end, the globaltimer there); sd[8 nb + 5]: block 0's
+  // start (globaltimer)
+  long long* const sd = sv_stamps + SG_ST_BLOCK;
+  long long* const sw = sd + 8 * (nb + 1) + 8 * (blk * SV_WARPS + warp);
+  long long tw[5] = {0, 0, 0, 0, 0}, tc = clock64();
+  if (lane == 0) sw[5] = tc;
+  if (blk == 0 && tid == 0)
+    sv_stamps[SG_ST_BLOCK - 1] = 3, sd[8 * nb + 5] = sv_gtime();
+#define SG_T0() (tc = clock64())
+#define SG_T1(i) (tw[(i)] += clock64() - tc)
+#define SG_GT(i) (lane == 0 ? (void)(sd[(i)] = sv_gtime()) : (void)0)
+#else
+#define SG_T0() ((void)0)
+#define SG_T1(i) ((void)0)
+#define SG_GT(i) ((void)0)
+#endif
+  if (blk == 0) {
+    if (tid < SG_CTL) ctl[tid] = 0;
     __syncthreads();
-    float* Pk = PT + (size_t)(k & 1) * nb * SG_TILE;
-    for (int t = tid; t < (nb - 1 - k) * SV_NB; t += SV_THREADS) {
-      const int I = k + 1 + t / SV_NB, r = t % SV_NB;
-      float* row = T + sg_off(I, k) + r * SV_NB;
-      float* pt = Pk + (size_t)I * SG_TILE + r;
-      float x[SV_NB];
-      sg_load_row(x, row);
+    if (tid < SV_WARPS - 1) bk[tid] = nb;
+    for (int i = tid; i < nb; i += SV_THREADS) prog[i] = nb;
+    __syncthreads();
+  }
+  const int r0 = (lane % 8) * 4, c0 = (lane / 8) * 8;
+
+  if (blk == 0 && warp < SG_CRIT) {
+    // the critical block: the chain from one diagonal tile to the next on
+    // one SM with nothing else on it (on a one-block grid its warps
+    // SG_CRIT.. take the bulk). The tiles (J + d, J), d <= SG_D, come as
+    // partial sums (every panel but the last, J - 1) from their owners;
+    // warp 0 gives (J, J) its last panel and factors it, warp d gives
+    // (J + d, J) its last panel and, once F(J) is done, solves it; they
+    // hand each other their tiles and b in shared memory (by parity, each
+    // buffer written again only once its readers and the publisher are
+    // done), and warp SG_D + 1 publishes them
+    float* Dk = base + SG_F_DK;
+    auto out = [&](int d, int e) {  // (J + d, J)'s L^T, J of parity e ^ 1
+      return base + SG_S_OUT + (d - 1) * SG_S_PANEL + e * SG_TILE;
+    };
+    auto ybuf = [&](int d, int e) {  // its row's b after panel J
+      return base + SG_S_Y + (d - 1) * SG_S_PANEL + e * SV_NB;
+    };
+    if (warp == 0 || warp == SG_CRIT - 1) {
+      // the diagonal tile's last update on two warps, a 4 x 4 block of its
+      // lower triangle a lane (each entry summed over the panel's columns
+      // in order, as sg_update sums it), into Dk; then warp 0 factors it
+      const int q = (warp == 0 ? 0 : SG_TRI / 2) + lane;
+      const bool has = lane < SG_TRI / 2;
+      const int bi = sv_tri_row(has ? q : 0), bj = (has ? q : 0) - bi * (bi + 1) / 2;
+      float acc[4][4];
+      for (int J = 0; J < nb; ++J) {
+        const int e = J & 1;
+        SG_T0();
+        sg_wait(flag + sg_index(J, J, nb), nullptr, 1);
+        SG_T1(0);
+#ifdef PVO_DBA_STAMPS
+        if (warp == 0) SG_GT(8 * J + 6);
+#endif
+        if (has) {
+          const float* src = T + (size_t)sg_index(J, J, nb) * SG_TILE +
+                             4 * bi * SV_NB + 4 * bj;
 #pragma unroll
-      for (int j = 0; j < SV_NB; ++j) {
-        x[j] = __fmul_rn(x[j], rdk[j]);
+          for (int i = 0; i < 4; ++i) {
+            const float4 u = __ldcg(reinterpret_cast<const float4*>(
+                src + i * SV_NB));
+            acc[i][0] = u.x, acc[i][1] = u.y, acc[i][2] = u.z, acc[i][3] = u.w;
+          }
+        }
+        // F(J - 2)'s buffers published before they are written again
+        if (warp == 0 && J >= 2) sg_wait_shared(pub, J - 1, true);
+        if (J > 0) {
+          SG_T0();
+          sg_wait_shared(sS + 1, J, true);
+          SG_T1(0);
+#ifdef PVO_DBA_STAMPS
+          if (warp == 0) SG_GT(8 * J);
+#endif
+          SG_T0();
+          const float* L = out(1, e);  // L_{J,J-1}^T
+          if (has) {
+#pragma unroll 4
+            for (int kk = 0; kk < SV_NB; ++kk) {
+              const float4 a4 =
+                  *reinterpret_cast<const float4*>(L + kk * SV_NB + 4 * bi);
+              const float4 b4 =
+                  *reinterpret_cast<const float4*>(L + kk * SV_NB + 4 * bj);
+              const float li[4] = {a4.x, a4.y, a4.z, a4.w};
+              const float lj[4] = {b4.x, b4.y, b4.z, b4.w};
 #pragma unroll
-        for (int g = (j + 1) / 4; g < SV_NB / 4; ++g) {
-          const float4 v = reinterpret_cast<const float4*>(DkT + j * SV_NB)[g];
-          const float vv[4] = {v.x, v.y, v.z, v.w};
+              for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int m = 0; m < 4; ++m)
-            if (4 * g + m > j)
-              x[4 * g + m] = __fmaf_rn(-x[j], vv[m], x[4 * g + m]);
+                for (int c = 0; c < 4; ++c)
+                  acc[i][c] = __fmaf_rn(-li[i], lj[c], acc[i][c]);
+            }
+          }
+          SG_T1(1);
+        }
+        if (has)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              Dk[(4 * bi + i) * SV_LD + 4 * bj + c] = acc[i][c];
+        asm volatile("bar.sync 1, 64;" ::: "memory");
+        if (warp != 0) continue;
+        float* DkT = base + SG_F_DKT + e * SG_TILE;
+        float* yk = base + SG_F_Y + e * SV_NB;
+        float* rdk = base + SG_F_RD + e * SV_NB;
+        yk[lane] = J == 0 ? sg_rhs(p, M, lane) : ybuf(1, e)[lane];
+        __syncwarp();
+        SG_T0();
+#ifdef PVO_DBA_STAMPS
+        SG_GT(8 * J + 1);
+        // [33] the call, [34] its return, [35] the signal (clock)
+        if (lane == 0) sv_stamps[SV_ST_STEP + 64 * J + 33] = clock64();
+#endif
+        const bool failed = sv_factor_tile<true>(
+            Dk, yk, rdk, DkT, lane SV_STA(sv_stamps + SV_ST_STEP + 64 * J));
+#ifdef PVO_DBA_STAMPS
+        if (lane == 0) sv_stamps[SV_ST_STEP + 64 * J + 34] = clock64();
+#endif
+        if (lane == 0) badk[e] = failed;
+        sg_signal(sF, J + 1, lane);
+#ifdef PVO_DBA_STAMPS
+        if (lane == 0) sv_stamps[SV_ST_STEP + 64 * J + 35] = clock64();
+#endif
+        SG_T1(2);
+#ifdef PVO_DBA_STAMPS
+        SG_GT(8 * J + 2);
+#endif
+      }
+    } else if (warp <= SG_D) {
+      // panel warp d: (J + d, J) for J + d < nb. Its last panel J - 1:
+      // L_{J+d,J-1} (warp d + 1's tile of the step before, a bulk tile
+      // through L2 for d = SG_D) and L_{J,J-1} (warp 1's); its b from
+      // warp d + 1's or from b (d = SG_D, after the bulk's terms)
+      const int d = warp;
+      float* rows = base + SG_S_ROWS + (d - 1) * SG_S_PANEL;
+      float* Lg = base + SG_S_LG;
+      float acc[4][8];
+      for (int J = 0; J + d < nb; ++J) {
+        const int e = J & 1, f = e ^ 1, R = (J + d) * SV_NB + lane;
+        SG_T0();
+        sg_wait(flag + sg_index(J + d, J, nb), nullptr, 1);
+        if (d == SG_D && J > 0)
+          sg_wait(flag + sg_index(J + d, J - 1, nb), nullptr, 2);
+        SG_T1(0);
+#ifdef PVO_DBA_STAMPS
+        if (d == 1) SG_GT(8 * J + 5);
+#endif
+        SG_T0();
+        sg_load(acc, T + (size_t)sg_index(J + d, J, nb) * SG_TILE, r0, c0);
+        float bb = J == 0 ? sg_rhs(p, M, R) : 0.f;
+        if (J > 0) {
+          const float* PI = Lg;
+          if (d == SG_D) {
+            sg_stage<SV_NB>(Lg, T + (size_t)sg_index(J + d, J - 1, nb) * SG_TILE,
+                            lane);
+            bb = __ldcg(b + R);
+          } else {
+            sg_wait_shared(sS + d + 1, J, true);
+            PI = out(d + 1, e);
+            bb = ybuf(d + 1, e)[lane];
+          }
+          if (d > 1) sg_wait_shared(sS + 1, J, true);
+          __syncwarp();
+          sg_update(acc, PI, out(1, e), r0, c0);
+        }
+        sg_rows(rows, acc, r0, c0);
+        __syncwarp();
+        SG_T1(1);
+        // the buffers of (J - 2 + d, J - 2) published, and read by the
+        // step before's warps (warp d - 1 reads warp d's, every other
+        // warp 1's), before they are written again
+        if (J >= 2) sg_wait_shared(pub + d, J - 1, true);
+        if (J > 0) {
+          if (d > 1) sg_wait_shared(sS + d - 1, J, true);
+          else
+            for (int o = 2; o <= SG_D && J + o - 1 < nb; ++o)
+              sg_wait_shared(sS + o, J, true);
+        }
+        SG_T0();
+        sg_wait_shared(sF, J + 1, true);
+        SG_T1(0);
+#ifdef PVO_DBA_STAMPS
+        if (d == 1) SG_GT(8 * J + 3);
+#endif
+        SG_T0();
+        bb = sg_panel_row(rows, base + SG_F_DKT + e * SG_TILE,
+                          base + SG_F_RD + e * SV_NB,
+                          base + SG_F_Y + e * SV_NB, bb, out(d, f), lane);
+        ybuf(d, f)[lane] = bb;
+        sg_signal(sS + d, J + 1, lane);
+        SG_T1(3);
+#ifdef PVO_DBA_STAMPS
+        if (d == 1) SG_GT(8 * J + 4);
+#endif
+      }
+    } else if (warp == SG_D + 1) {
+      // F(J) and then (J + d, J) into the workspace, each by its flag
+      for (int J = 0; J < nb; ++J) {
+        const int e = J & 1, R = J * SV_NB + lane;
+        sg_wait_shared(sF, J + 1, true);
+        const float* DkT = base + SG_F_DKT + e * SG_TILE;
+        float* dst = T + (size_t)sg_index(J, J, nb) * SG_TILE;
+        // L^T (its diagonal and above zero: never read), y, the
+        // reciprocals
+        for (int c = 0; c < SV_NB; ++c)
+          dst[c * SV_NB + lane] = c < lane ? DkT[c * SV_NB + lane] : 0.f;
+        b[R] = base[SG_F_Y + e * SV_NB + lane];
+        rd[R] = base[SG_F_RD + e * SV_NB + lane];
+        if (lane == 0) bad[J] = badk[e];
+        sg_signal(pub, J + 1, lane);
+        sg_publish(flag + sg_index(J, J, nb), lane, 2);
+#ifdef PVO_DBA_STAMPS
+        SG_GT(8 * J + 7);
+#endif
+        for (int d = 1; d <= SG_D && J + d < nb; ++d) {
+          sg_wait_shared(sS + d, J + 1, true);
+          const float* L = out(d, e ^ 1);
+          dst = T + (size_t)sg_index(J + d, J, nb) * SG_TILE;
+          for (int c = 0; c < SV_NB; ++c)
+            dst[c * SV_NB + lane] = L[c * SV_NB + lane];
+          sg_signal(pub + d, J + 1, lane);
+          sg_publish(flag + sg_index(J + d, J, nb), lane, 2);
         }
       }
-      float bb = __ldcg(b + I * SV_NB + r);
+    }
+  } else if (blk >= (G > 1) && (G > 1 || warp >= SG_CRIT)) {
+    // the bulk: tile g of the column-major order on bulk block g mod NB,
+    // its warp (g / NB) mod NW (block 0 is the critical block, but on a
+    // one-block grid, whose warps SG_CRIT.. take the bulk), so that each
+    // step's remaining tiles spread over every block. A warp takes its
+    // tiles in order (by column, then row), each from the system's
+    // entries, in registers, through the panels k < J in order as their
+    // tiles (I, k) and (J, k) are published (each panel's 32 columns in
+    // order); a tile (J + d, J), d <= SG_D, stops before its last panel
+    // and publishes that partial sum for the critical block; any other waits
+    // for its diagonal tile and solves its rows, a lane a row, taking its
+    // term out of b_I (dba_solve_kernel's sums). A warp waits only on
+    // tiles of earlier columns or on its column's diagonal tile, which
+    // waits on nothing of later columns: no wait closes a cycle
+    const int B0 = G > 1, W0 = G > 1 ? 0 : SG_CRIT;
+    const int NB = G - B0, NW = SV_WARPS - W0;
+    int J = 0, g0 = 0;  // the current column and its first tile
+    for (int g = (blk - B0) + NB * (warp - W0); g < nt; g += NB * NW) {
+      while (g >= g0 + nb - J) g0 += nb - J, ++J;
+      const int I = J + g - g0;
+      const bool diag = I == J, part = I - J <= SG_D;
+      const bool above = diag && c0 > r0 + 3;
+      const int kend = part ? J - 1 : J;  // the panels taken here
+      float acc[4][8];
 #pragma unroll
-      for (int j = 0; j < SV_NB; ++j) {
-        pt[j * SV_NB] = x[j];
-        bb = __fmaf_rn(-x[j], yk[j], bb);
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+          acc[i][c] = sg_system(p, M, I * SV_NB + r0 + i, J * SV_NB + c0 + c);
+      float* PI = W;
+      float* PJ = diag ? W : W + SG_TILE;
+      for (int k = 0; k < kend; ++k) {
+        SG_T0();
+        sg_wait(flag + sg_index(I, k, nb),
+                diag ? nullptr : flag + sg_index(J, k, nb), 2);
+        SG_T1(0);
+        SG_T0();
+        sg_stage<SV_NB>(PI, T + (size_t)sg_index(I, k, nb) * SG_TILE, lane);
+        if (!diag)
+          sg_stage<SV_NB>(PJ, T + (size_t)sg_index(J, k, nb) * SG_TILE, lane);
+        __syncwarp();
+        if (!above) sg_update(acc, PI, PJ, r0, c0);
+        __syncwarp();
+        SG_T1(1);
+      }
+      float* dst = T + (size_t)g * SG_TILE;
+      if (part) {
+        sg_store(dst, acc, r0, c0);
+        sg_publish(flag + g, lane, 1);
+        continue;
+      }
+      // the panel tile (I, J), I > J + SG_D
+      float* DkT = W + SV_TILE;
+      float* yk = DkT + SG_TILE;
+      float* rdk = yk + SV_NB;
+      sg_rows(W, acc, r0, c0);
+      const int R = I * SV_NB + lane;
+      SG_T0();
+      sg_wait(flag + sg_index(J, J, nb), nullptr, 2);
+      SG_T1(0);
+      SG_T0();
+      sg_stage<SV_NB>(DkT, T + (size_t)sg_index(J, J, nb) * SG_TILE, lane);
+      yk[lane] = __ldcg(b + J * SV_NB + lane);
+      rdk[lane] = __ldcg(rd + J * SV_NB + lane);
+      const float b0 = J == 0 ? sg_rhs(p, M, R) : __ldcg(b + R);
+      __syncwarp();
+      b[R] = sg_panel_row(W, DkT, rdk, yk, b0, dst, lane);
+      sg_publish(flag + g, lane, 2);
+      SG_T1(3);
+      __syncwarp();
+    }
+  }
+#ifdef PVO_DBA_STAMPS
+  if (lane == 0) {
+    for (int i = 0; i < 4; ++i) sw[i] = tw[i];
+    sw[6] = clock64(), sw[7] = sv_gtime();
+  }
+#endif
+
+  // L^T x = y on block 0, once the last diagonal tile's flag is set
+  // (every tile is final before it). Warp 0 is the chain: for I from the
+  // last, b_I less L_{I+1,I}^T x_{I+1} over the tile's rows in order,
+  // then L_II^T x_I = z (as dba_solve_kernel), the next step's two tiles
+  // and reciprocals loaded while it computes; x_I goes to a ring in
+  // shared memory. The other 15 warps take b_J's earlier terms, K from
+  // the last down to J + 2, column J on warp 1 + J mod 15, each as x_K
+  // comes, so each entry takes its terms in dba_solve_kernel's order; the
+  // chain waits only on column I's last term, which comes in a mailbox
+  const int D = G > 1 ? SG_NEAR : nb;  // column J's terms K >= J + D remote
+  unsigned* xg = flag + nt;            // x's tiles published
+  unsigned* colf = flag + nt + 1;      // column J's far terms done
+  if (blk != 0) {
+    // the far terms: column J on warp J mod (16 (G - 1)) of the blocks
+    // 1..G-1 (by column, the nearest first), b_J less L_KJ^T x_K for K
+    // from the last down to J + D, as x is published, each next tile in
+    // flight; then b_J and the column's flag
+    const int NR = SV_WARPS * (G - 1), u = (blk - 1) * SV_WARPS + warp;
+    const int last = nb - 1 - D;  // the last column with far terms
+    if (u > last) return;
+    SG_T0();
+    sg_wait(flag + nt - 1, nullptr, 2);
+    float* Lt = W;
+    float* xk = W + SV_NB * SG_LD;
+    for (int J = last - (last - u) % NR; J >= 0; J -= NR) {
+      float z = __ldcg(b + J * SV_NB + lane);
+      float4 nt4[SG_TILE / 128];
+      auto fetch = [&](int K) {
+        const float4* s4 = reinterpret_cast<const float4*>(
+            T + (size_t)sg_index(K, J, nb) * SG_TILE);
+#pragma unroll
+        for (int q = 0; q < SG_TILE / 128; ++q)
+          nt4[q] = __ldcg(s4 + q * 32 + lane);
+      };
+      fetch(nb - 1);
+      for (int K = nb - 1; K >= J + D; --K) {
+        sg_wait(xg, nullptr, nb - K);
+        xk[lane] = __ldcg(b + K * SV_NB + lane);
+#pragma unroll
+        for (int q = 0; q < SG_TILE / 128; ++q) {
+          const int e = q * 32 + lane;
+          reinterpret_cast<float4*>(Lt)[(e / 8) * (SG_LD / 4) + e % 8] = nt4[q];
+        }
+        __syncwarp();
+        if (K - 1 >= J + D) fetch(K - 1);
+        z = sg_dot_less(z, Lt + lane * SG_LD, xk);
+        __syncwarp();
+      }
+      b[J * SV_NB + lane] = z;
+      sg_publish(colf + J, lane, 1);
+    }
+    SG_T1(4);
+#ifdef PVO_DBA_STAMPS
+    if (lane == 0) sw[4] = tw[4];
+#endif
+    return;
+  }
+
+  // L^T x = y on block 0, once the last diagonal tile's flag is set
+  // (every tile is final before it). Warp 0 is the chain: for I from the
+  // last, b_I less L_{I+1,I}^T x_{I+1} over the tile's rows in order,
+  // then L_II^T x_I = z (as dba_solve_kernel), the next step's tiles and
+  // reciprocals staged while it computes; x_I goes to a ring in shared
+  // memory. Warp 1 copies x into b and publishes it for the far terms;
+  // warps 2-15 take each column's near terms, K from J + D - 1 (after
+  // the column's far terms' flag) down to J + 2, column J on warp 2 + J
+  // mod 14, each as x_K comes, so each entry takes its terms in
+  // dba_solve_kernel's order; the chain waits only on column I's last
+  // term, which comes in a mailbox
+  SG_T0();
+  sg_wait(flag + nt - 1, nullptr, 2);
+#ifdef PVO_DBA_STAMPS
+  if (tid == 0) sd[8 * nb] = sv_gtime();
+#endif
+  if (warp == 0) {
+    // by parity: L^T of (I + 1, I) and of (I, I), stride 36, and the
+    // reciprocals, staged a step ahead (cp.async)
+    float* Lct = base + SG_B_LC;
+    float* Ldt = base + SG_B_LD;
+    float* rds = base + SG_B_RD;
+    auto stage = [&](int I, int e) {
+      sg_stage_async<SG_LD>(Ldt + e * SV_NB * SG_LD,
+                            T + (size_t)sg_index(I, I, nb) * SG_TILE, lane);
+      if (I + 1 < nb)
+        sg_stage_async<SG_LD>(Lct + e * SV_NB * SG_LD,
+                              T + (size_t)sg_index(I + 1, I, nb) * SG_TILE,
+                              lane);
+      if (lane < SV_NB / 4)
+        cp_async16(reinterpret_cast<float4*>(rds + e * SV_NB) + lane,
+                   reinterpret_cast<const float4*>(rd + I * SV_NB) + lane);
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    };
+    stage(nb - 1, (nb - 1) & 1);
+    for (int I = nb - 1; I >= 0; --I) {
+      const int e = I & 1;
+#ifdef PVO_DBA_STAMPS
+      // the chain's step I: [0] its start, [1] its tiles landed, [2] the
+      // mailbox seen, [3] x_I, [4] the ring's slot free, [5] its end
+      long long* cs = sv_stamps + SV_ST_STEP + 64 * I + 40;
+      if (lane == 0) cs[0] = clock64();
+#endif
+      if (I > 0) {
+        stage(I - 1, e ^ 1);
+        asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      } else {
+        asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      }
+      __syncwarp();
+#ifdef PVO_DBA_STAMPS
+      if (lane == 0) cs[1] = clock64();
+#endif
+      float z;
+      if (I + 2 < nb) {
+        sg_wait_shared(prog + I, I + 2, false);
+        z = mail[(I & 1) * SV_NB + lane];
+      } else {
+        z = __ldcg(b + I * SV_NB + lane);
+      }
+#ifdef PVO_DBA_STAMPS
+      if (lane == 0) cs[2] = clock64();
+#endif
+      __syncwarp();
+      if (I + 1 < nb)
+        z = sg_dot_less(z, Lct + e * SV_NB * SG_LD + lane * SG_LD,
+                        ring + ((I + 1) % SG_RING) * SV_NB);
+      // L_II^T x_I = z (sv_back_tile's steps; L_II[j][lane] from its L^T)
+      const float* Lt = Ldt + e * SV_NB * SG_LD + lane * SG_LD;
+      const float r = rds[e * SV_NB + lane];
+#pragma unroll
+      for (int j = SV_NB - 1; j >= 0; --j) {
+        const float xj = __shfl_sync(FULL, __fmul_rn(z, r), j);
+        z = lane == j ? xj : lane < j ? __fmaf_rn(-Lt[j], xj, z) : z;
+      }
+      const float x = z;
+#ifdef PVO_DBA_STAMPS
+      if (lane == 0) cs[3] = clock64();
+#endif
+      // the ring's slot of x_{I + SG_RING}, once every warp is past it
+      if (I + SG_RING < nb) {
+        const long long t0 = clock64();
+        while (!__all_sync(FULL, lane >= SV_WARPS - 1 ||
+                                     bk[lane] < I + SG_RING)) {
+          __nanosleep(20);
+          if (clock64() - t0 > SG_WAIT_CYCLES) __trap();
+        }
+        __threadfence_block();
+      }
+#ifdef PVO_DBA_STAMPS
+      if (lane == 0) cs[4] = clock64();
+#endif
+      ring[(I % SG_RING) * SV_NB + lane] = x;
+      sg_signal(xdone, nb - I, lane);
+#ifdef PVO_DBA_STAMPS
+      if (lane == 0) cs[5] = clock64();
+#endif
+    }
+#ifdef PVO_DBA_STAMPS
+    SG_GT(8 * nb + 1);
+#endif
+  } else if (warp == 1) {
+    for (int I = nb - 1; I >= 0; --I) {
+      if (lane == 0) bk[0] = I;
+      __syncwarp();
+      sg_wait_shared(xdone, nb - I, true);
+      b[I * SV_NB + lane] = ring[(I % SG_RING) * SV_NB + lane];
+      sg_publish(xg, lane, nb - I);
+    }
+    if (lane == 0) bk[0] = -1;
+  } else {
+    float* Lt = base + SG_B_BULK + (warp - 1) * SV_NB * SG_LD;  // L^T of (K, J)
+    // this warp's items (K, J): K from the last, its columns J in [K - D
+    // + 1, K - 2] (J = w mod 14) from the nearest; the next item's tile
+    // and b_J in flight while one computes; a column's first item after
+    // its far terms' flag
+    const int NW = SV_WARPS - 2, w = warp - 2;
+    auto top = [&](int K) { return K - 2 - ((K - 2 - w) % NW + NW) % NW; };
+    auto next = [&](int& K, int& Jc) {
+      Jc -= NW;
+      while ((Jc < 0 || Jc < K - D + 1) && --K >= 2) Jc = top(K);
+    };
+    int K = nb - 1, Jc = nb >= 3 ? top(nb - 1) : -1;
+    if (Jc < 0 || Jc < K - D + 1) next(K, Jc);
+    float4 nt4[SG_TILE / 128];
+    float nz = 0.f;
+    // a column's first near term starts from its far terms' sum, read
+    // once their flag is seen (not ahead: the wait holds no slot)
+    auto first = [&] { return K == Jc + D - 1 && Jc + D <= nb - 1; };
+    auto fetch = [&] {
+      const float4* s4 = reinterpret_cast<const float4*>(
+          T + (size_t)sg_index(K, Jc, nb) * SG_TILE);
+#pragma unroll
+      for (int q = 0; q < SG_TILE / 128; ++q) nt4[q] = __ldcg(s4 + q * 32 + lane);
+      if (!first()) nz = __ldcg(b + Jc * SV_NB + lane);
+    };
+    if (K >= 2) fetch();
+    for (int xK = nb; K >= 2;) {
+      if (K != xK) {
+        // x_K read from the ring from here on: the chain keeps its slot
+        if (lane == 0) bk[warp - 1] = K;
+        __syncwarp();
+        sg_wait_shared(xdone, nb - K, true);
+        xK = K;
+      }
+      if (first()) {
+        sg_wait(colf + Jc, nullptr, 1);
+        nz = __ldcg(b + Jc * SV_NB + lane);
       }
 #pragma unroll
-      for (int g = 0; g < SV_NB / 4; ++g)
-        reinterpret_cast<float4*>(row)[g] =
-            make_float4(x[4 * g], x[4 * g + 1], x[4 * g + 2], x[4 * g + 3]);
-      b[I * SV_NB + r] = bb;
-    }
-    __syncthreads();
-  };
-
-  // the tiles (I, J), I >= J, of column J less L_Ik L_Jk^T (panel k from
-  // its buffer), a warp a tile; L_Jk staged for the block, L_Ik for the
-  // warp
-  auto update_column = [&](int J, int k) {
-    const float4* Pk = reinterpret_cast<const float4*>(
-        PT + (size_t)(k & 1) * nb * SG_TILE);
-    for (int e = tid; e < SG_TILE / 4; e += SV_THREADS)
-      reinterpret_cast<float4*>(PJ)[e] =
-          __ldcg(Pk + (size_t)J * SG_TILE / 4 + e);
-    __syncthreads();
-    for (int I = J + warp; I < nb; I += SV_WARPS) {
-#pragma unroll
-      for (int g = 0; g < SG_TILE / 4 / 32; ++g)
-        reinterpret_cast<float4*>(PI)[g * 32 + lane] =
-            __ldcg(Pk + (size_t)I * SG_TILE / 4 + g * 32 + lane);
+      for (int q = 0; q < SG_TILE / 128; ++q) {
+        const int e = q * 32 + lane;
+        reinterpret_cast<float4*>(Lt)[(e / 8) * (SG_LD / 4) + e % 8] = nt4[q];
+      }
       __syncwarp();
-      sg_update_tile(T + sg_off(I, J), PI, PJ, I == J, lane);
+      const float z = sg_dot_less(nz, Lt + lane * SG_LD,
+                                  ring + (K % SG_RING) * SV_NB);
+      if (K == Jc + 2) {
+        // the column's last term here: to the chain's mailbox (its
+        // parity's slot: the other columns of that parity wait on x_Jc)
+        mail[(Jc & 1) * SV_NB + lane] = z;
+        sg_signal(prog + Jc, K, lane);
+      } else {
+        b[Jc * SV_NB + lane] = z;  // read again by this lane alone
+      }
+      next(K, Jc);
+      if (K >= 2) fetch();
       __syncwarp();
     }
-    __syncthreads();
-  };
-
-  // L L^T = Sd by 32-column panels, right-looking, block b owning the
-  // tile columns J = b mod G: at step k each block takes panel k out of
-  // its columns right of k, column k + 1 first where it owns it, and
-  // factors that column at once, so that panel k + 1 is ready at the
-  // step's barrier. Each tile takes the panels in order, each panel's 32
-  // columns in order, and b its terms in the same order: the sums of
-  // dba_solve_kernel and of dba_solve_emul.emulate
-  if (blk == 0) factor_panel(0);
-  sg_grid_sync(bar);
-  for (int k = 0; k + 1 < nb; ++k) {
-    for (int J = k + 1 + ((blk - (k + 1)) % G + G) % G; J < nb; J += G) {
-      update_column(J, k);
-      if (J == k + 1) factor_panel(k + 1);
-    }
-    sg_grid_sync(bar);
+    if (lane == 0) bk[warp - 1] = -1;
   }
-  if (blk != 0) return;
-
-  // block 0: L^T x = y by the tiles from the last, as dba_solve_kernel:
-  // warp 0 solves a diagonal tile; the columns above it take x_I out of
-  // b, warp 1 first those of the next diagonal tile, which it hands to
-  // warp 0 in yk
-  auto stage_diag = [&](int I) {
-    sg_load_row(Dk + lane * SV_LD, T + sg_off(I, I) + lane * SV_NB);
-    rdk[lane] = __ldcg(rd + I * SV_NB + lane);
-  };
-  if (warp == 0) {
-    stage_diag(nb - 1);
-    yk[lane] = __ldcg(b + (nb - 1) * SV_NB + lane);
-    __syncwarp();
-    sv_back_tile(Dk, yk, rdk, lane);
-    __syncwarp();
-    xs[((nb - 1) & 1) * SV_NB + lane] = yk[lane];
-    b[(nb - 1) * SV_NB + lane] = yk[lane];
-  }
+  SG_T1(4);
   __syncthreads();
-  for (int I = nb - 1; I > 0; --I) {
-    const float* xI = xs + (I & 1) * SV_NB;
-    if (warp == 0) {
-      stage_diag(I - 1);
-      sv_handoff_wait(1);
-      sv_back_tile(Dk, yk, rdk, lane);
-      __syncwarp();
-      xs[((I - 1) & 1) * SV_NB + lane] = yk[lane];
-      b[(I - 1) * SV_NB + lane] = yk[lane];
-    } else if (warp == 1) {
-      yk[lane] = sg_back_column(T, b, xI, I, (I - 1) * SV_NB + lane);
-      __syncwarp();
-      sv_handoff_arrive(1);
-    } else {
-      for (int t = tid - 2 * 32; t < (I - 1) * SV_NB;
-           t += SV_THREADS - 2 * 32)
-        b[t] = sg_back_column(T, b, xI, I, t);
-    }
-    __syncthreads();
-  }
+#ifdef PVO_DBA_STAMPS
+  if (lane == 0) sw[4] = tw[4];
+#endif
 
   // solve_psd's mask: zeros where a pivot failed or x is not finite
   bool ok = true;
@@ -1899,7 +2606,13 @@ __global__ void __launch_bounds__(SV_THREADS, 1)
   ok = __syncthreads_and(ok);
   for (int R = tid; R < M; R += SV_THREADS)
     p.dx[R] = ok ? __ldcg(b + R) : 0.f;
+#ifdef PVO_DBA_STAMPS
+  if (tid == 0) sd[8 * nb + 2] = sv_gtime();
+#endif
 }
+#undef SG_T0
+#undef SG_T1
+#undef SG_GT
 
 }  // namespace
 
@@ -1995,21 +2708,44 @@ extern "C" int pvo_dba_backsub(const float* poses, const float* dx,
   return (int)cudaGetLastError();
 }
 
+#ifdef PVO_DBA_STAMPS
+// the phase-timing build: zero the stamps (dst null) or copy the first n
+// to dst on the host, after the stream's work
+extern "C" int pvo_dba_solve_stamps(long long* dst, int n, void* stream) {
+  if (n < 0 || n > SV_STAMP_N) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  void* addr = nullptr;
+  cudaError_t err = cudaGetSymbolAddress(&addr, sv_stamps);
+  if (err == cudaSuccess)
+    err = dst ? cudaMemcpyAsync(dst, addr, n * sizeof(long long),
+                                cudaMemcpyDeviceToHost, st)
+              : cudaMemsetAsync(addr, 0, sizeof(long long) * SV_STAMP_N, st);
+  if (err == cudaSuccess) err = cudaStreamSynchronize(st);
+  return (int)err;
+}
+#endif
+
 extern "C" long long pvo_dba_solve_workspace(int P) {
   return P < 1 ? 0 : (long long)sg_layout(P).total;
 }
 
 // ws null: dba_solve_kernel (P <= SV_MAX_P); else dba_solve_grid_kernel
-// on ws, pvo_dba_solve_workspace(P) floats, 16-byte aligned
-extern "C" int pvo_dba_solve(const float* H, const float* S, const float* v,
-                             const float* cv, int P, float ep, float lm,
-                             float* dx, float* ws, void* stream) {
+// on ws, pvo_dba_solve_workspace(P) floats, 16-byte aligned, on
+// min(blocks, SMs) blocks (blocks < 1: every SM)
+extern "C" int pvo_dba_solve_blocks(const float* H, const float* S,
+                                    const float* v, const float* cv, int P,
+                                    float ep, float lm, float* dx, float* ws,
+                                    int blocks, void* stream) {
   if (P < 1) return (int)cudaErrorInvalidValue;
   const SolveParams p = {H, S, v, cv, dx, ws, ep, lm, P};
   const cudaStream_t st = (cudaStream_t)stream;
   if (ws) {
     if ((uintptr_t)ws % 16 != 0) return (int)cudaErrorMisalignedAddress;
-    // a block a tile column at most, one an SM, all resident
+    const int nb = (6 * P + SV_NB - 1) / SV_NB;
+    const size_t smem = sg_smem_bytes(nb);
+    if (smem > (size_t)SV_SMEM) return (int)cudaErrorInvalidValue;
+    // every block resident (a spin-wait needs its producer running): one
+    // an SM, the launch cooperative
     int dev = 0, sms = 0, per = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err == cudaSuccess)
@@ -2017,16 +2753,18 @@ extern "C" int pvo_dba_solve(const float* H, const float* S, const float* v,
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(dba_solve_grid_kernel,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 SG_SMEM);
+                                 (int)smem);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per, dba_solve_grid_kernel, SV_THREADS, SG_SMEM);
+          &per, dba_solve_grid_kernel, SV_THREADS, smem);
     if (err != cudaSuccess) return (int)err;
-    const int nb = (6 * P + SV_NB - 1) / SV_NB;
-    const int G = nb < sms ? nb : sms;
+    int G = sms;
+    if (blocks > 0 && blocks < G) G = blocks;
     if (per < 1 || G < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-    err = cudaMemsetAsync(ws + sg_layout(P).bar, 0, 2 * sizeof(unsigned),
-                          st);
+    // the tiles' ready flags, zeroed in the launch (a graph replays it)
+    const SgLayout lay = sg_layout(P);
+    err = cudaMemsetAsync(ws + lay.flag, 0,
+                          (lay.total - lay.flag) * sizeof(float), st);
     if (err != cudaSuccess) return (int)err;
     cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeCooperative;
@@ -2034,7 +2772,7 @@ extern "C" int pvo_dba_solve(const float* H, const float* S, const float* v,
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(G, 1, 1);
     cfg.blockDim = dim3(SV_THREADS, 1, 1);
-    cfg.dynamicSmemBytes = SG_SMEM;
+    cfg.dynamicSmemBytes = smem;
     cfg.stream = st;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
@@ -2052,4 +2790,11 @@ extern "C" int pvo_dba_solve(const float* H, const float* S, const float* v,
   if (err != cudaSuccess) return (int)err;
   dba_solve_kernel<<<1, SV_THREADS, smem, st>>>(p);
   return (int)cudaGetLastError();
+}
+
+// pvo_dba_solve_blocks on every SM
+extern "C" int pvo_dba_solve(const float* H, const float* S, const float* v,
+                             const float* cv, int P, float ep, float lm,
+                             float* dx, float* ws, void* stream) {
+  return pvo_dba_solve_blocks(H, S, v, cv, P, ep, lm, dx, ws, 0, stream);
 }

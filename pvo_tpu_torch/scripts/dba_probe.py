@@ -70,10 +70,14 @@ parent's in turns (parent, this, this, parent; against a three-launch
 source the back-substitution against its three launches, and also
 beside them with its eager retraction), the parent's outputs are held
 to the plain versions' too, and the back-substitution's disparities
-must equal the parent's bit for bit; the solve, which an earlier source
-lacks, is timed beside the plain version (the parent's route) and the
-library call. One JSON line last. ``--record_backend`` makes
-``BACKEND_CALLS[n_kf, image_size]`` (:func:`record_backend`).
+must equal the parent's bit for bit; the solve's dx must equal the
+parent's solve bit for bit at every P (above ``EMUL_MAX_P`` the exact
+check) and is timed against it in turns (a parent without a solve: the
+check and the turns left out). One JSON line last. ``--record_backend``
+makes ``BACKEND_CALLS[n_kf, image_size]`` (:func:`record_backend`).
+``--stamps`` splits the solve into its phases by the phase-timing build
+(:func:`stamp_report`; with ``--parent`` the parent's too, if its source
+has the stamp points).
 """
 
 from __future__ import annotations
@@ -81,6 +85,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import hashlib
 import json
 from pathlib import Path
 
@@ -482,9 +487,8 @@ def check(name, reps=0, seed=0, parent=None, solve_reps=None,
     "parent_disps_equal" (its disparities bit-equal to the parent's three
     launches) and "parent_all_ms" (those and the eager retraction);
     "dba_solve": :func:`check_solve`'s, timed with ``solve_reps`` where
-    given, else ``reps`` (an earlier source has no solve:
-    with ``parent`` the solve is timed beside the plain version, the
-    earlier route); and "dba": the call's poses' and disparities' worst
+    given, else ``reps`` (with ``parent``: against the parent's solve);
+    and "dba": the call's poses' and disparities' worst
     abs/rel difference. With ``cold`` every time is taken with the L2
     cleared before each call (``kbench.graph_time_ms``'s ``flush``)."""
     E, K, h, w, n_pairs, motion_only = SHAPES[name]
@@ -558,7 +562,7 @@ def check(name, reps=0, seed=0, parent=None, solve_reps=None,
                 res[k].update(parent_ms=[t[0], t[3]], ms_vs_parent=t[1:3])
     res["solve"] = check_solve(st["solve"],
                                reps if solve_reps is None else solve_reps,
-                               cold)
+                               cold, parent)
     res = {f"dba_{k}": v for k, v in res.items()}
     if reps:
         n_valid = int(a["valid"].sum())
@@ -602,7 +606,13 @@ def check(name, reps=0, seed=0, parent=None, solve_reps=None,
     return res
 
 
-def check_solve(args, reps=0, cold=False):
+# the grid kernel capped at these blocks (cuda_dba._solve_launch's
+# ``blocks``, at most nb) must equal the full grid bit for bit, up to
+# EMUL_MAX_P
+CAPPED_BLOCKS = (1, 2, 5)
+
+
+def check_solve(args, reps=0, cold=False, parent=None):
     """The damped solve at ``args`` (H, S_sum, v, corr_v, P of
     :func:`stages`; S_sum, corr_v None: motion-only) on the kernel that
     ``cuda_dba.solve_kernel(P)`` names ("kernel"). The plain version on
@@ -617,13 +627,20 @@ def check_solve(args, reps=0, cold=False):
     "emulation_equal" (bit-equal to ``dba_solve_emul.emulate``, the
     kernels' order in numpy; None above). At P <= ``cuda_dba.SOLVE_MAX_P``
     also "grid_equal": the grid kernel, launched below its range, equal
-    to the one block's dx bit for bit. With ``reps``: "ms" (the kernel in
-    turns with the plain version and the library yardstick), "plain_ms",
+    to the one block's dx bit for bit; on the grid kernel up to
+    ``EMUL_MAX_P`` "capped_equal": the grid capped at each of
+    ``CAPPED_BLOCKS`` blocks (those up to nb) equal to the full grid.
+    With ``parent`` (a library with a solve) "parent_equal": its dx
+    bit-equal to the parent's. With ``reps``: "ms" (the kernel in turns
+    with the plain version and the library yardstick), "plain_ms",
     "library_ms" (``torch.linalg.cholesky_ex`` and
     ``torch.cholesky_solve`` on the damped matrix made outside the timed
     call), "bound_ms" and "bound_by" (``kbench.dba_bound``), and at P <=
     ``cuda_dba.SOLVE_MAX_P`` "grid_ms" (the grid kernel there); with
-    ``cold`` the L2 cleared before each timed call."""
+    ``parent`` "parent_ms" and "ms_vs_parent" (parent, this, this,
+    parent; at P <= ``SOLVE_MAX_P`` also "grid_parent_ms" and
+    "grid_vs_parent"); with ``cold`` the L2 cleared before each timed
+    call."""
     H, S_sum, v, corr_v, P = args
     host = [None if t is None else t.cpu().numpy()
             for t in (H, S_sum, v, corr_v)]
@@ -635,12 +652,13 @@ def check_solve(args, reps=0, cold=False):
          "plain_card_cpu": rel_err(plain.cpu(), cpu),
          "fwd_plain": dba_solve_emul.forward_error(plain.cpu(), x64),
          "eta_plain": dba_solve_emul.backward_error(*host, P, plain.cpu())}
+    nb = -(-6 * P // 32)
 
     def kern():
         return cuda_dba.solve(*args)
 
-    def grid():
-        return cuda_dba._solve_launch(*args, 0.1, 1e-4, True)
+    def grid(blocks=None):
+        return cuda_dba._solve_launch(*args, 0.1, 1e-4, True, blocks)
     out, again = kern(), kern()
     got = out.cpu().numpy()
     r.update(err=rel_err(out, plain),
@@ -653,32 +671,276 @@ def check_solve(args, reps=0, cold=False):
              fwd=dba_solve_emul.forward_error(got, x64),
              eta=dba_solve_emul.backward_error(*host, P, got))
     small = P <= cuda_dba.SOLVE_MAX_P
+    n0 = cuda_dba.LAUNCHES[cuda_dba.GRID]
     if small:
-        n0 = cuda_dba.LAUNCHES[cuda_dba.GRID]
         r["grid_equal"] = torch.equal(grid(), out)
-        cuda_dba.LAUNCHES[cuda_dba.GRID] = n0
+    elif P <= EMUL_MAX_P:
+        r["capped_equal"] = all(torch.equal(grid(g), out)
+                                for g in CAPPED_BLOCKS if g <= nb)
+    with_parent = parent is not None and hasattr(parent, "pvo_dba_solve")
+    if with_parent:
+        with library(parent):
+            r["parent_equal"] = torch.equal(kern(), out)
+    cuda_dba.LAUNCHES[cuda_dba.GRID] = n0
     if reps:
         Sd = cuda_dba.damped(H, S_sum, P)
         b = (v if corr_v is None else v - corr_v).reshape(-1, 1)
 
-        def library():
+        def library_call():
             return torch.cholesky_solve(b, torch.linalg.cholesky_ex(Sd)[0])
 
         def plain_fn():
             return cuda_dba.solve_plain(*args)
         t = [kbench.graph_time_ms(f, reps, flush=cold)
-             for f in (kern, plain_fn, library, library, plain_fn, kern)]
+             for f in (kern, plain_fn, library_call, library_call, plain_fn,
+                       kern)]
         bound = kbench.dba_bound("dba_solve", P=P,
                                  motion_only=S_sum is None)
         r.update(ms=[t[0], t[5]], plain_ms=min(t[1], t[4]),
                  library_ms=min(t[2], t[3]), bound_ms=bound["ms"],
                  bound_by=bound["bound_by"])
+        n0 = cuda_dba.LAUNCHES[cuda_dba.GRID]
         if small:
-            n0 = cuda_dba.LAUNCHES[cuda_dba.GRID]
             r["grid_ms"] = [kbench.graph_time_ms(f, reps, flush=cold)
                             for f in (grid, kern, kern, grid)]
-            cuda_dba.LAUNCHES[cuda_dba.GRID] = n0
+        if with_parent:
+            def turns(fn):
+                def par():
+                    with library(parent):
+                        return kbench.graph_time_ms(fn, reps, flush=cold)
+                return [par(), kbench.graph_time_ms(fn, reps, flush=cold),
+                        kbench.graph_time_ms(fn, reps, flush=cold), par()]
+            t = turns(kern)
+            r.update(parent_ms=[t[0], t[3]], ms_vs_parent=t[1:3])
+            if small:
+                t = turns(grid)
+                r.update(grid_parent_ms=[t[0], t[3]],
+                         grid_vs_parent=t[1:3])
+        cuda_dba.LAUNCHES[cuda_dba.GRID] = n0
     return r
+
+
+# ---- the solve's phase stamps (csrc/dba.cu PVO_DBA_STAMPS) ----
+
+# the stamp build's slots, as csrc/dba.cu lays them out (SV_ST_STEP,
+# SG_ST_BLOCK, SG_ST_STRIDE)
+SV_ST_STEP, SG_ST_BLOCK, SG_ST_STRIDE = 1 << 19, 1 << 16, 2048
+# the shapes whose solves --stamps splits: the one block at the planner's
+# P = 32, the grid at the backend's P = 99 and the buffer's P = 511
+STAMP_SHAPES = ("planner", "backend", "buffer")
+
+
+def stamp_library(source=cuda_dba.SOURCE, chain=False):
+    """``source`` (a ``dba.cu``) built with PVO_DBA_STAMPS defined (and
+    PVO_DBA_STAMPS_CHAIN with ``chain``: a column step of the diagonal
+    tile keeps only its pivot chain, for the split alone; its dx is
+    wrong), bound by ``cuda_dba.load`` with ``pvo_dba_solve_stamps``."""
+    text = ("#define PVO_DBA_STAMPS 1\n" +
+            ("#define PVO_DBA_STAMPS_CHAIN 1\n" if chain else "") +
+            Path(source).read_text())
+    digest = hashlib.sha256(text.encode()).hexdigest()[:12]
+    cuda_corr.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path = cuda_corr.BUILD_DIR / f"dba_stamps_{digest}.cu"
+    path.write_text(text)
+    lib = cuda_dba.load(path)
+    lib.pvo_dba_solve_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                         ctypes.c_void_p]
+    lib.pvo_dba_solve_stamps.restype = ctypes.c_int
+    return lib
+
+
+def solve_stamps(lib, args, grid):
+    """One solve of ``args`` (H, S_sum, v, corr_v, P) by ``lib``'s grid
+    kernel where ``grid``, else its one block, from zeroed stamps;
+    returns the stamps (int64 numpy) up to the last diagonal tile's."""
+    P = args[4]
+    nb = -(-6 * P // 32)
+    n = SV_ST_STEP + 64 * nb
+    fn = lib.pvo_dba_solve_stamps
+    stream = torch.cuda.current_stream().cuda_stream
+    cuda_corr.check_rc(fn(None, 0, stream), "stamps zero")
+    with library(lib):
+        cuda_dba._solve_launch(*args, 0.1, 1e-4, grid)
+    buf = (ctypes.c_longlong * n)()
+    cuda_corr.check_rc(fn(buf, n, stream), "stamps read")
+    return np.frombuffer(buf, np.int64).copy()
+
+
+def _column_steps(s, nb):
+    """The diagonal tiles' column steps in cycles (nb x 32)."""
+    st = np.stack([s[SV_ST_STEP + 64 * k:SV_ST_STEP + 64 * k + 33]
+                   for k in range(nb)])
+    return np.diff(st, axis=1)
+
+
+def one_block_phases(s, nb):
+    """The one block's phases in us from its stamps ``s``: the assembly,
+    the first diagonal tile, and over the panel steps the panel solve,
+    warp 0's wait for the next diagonal tile's update, its factorization
+    and the other tiles' updates after it; the back-solve, the mask; the
+    column steps' cycles."""
+    ghz = (s[5] - s[1]) / (s[6] - s[0])
+    us = (lambda c: float(c) / ghz / 1e3)
+    base = 64 + 8 * np.arange(nb - 1)
+    ends = np.concatenate([[s[3]], s[base + 3]])
+    steps = _column_steps(s, nb)
+    return {"clock_ghz": float(ghz), "total_us": us(s[5] - s[1]),
+            "assembly_us": us(s[2] - s[1]),
+            "first_factor_us": us(s[3] - s[2]),
+            "panel_us": us((s[base] - ends[:-1]).sum()),
+            "handoff_us": us((s[base + 1] - s[base]).sum()),
+            "factor_us": us((s[base + 2] - s[base + 1]).sum()),
+            "after_factor_us": us((s[base + 3] - s[base + 2]).sum()),
+            "back_us": us(s[4] - ends[-1]), "mask_us": us(s[5] - s[4]),
+            "column_step_cycles": float(steps.mean()),
+            "column_steps_us": us(steps.sum()),
+            "column_step_cycles_by_tile": [round(float(c), 1) for c in
+                                           steps.mean(1)],
+            "factor_us_by_tile": [round(us(c), 3) for c in np.concatenate(
+                [[s[3] - s[2]], s[base + 2] - s[base + 1]])]}
+
+
+def grid_barrier_phases(s, nb, G):
+    """The grid kernel of one barrier a panel step (the design before
+    the dataflow grid) in us from its stamps: per step, the owner of the
+    next column's update of it, its factorization and its panel solve,
+    the step's other updates (the owner's and the other blocks' longest),
+    the barrier's wait (the owner's, and the other blocks' mean: their
+    idle time), the step; the assembly and its barrier, the back-solve."""
+    b0 = SG_ST_BLOCK
+    ghz = ((s[b0 + 8 * (nb + 1) + 2] - s[b0 + 1]) /
+           (s[b0 + 8 * (nb + 1) + 3] - s[b0]))
+    us = (lambda c: float(c) / ghz / 1e3)
+    blk = s[SG_ST_BLOCK:SG_ST_BLOCK + G * SG_ST_STRIDE].reshape(
+        G, SG_ST_STRIDE)
+    st = blk[:, 8:8 * (nb + 1)].reshape(G, nb, 8)
+    owner = np.arange(nb) % G
+    o = st[owner, np.arange(nb)]
+    own_update = np.where(np.arange(nb) > 0, o[:, 1] - o[:, 0], 0)
+    factor = o[:, 2] - np.where(np.arange(nb) > 0, o[:, 1], o[:, 0])
+    others = np.ones((G, nb), bool)
+    others[owner, np.arange(nb)] = False
+    wait = st[:, :, 5] - st[:, :, 4]
+    return {"clock_ghz": float(ghz),
+            "total_us": us(s[b0 + 8 * (nb + 1) + 2] - s[b0 + 1]),
+            "assembly_us": us(np.max(blk[:, 2] - blk[:, 1])),
+            "assembly_barrier_us": us(np.mean(blk[:, 3] - blk[:, 2])),
+            "steps": nb,
+            "own_update_us": us(own_update.sum()),
+            "factor_us": us(factor.sum()),
+            "panel_us": us((o[:, 3] - o[:, 2]).sum()),
+            "owner_other_updates_us": us((o[:, 4] - o[:, 3]).sum()),
+            "owner_barrier_us": us((o[:, 5] - o[:, 4]).sum()),
+            "others_updates_us": us(np.where(
+                others, st[:, :, 4] - st[:, :, 0], 0).max(0).sum()),
+            "others_barrier_mean_us": us(
+                (np.where(others, wait, 0).sum(0) /
+                 np.maximum(others.sum(0), 1)).sum()),
+            "step_us": us((st[0, :, 5] - st[0, :, 0]).sum()),
+            "back_us": us(s[b0 + 8 * (nb + 1) + 1] -
+                          s[b0 + 8 * (nb + 1)]),
+            "column_step_cycles": float(_column_steps(s, nb).mean())}
+
+
+def grid_phases(s, nb, G):
+    """The dataflow grid kernel in us from its stamps: the critical
+    block's chain from one diagonal tile to the next, summed over the
+    tiles (the diagonal tile's last update, from the panel tile (J, J -
+    1) seen to its factorization's start; the factorization; the
+    hand-off to the panel warp; the panel tile (J + 1, J)'s solve; the
+    hand-off back), the critical warps' waits on the bulk's tiles beyond
+    their own chain (the factorization for its partial sum, the panel
+    warp for its inputs), the publisher's lag, the factorization's span,
+    the back-solve's wait for the last flag, its chain (split by step:
+    waiting for its staged tiles, for its mailbox, computing, waiting
+    for the ring's slot, storing) and its mask; and
+    the warps' time (cycles of all warps summed, in us of one warp:
+    waiting on flags, updating, factoring, solving panels), with the
+    bulk warps' busy share of their span."""
+    sd = s[SG_ST_BLOCK:SG_ST_BLOCK + 8 * (nb + 1)].reshape(nb + 1, 8)
+    sw = s[SG_ST_BLOCK + 8 * (nb + 1):
+           SG_ST_BLOCK + 8 * (nb + 1) + 8 * 16 * G].reshape(16 * G, 8)
+    t0 = sd[nb, 5]
+    ghz = (sw[0, 6] - sw[0, 5]) / (sw[0, 7] - t0)
+    us = (lambda ns: float(ns) / 1e3)
+    cyc = (lambda c: float(c) / ghz / 1e3)
+    d = sd[:nb]
+    # the back-solve's chain, a step a row: its start, its tiles landed,
+    # the mailbox seen, x, the ring's slot free, its end (clock)
+    cs = np.stack([s[SV_ST_STEP + 64 * i + 40:SV_ST_STEP + 64 * i + 46]
+                   for i in range(nb)])
+    bulk = np.arange(16 * G) >= (16 if G > 1 else 5)
+    # the factorization's first step, the call, the last step's end, the
+    # return, the signal (clock)
+    fs = np.stack([s[SV_ST_STEP + 64 * k + np.array([0, 33, 32, 34, 35])]
+                   for k in range(nb)])
+    work = (sw[:, 1] + sw[:, 2] + sw[:, 3])[bulk]
+    span = (sw[:, 6] - sw[:, 5])[bulk]
+    used = span > 0
+    return {"clock_ghz": float(ghz), "steps": nb,
+            "total_us": us(sd[nb, 2] - t0),
+            "last_update_us": us((d[1:, 1] - d[1:, 0]).sum()),
+            "factor_us": us((d[:, 2] - d[:, 1]).sum()),
+            "hop_to_panel_us": us((d[:-1, 3] - d[:-1, 2]).sum()),
+            "panel_us": us((d[:-1, 4] - d[:-1, 3]).sum()),
+            "hop_to_diagonal_us": us((d[1:, 0] - d[:-1, 4]).sum()),
+            "factor_partial_wait_us": us(np.maximum(
+                d[1:, 6] - d[:-1, 2], 0).sum()),
+            "panel_input_wait_us": us(np.maximum(
+                d[1:-1, 5] - d[:-2, 4], 0).sum()),
+            "publish_lag_us": us((d[:, 7] - d[:, 2]).mean()),
+            "factorization_us": us(d[nb - 1, 7] - t0),
+            "back_wait_us": us(sd[nb, 0] - d[nb - 1, 7]),
+            "back_chain_us": us(sd[nb, 1] - sd[nb, 0]),
+            "back_mask_us": us(sd[nb, 2] - sd[nb, 1]),
+            **{f"chain_{k}_us": cyc(v) for k, v in zip(
+                ("stage_wait", "mail_wait", "compute", "ring_wait", "store"),
+                np.diff(cs, axis=1).sum(0))},
+            "warps_wait_us": cyc(sw[:, 0].sum()),
+            "warps_update_us": cyc(sw[:, 1].sum()),
+            "warps_factor_us": cyc(sw[:, 2].sum()),
+            "warps_panel_us": cyc(sw[:, 3].sum()),
+            "bulk_busy_share": float(work[used].sum() / span[used].sum()),
+            "column_step_cycles": float(_column_steps(s, nb).mean()),
+            # the factorization's call: entry to its first step, its last
+            # step to the return, the return to the hand-off's signal
+            **{k: float(v) for k, v in zip(
+                ("factor_entry_cycles", "factor_exit_cycles",
+                 "factor_signal_cycles"), np.mean(np.stack([
+                     fs[:, 0] - fs[:, 1], fs[:, 3] - fs[:, 2],
+                     fs[:, 4] - fs[:, 2]]), axis=1))},
+            "column_step_cycles_by_tile": [
+                round(float(c), 1) for c in _column_steps(s, nb).mean(1)],
+            "factor_us_by_tile": [round(us(c), 3) for c in d[:, 2] - d[:, 1]]}
+
+
+def stamp_report(name, source=cuda_dba.SOURCE, reps=5, grid=None):
+    """The solve at shape ``name`` split by its stamps: the median over
+    ``reps`` solves of each phase, on the kernel the rule of P names (or
+    the grid where ``grid``), and the column step of the pivot chain
+    alone (the chain build's, "chain_cycles")."""
+    dev = torch.device("cuda")
+    args = stages(shape_inputs(name, dev))["solve"]
+    P = args[4]
+    nb = -(-6 * P // 32)
+    grid = cuda_dba.solve_kernel(P) == cuda_dba.GRID if grid is None else grid
+    out = {}
+    for chain in (False, True):
+        lib = stamp_library(source, chain)
+        G = min(nb, torch.cuda.get_device_properties(dev).multi_processor_count)
+        reduce = (lambda s: one_block_phases(s, nb) if not grid else
+                  grid_phases(s, nb, G) if s[SG_ST_BLOCK - 1] == 3 else
+                  grid_barrier_phases(s, nb, G))
+        runs = [reduce(solve_stamps(lib, args, grid)) for _ in range(reps)]
+        med = {k: (float(np.median([r[k] for r in runs]))
+                   if np.isscalar(runs[0][k]) else runs[len(runs) // 2][k])
+               for k in runs[0]}
+        if chain:
+            out["chain_cycles"] = med["column_step_cycles"]
+        else:
+            out.update(med)
+    out.update(P=P, kernel=cuda_dba.GRID if grid else "dba_solve")
+    return out
 
 
 def absrel(x, y):
@@ -694,6 +956,8 @@ def failures(res):
             ok = (r["err"] <= r["limit"] and r["bit_stable"] and
                   r["graph_equal"] and r["emulation_equal"] is not False
                   and r.get("grid_equal", True) and
+                  r.get("capped_equal", True) and
+                  r.get("parent_equal", True) and
                   r["eta"] <= 2 * r["eta_plain"] + SOLVE_ETA_FLOOR)
             if not ok:
                 bad.append((k, r))
@@ -722,8 +986,24 @@ def main(argv=None):
     p.add_argument("--n_kf", type=int, default=100,
                    choices=sorted({n for n, _ in BACKEND_CALLS}))
     p.add_argument("--image_size", type=int, nargs=2, default=list(NARROW))
+    p.add_argument("--stamps", action="store_true",
+                   help="split the solve at the shapes (STAMP_SHAPES by "
+                        "default) by the phase-timing build of this dba.cu "
+                        "and of --parent's (nothing else)")
     args = p.parse_args(argv)
     kbench.require_cuda()
+    if args.stamps:
+        names = (list(STAMP_SHAPES) if args.shapes == list(SHAPES) else
+                 args.shapes)
+        out = {"gpu": kbench.gpu_line()}
+        for name in names:
+            for tag, src in (("parent", args.parent), ("this", cuda_dba.SOURCE)):
+                if src is None:
+                    continue
+                out[f"{name}/{tag}"] = r = stamp_report(name, src)
+                print(name, tag, json.dumps(r))
+        print(json.dumps(out))
+        return out
     if args.record_backend:
         key = (args.n_kf, tuple(args.image_size))
         if key not in BACKEND_CALLS:
@@ -741,8 +1021,31 @@ def main(argv=None):
         print(name, json.dumps(res))
         if failures(res):
             raise AssertionError(f"{name}: {failures(res)}")
+    if parent is not None and hasattr(parent, "pvo_dba_solve"):
+        for P in PARENT_SYSTEMS:
+            out[f"parent_equal_P{P}"] = ok = parent_equal(parent, P)
+            print(f"P={P} dx bit-equal to the parent's: {ok}")
+            if not ok:
+                raise AssertionError(f"P={P}: dx differs from the parent's")
     print(json.dumps(out))
     return out
+
+
+# the systems of dba_solve_emul.system (seed P) whose dx --parent also
+# holds bit-equal to the parent's: the default buffer's P = 511 and P =
+# 600 beyond it (the emulation's reach is EMUL_MAX_P)
+PARENT_SYSTEMS = (511, 600)
+
+
+def parent_equal(parent, P):
+    """Whether the solve of ``dba_solve_emul.system(P, P)`` is bit for bit
+    the parent library's."""
+    args = tuple(torch.from_numpy(a).cuda()
+                 for a in dba_solve_emul.system(P, P))
+    dx = cuda_dba.solve(*args, P)
+    with library(parent):
+        ref = cuda_dba.solve(*args, P)
+    return bool(torch.equal(dx, ref))
 
 
 if __name__ == "__main__":

@@ -23,8 +23,9 @@ module's attributes.
   does), factored with b = v - corr_v riding along, both triangular
   solves and ``solve_psd``'s failure mask. Up to ``SOLVE_MAX_P`` poses
   in one block's shared memory (``dba_solve``), above it on a grid of
-  blocks over a workspace in L2 (``dba_solve_grid``,
-  :func:`solve_workspace`): a rule of P, decided on the host.
+  blocks over a workspace in L2 (``dba_solve_grid``, a dataflow of
+  tiles published by flags, :func:`solve_workspace`): a rule of P,
+  decided on the host.
 - :func:`backsub` (kernel ``dba_backsub``): the iteration's whole update
   after the solve in one launch, the poses retracted by dx and, for a
   full iteration, the edge terms summed per depth frame in edge order,
@@ -95,6 +96,10 @@ def load(source=SOURCE):
         f = ctypes.c_float
         lib.pvo_dba_solve.argtypes = [p] * 4 + [i, f, f, p, p, p]
         fns.append(lib.pvo_dba_solve)
+    # (an earlier source may have no pvo_dba_solve_blocks, the capped grid)
+    if hasattr(lib, "pvo_dba_solve_blocks"):
+        lib.pvo_dba_solve_blocks.argtypes = [p] * 4 + [i, f, f, p, p, i, p]
+        fns.append(lib.pvo_dba_solve_blocks)
     if hasattr(lib, "pvo_dba_solve_workspace"):
         lib.pvo_dba_solve_workspace.argtypes = [i]
         lib.pvo_dba_solve_workspace.restype = ctypes.c_longlong
@@ -274,20 +279,22 @@ def solve_kernel(P):
 
 def solve_workspace(P):
     """``dba_solve_grid``'s workspace at ``P`` poses, offsets in floats
-    (``csrc/dba.cu`` sg_layout): the padded lower triangle's nb (nb + 1) /
-    2 tiles of 32 x 32 (nb = 6P / 32 rounded up), the panel transposed in
-    two buffers of nb tiles, b and the pivots' reciprocal square roots
-    (32 nb each), a failure flag a diagonal tile (nb, rounded up to 32)
-    and the grid barrier's counters (32). Returns {"tiles", "panel", "b",
-    "rd", "bad", "bar": offset, "total": floats, "nb": nb}."""
+    (``csrc/dba.cu`` sg_layout): the padded lower triangle's nt = nb (nb
+    + 1) / 2 tiles of 32 x 32 (nb = 6P / 32 rounded up) in column-major
+    order (each L^T once final), b and the pivots' reciprocal square
+    roots (32 nb each), a failure flag a diagonal tile (nb, rounded up to
+    32), then a ready flag a tile, x's published count and a flag a tile
+    column (nt + 1 + nb, rounded up to 32; the launch zeroes them).
+    Returns {"tiles", "b", "rd", "bad", "flag": offset, "total": floats,
+    "nb": nb, "nt": nt}."""
     nb = -(-6 * P // 32)
-    Mp, tile = 32 * nb, 32 * 32
-    out = {"tiles": 0, "panel": nb * (nb + 1) // 2 * tile}
-    out["b"] = out["panel"] + 2 * nb * tile
-    out["rd"] = out["b"] + Mp
-    out["bad"] = out["rd"] + Mp
-    out["bar"] = out["bad"] + -(-nb // 32) * 32
-    out.update(total=out["bar"] + 32, nb=nb)
+    nt = nb * (nb + 1) // 2
+    out = {"tiles": 0, "b": nt * 32 * 32}
+    out["rd"] = out["b"] + 32 * nb
+    out["bad"] = out["rd"] + 32 * nb
+    out["flag"] = out["bad"] + -(-nb // 32) * 32
+    out.update(total=out["flag"] + -(-(nt + 1 + nb) // 32) * 32, nb=nb,
+               nt=nt)
     return out
 
 
@@ -326,19 +333,26 @@ def solve(H, S_sum, v, corr_v, P, ep=0.1, lm=1e-4):
                          solve_kernel(P) == GRID)
 
 
-def _solve_launch(H, S_sum, v, corr_v, P, ep, lm, grid):
+def _solve_launch(H, S_sum, v, corr_v, P, ep, lm, grid, blocks=None):
     """:func:`solve` on the card by ``dba_solve_grid`` where ``grid``, else
     by ``dba_solve`` (P <= ``SOLVE_MAX_P``); ``dba_probe`` also times the
-    grid kernel below its range."""
+    grid kernel below its range. ``blocks`` (the grid only; tests and the
+    harnesses) caps the grid at 1 to nb = 6P / 32 rounded up blocks, below
+    its default of every SM, so that a warp owns several tiles and the
+    critical block takes bulk tiles too (one block)."""
     dev = H.device
     if P < 1 or (not grid and P > SOLVE_MAX_P):
         raise ValueError(f"dba_solve: P={P} (one block takes 1 to "
                          f"{SOLVE_MAX_P}, the grid any P >= 1)")
+    if blocks is not None and (not grid or
+                               not 1 <= blocks <= -(-6 * P // 32)):
+        raise ValueError(f"dba_solve: blocks={blocks} at P={P} (the grid "
+                         f"takes 1 to {-(-6 * P // 32)})")
     if (S_sum is None) != (corr_v is None):
         raise ValueError("dba_solve: S_sum and corr_v are both given or "
                          "neither")
-    blocks = (H,) if S_sum is None else (H, S_sum)
-    if (any(tuple(t.shape) != (P * P, D, D) for t in blocks) or
+    mats = (H,) if S_sum is None else (H, S_sum)
+    if (any(tuple(t.shape) != (P * P, D, D) for t in mats) or
             any(tuple(t.shape) != (P, D)
                 for t in ((v,) if corr_v is None else (v, corr_v)))):
         raise ValueError(f"dba_solve: H {tuple(H.shape)}, v "
@@ -355,14 +369,19 @@ def _solve_launch(H, S_sum, v, corr_v, P, ep, lm, grid):
     else:
         H, S_sum, v, corr_v = ts
     dx = torch.empty((P, D), dtype=torch.float32, device=dev)
-    # the grid kernel's workspace, from the caching allocator (in a
-    # capture, the graph's pool)
-    ws = (torch.empty(solve_workspace(P)["total"], dtype=torch.float32,
+    lib = _library()
+    # the grid kernel's workspace as the library sizes it (an earlier
+    # source's, under dba_probe --parent), from the caching allocator (in
+    # a capture, the graph's pool)
+    ws = (torch.empty(lib.pvo_dba_solve_workspace(P), dtype=torch.float32,
                       device=dev) if grid else None)
     name = GRID if grid else "dba_solve"
-    _launch(name, _library().pvo_dba_solve, dev, H.data_ptr(),
-            _ptr(S_sum), v.data_ptr(), _ptr(corr_v), P, ep, lm,
-            dx.data_ptr(), _ptr(ws))
+    args = (H.data_ptr(), _ptr(S_sum), v.data_ptr(), _ptr(corr_v), P, ep,
+            lm, dx.data_ptr(), _ptr(ws))
+    if blocks is None:
+        _launch(name, lib.pvo_dba_solve, dev, *args)
+    else:
+        _launch(name, lib.pvo_dba_solve_blocks, dev, *args, blocks)
     return dx
 
 

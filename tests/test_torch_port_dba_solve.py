@@ -26,9 +26,12 @@ On the card (``cuda`` marker, skipped here): the kernels against
 ``solve_plain`` and bit-equal to the emulation at P = 1 to 128 (one
 block to 48, the grid above), full and motion-only, also on asymmetric
 systems, two calls bit-equal, the grid kernel below its range equal to
-the one block, the failure cases zeros at P = 16, 49 and 99, P = 600
-against the plain version, and the workspace's size as the source
-computes it. ``tests/test_torch_port_dba_solve_sym.py`` holds the
+the one block, the grid capped at 1, 2 and 5 blocks (a block owning
+several tiles of a column and of a row) equal to the full grid and the
+emulation at P = 49, 64, 99 and 128, the failure cases zeros at P = 16,
+49 and 99 (on the full and the capped grid), a CUDA-graph replay of
+each kernel equal to its eager call, P = 600 against the plain version,
+and the workspace's size as the source computes it. ``tests/test_torch_port_dba_solve_sym.py`` holds the
 symmetrization, ``tests/test_torch_port_dba_solve_grid.py`` the P above
 48 on the CPU. The JAX tests import JAX inside:
 
@@ -297,3 +300,52 @@ def test_workspace_size_is_the_sources(dev, P):
     lib = cuda_dba._library()
     assert lib.pvo_dba_solve_workspace(P) == \
         cuda_dba.solve_workspace(P)["total"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [1, 2, 5])
+@pytest.mark.parametrize("P", [49, 64, 99, 128])
+def test_capped_grid_equals_the_full_grid(dev, P, blocks):
+    """The grid kernel on ``blocks`` blocks (each owning several tiles
+    of a column and of a row) gives the full grid's dx and the
+    emulation's bit for bit, on an asymmetric system too."""
+    H, S_sum, v, corr_v = case(P, True)
+    for sys_ in ((H, S_sum, v, corr_v),
+                 (emul.asymmetric(H, 2000 + P), S_sum, v, corr_v)):
+        args = torch_args(sys_, dev)
+        full = cuda_dba.solve(*args, P)
+        capped = cuda_dba._solve_launch(*args, P, 0.1, 1e-4, True, blocks)
+        assert torch.equal(capped, full)
+        assert np.array_equal(capped.cpu().numpy(), emul.emulate(*sys_, P))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [16, 49, 99])
+@pytest.mark.parametrize("kind", ["negative_pivot", "nan_H", "nan_v"])
+def test_capped_grid_failures_give_zeros(dev, kind, P):
+    args = torch_args(broken(kind, P), dev)
+    for blocks in (1, 2):
+        dx = cuda_dba._solve_launch(*args, P, 0.1, 1e-4, True, blocks)
+        assert not dx.cpu().numpy().any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [32, 99, 511])
+def test_replay_equals_eager(dev, P):
+    """A launch captured in a CUDA graph (the flags zeroed in the
+    launch) replays to the eager call's dx, twice."""
+    args = torch_args(case(P, True), dev)
+    eager = cuda_dba.solve(*args, P)
+    g = torch.cuda.CUDAGraph()
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        cuda_dba.solve(*args, P)
+        with torch.cuda.graph(g, stream=s):
+            out = cuda_dba.solve(*args, P)
+    torch.cuda.current_stream().wait_stream(s)
+    for _ in range(2):
+        out.zero_()
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)

@@ -18,10 +18,15 @@ On the CPU:
   through it (on the CPU the entry's plain version);
 - the wrapper's rule of P on ``meta`` tensors (no launch): one block up
   to 48, the grid above it at any P, P < 1 refused;
-- the workspace's layout (``cuda_dba.solve_workspace``) at P = 49, 99
-  and 511 as ``csrc/dba.cu``'s ``sg_layout`` computes it (the source
-  holds the same totals in a ``static_assert``; the card tests compare
-  its exported size).
+- the grid's ``blocks`` cap (``cuda_dba._solve_launch``, on ``meta``
+  tensors, the launch recorded): 1 to nb blocks reach the launch entry
+  that takes the cap, none the one that does not; 0, nb + 1 and a cap on
+  the one block are refused before any launch;
+- the workspace's layout (``cuda_dba.solve_workspace``: the tiles in
+  column-major order, b, the reciprocals, the failure flags, a ready
+  flag a tile) at P = 49, 99 and 511 as ``csrc/dba.cu``'s ``sg_layout``
+  computes it (the source holds the same totals in a ``static_assert``;
+  the card tests compare its exported size).
 The emulation takes 3 s at P = 99 here; P = 128 to 600 are held on the
 card (``tests/test_torch_port_dba_solve.py``, ``dba_probe``).
 
@@ -141,24 +146,65 @@ def test_p_below_one_is_refused():
 
 
 # P: (tile columns, tiles, workspace floats); the tiles 32 x 32 floats
-LAYOUTS = {49: (10, 55, 77504), 99: (19, 190, 234752),
-           511: (96, 4656, 4970624)}
+LAYOUTS = {49: (10, 55, 57088), 99: (19, 190, 196032),
+           511: (96, 4656, 4778752)}
 
 
 @pytest.mark.parametrize("P", sorted(LAYOUTS))
 def test_workspace_layout(P):
-    """The padded lower triangle's tiles first, then two panel buffers
-    of nb tiles, b and the reciprocals (32 nb each), nb flags rounded up
-    to 32 and the barrier's 32: every offset a multiple of 32 floats.
-    0.94 MB at P = 99, 19.9 MB at 511 (both within the 50 MB L2)."""
+    """The padded lower triangle's tiles first (column-major), then b
+    and the reciprocals (32 nb each), nb failure flags rounded up to 32,
+    then a ready flag a tile, x's count and a flag a column, rounded up
+    to 32: every offset a multiple of 32 floats. 0.78 MB at P = 99, 19.1
+    MB at 511 (both within the 50 MB L2)."""
     nb, tiles, total = LAYOUTS[P]
     w = cuda_dba.solve_workspace(P)
-    assert w["nb"] == nb == -(-6 * P // 32)
-    assert w["tiles"] == 0 and w["panel"] == tiles * 1024
-    assert w["b"] == w["panel"] + 2 * nb * 1024
+    assert w["nb"] == nb == -(-6 * P // 32) and w["nt"] == tiles
+    assert w["tiles"] == 0 and w["b"] == tiles * 1024
     assert w["rd"] == w["b"] + 32 * nb and w["bad"] == w["rd"] + 32 * nb
-    assert w["bar"] == w["bad"] + -(-nb // 32) * 32
-    assert w["total"] == w["bar"] + 32 == total
-    assert all(w[k] % 32 == 0 for k in ("panel", "b", "rd", "bad", "bar"))
+    assert w["flag"] == w["bad"] + -(-nb // 32) * 32
+    assert w["total"] == w["flag"] + -(-(tiles + 1 + nb) // 32) * 32 \
+        == total
+    assert all(w[k] % 32 == 0 for k in ("b", "rd", "bad", "flag"))
     src = cuda_dba.SOURCE.read_text()
     assert f"sg_layout({P}).total == {total}" in src
+
+
+class FakeLibrary:
+    """The launch entries' stand-ins on ``meta`` tensors: the workspace
+    size from the mirror, the entries recorded by ``_launch``."""
+    pvo_dba_solve = "pvo_dba_solve"
+    pvo_dba_solve_blocks = "pvo_dba_solve_blocks"
+
+    @staticmethod
+    def pvo_dba_solve_workspace(P):
+        return cuda_dba.solve_workspace(P)["total"]
+
+
+@pytest.mark.parametrize("P", [49, 99, 128])
+def test_the_grid_cap(monkeypatch, P):
+    """``_solve_launch``'s ``blocks``: 1 to nb reach the entry that takes
+    the cap (its last argument), no cap the uncapped entry; 0, nb + 1,
+    -1 and a cap on the one block raise before any launch."""
+    nb = -(-6 * P // 32)
+    seen = []
+    monkeypatch.setattr(cuda_dba, "_library", lambda: FakeLibrary)
+    monkeypatch.setattr(cuda_dba, "_launch",
+                        lambda name, fn, dev, *a: seen.append((name, fn, a)))
+    args = (meta(P * P, 6, 6), meta(P * P, 6, 6), meta(P, 6), meta(P, 6), P,
+            0.1, 1e-4)
+    for blocks in (1, 2, 5, nb):
+        cuda_dba._solve_launch(*args, True, blocks)
+        name, fn, a = seen.pop()
+        assert (name, fn, a[-1], a[4]) == ("dba_solve_grid",
+                                           "pvo_dba_solve_blocks", blocks, P)
+    cuda_dba._solve_launch(*args, True)
+    name, fn, a = seen.pop()
+    assert (name, fn, len(a)) == ("dba_solve_grid", "pvo_dba_solve", 9)
+    for blocks in (0, -1, nb + 1):
+        with pytest.raises(ValueError, match="blocks"):
+            cuda_dba._solve_launch(*args, True, blocks)
+    small = (meta(16 * 16, 6, 6), None, meta(16, 6), None, 16, 0.1, 1e-4)
+    with pytest.raises(ValueError, match="blocks"):
+        cuda_dba._solve_launch(*small, False, 1)
+    assert not seen
